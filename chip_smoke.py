@@ -1,0 +1,404 @@
+"""Smoke run of the PyTorch/CUDA port on one GPU.
+
+    python3 chip_smoke.py
+
+Builds the CUDA Legendre kernels from the sources in this checkout, holds
+each against its plain PyTorch version on the card, drives the port's main
+path at the repo's full widths (``make_plan("gl", ...)`` then ``alm2map``
+then ``map2alm``, the ``sht_cmb`` shapes l_max 2048 K 8 and l_max 4096 K 1),
+checks that every kernel of that path launched, times each kernel beside
+its bound, and anchors both kernel plans to the float64 ``torch`` plan.
+Prints the card's name and power limit, one JSON line of per-kernel
+numbers, and as its last line
+``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
+Exits non-zero, printing no result, without a CUDA device or without the
+rest of the repository.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                "src"))
+
+import repro_torch  # noqa: E402
+from repro_torch.core import sht, spectra  # noqa: E402
+from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels import legendre_cuda as lc  # noqa: E402
+from repro_torch.kernels import ref as kref  # noqa: E402
+from repro_torch.core import grids, legendre  # noqa: E402
+
+#: H100 SXM datasheet peaks (dense, 700 W): float32 on the CUDA cores and HBM3
+PEAK_F32_FLOPS = 67e12
+PEAK_BYTES_S = 3.35e12
+
+#: kernel vs plain version on the card, relative to max|plain|: the limit
+#: the CPU tests hold the plain version to against the reference.  Kernel
+#: and plain version round every recurrence operation alike and differ
+#: only in how the sums round, which stays far below it.
+KERNEL_TOL = 5e-5
+#: float32 round trip at the full widths (the reference's float32 plan grows
+#: roughly linearly in l_max: 2.5e-5 at l_max 512)
+ROUNDTRIP_TOL = 1e-3
+#: float32 kernel plans vs the float64 torch plan at l_max 512
+ANCHOR_TOL = 1e-3
+
+TPU_KERNELS = {
+    "synth_vpu": "src/repro/kernels/legendre_pallas.py:222",
+    "synth_mxu": "src/repro/kernels/legendre_pallas.py:326",
+    "anal_vpu": "src/repro/kernels/legendre_pallas.py:436",
+    "anal_mxu": "src/repro/kernels/legendre_pallas.py:1042",
+    "anal_reduce": "src/repro/kernels/legendre_pallas.py:430",
+}
+SOURCE = "src/repro_torch/kernels/csrc/legendre.cu"
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def cuda_time_ms(fn, reps: int = 5) -> float:
+    """Mean device time of ``fn()`` over ``reps`` calls after one warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def host_ms(fn, reps: int = 3) -> float:
+    """Mean wall time of ``fn()`` ending in a device synchronise, after one
+    warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def seeds_for(l_max: int, m_vals, fold: bool, dev):
+    """(m_vals, x, pmm, pms) kernel operands on ``dev`` for a GL grid."""
+    g = grids.make_grid("gl", l_max=l_max)
+    nh = (g.n_rings + 1) // 2
+    sin = g.sin_theta[:nh] if fold else g.sin_theta
+    x = g.cos_theta[:nh] if fold else g.cos_theta
+    pmm, pms = kref.prepare_seeds(m_vals, sin, legendre.log_mu(l_max))
+    return (torch.as_tensor(np.asarray(m_vals), dtype=torch.int32, device=dev),
+            torch.as_tensor(x, dtype=torch.float32, device=dev),
+            torch.as_tensor(pmm, device=dev), torch.as_tensor(pms, device=dev))
+
+
+def random_a(gen, m_vals, L, K2, dev):
+    """(Mp, L, 2K) f32 coefficients, zero where l < m and on padding rows."""
+    m = torch.as_tensor(np.asarray(m_vals))[:, None]
+    a = torch.rand((len(m_vals), L, K2), generator=gen) * 2 - 1
+    keep = (m >= 0) & (torch.arange(L)[None, :] >= m)
+    return (a * keep[..., None]).to(dev)
+
+
+def legendre_work(m_vals, l_end: int, rings: int, K2: int) -> tuple:
+    """(triples, flops) of one Legendre pass: each (m, l >= m, ring) triple
+    costs 4 float32 operations of recurrence and 2 per channel."""
+    m = np.asarray(m_vals)
+    triples = int(np.sum(np.clip(l_end - m[m >= 0], 0, None))) * rings
+    return triples, triples * (4 + 2 * K2)
+
+
+def bound_ms(flops: float, nbytes: float) -> tuple:
+    t_ops = flops / PEAK_F32_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes")
+
+
+def nbytes(*ts) -> int:
+    return int(sum(t.numel() * t.element_size() for t in ts))
+
+
+# ---------------------------------------------------------------------------
+# phase 2: every kernel against its plain version at l_max 256
+# ---------------------------------------------------------------------------
+
+
+def held(name: str, got: torch.Tensor, want: torch.Tensor, what: str,
+         pad=None) -> float:
+    """Hold a kernel's output against its plain version's at KERNEL_TOL
+    (relative to max|plain|), padding rows exactly zero; log and return
+    max|difference|."""
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    rel = err / float(want.abs().max())
+    zero_pad = pad is None or bool((got[pad] == 0).all())
+    log(f"  {name:11s} {what}: max|d|/max|plain| = {rel:.3e}"
+        + ("" if pad is None else f"  padding rows zero: {zero_pad}"))
+    if not (rel < KERNEL_TOL and zero_pad):
+        raise AssertionError(f"{name} disagrees with its plain version "
+                             f"({what})")
+    return err
+
+
+def check_kernels(dev) -> None:
+    """Hold each kernel against its plain version at l_max 256, K 1 and 8,
+    fold off and on, with padding rows among the real ones; log kernel and
+    plain times with fold off at each variant's main-path K (1 for vpu, 8
+    for mxu)."""
+    l_max = 256
+    gen = torch.Generator().manual_seed(2)
+    # plan padding: -1 rows among the real ones must come out exactly zero
+    m_vals = np.concatenate([np.arange(l_max + 1), [-1, -1]])
+    m_vals = np.insert(m_vals, 17, -1)
+    pad = np.flatnonzero(m_vals < 0)
+    L = l_max + 1
+    for fold in (False, True):
+        m_t, x, pmm, pms = seeds_for(l_max, m_vals, fold, dev)
+        R, P = x.shape[0], (2 if fold else 1)
+        for K in (1, 8):
+            K2 = 2 * K
+            a = random_a(gen, m_vals, L, K2, dev)
+            dw = (torch.rand((len(m_vals), P, R, K2), generator=gen) * 2 - 1
+                  ).to(dev)
+            want = {}
+            want["synth"], plain_s = plain_ms(lambda: kref.synth_ref(
+                a, m_t, x, pmm, pms, l_max=l_max, fold=fold))
+            want["anal"], plain_a = plain_ms(lambda: kref.anal_ref(
+                dw, m_t, x, pmm, pms, l_max=l_max, fold=fold))
+            plain = {"synth": plain_s, "anal": plain_a}
+            what = f"l_max {l_max} fold={fold!s:5s} K={K}"
+            for var in ("vpu", "mxu"):
+                for d, op in (("synth", a), ("anal", dw)):
+                    fn = getattr(lc, f"{d}_{var}")
+                    held(f"{d}_{var}", fn(op, m_t, x, pmm, pms, l_max=l_max,
+                                          fold=fold), want[d], what, pad)
+                    if not fold and K == (1 if var == "vpu" else 8):
+                        k_ms = cuda_time_ms(lambda: fn(op, m_t, x, pmm, pms,
+                                                       l_max=l_max))
+                        log(f"  {d + '_' + var:11s} {what}: kernel {k_ms:.3f} ms, "
+                            f"plain version {plain[d]:.1f} ms")
+    part = torch.rand((len(m_vals), 3, L, 16), generator=gen).to(dev)
+    m_t = torch.as_tensor(m_vals, dtype=torch.int32, device=dev)
+    held("anal_reduce", lc.anal_reduce(part, m_t, l_max=l_max),
+         kref.anal_reduce_ref(part, m_t, l_max=l_max),
+         f"l_max {l_max}, 3 chunks, K 8", pad)
+
+
+# ---------------------------------------------------------------------------
+# phase 3: the main path at full width, then each kernel at its shapes
+# ---------------------------------------------------------------------------
+
+MAIN_PATH = (("cuda_mxu", 2048, 8), ("cuda_vpu", 4096, 1))
+
+
+def run_main_path(dev, mode: str, l_max: int, K: int) -> tuple:
+    """One sht_cmb round trip through make_plan/alm2map/map2alm."""
+    gen = torch.Generator().manual_seed(l_max + K)
+    alm = sht.random_alm(gen, l_max, l_max, K, dtype=torch.float32,
+                         device=dev)
+    t0 = time.perf_counter()
+    plan = repro_torch.make_plan("gl", l_max, K=K, dtype="float32",
+                                 mode=mode)
+    maps = plan.alm2map(alm)
+    alm2 = plan.map2alm(maps)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    g = plan.grid
+    if tuple(maps.shape) != (g.n_rings, g.max_n_phi, K) or \
+            not bool(torch.isfinite(maps).all()) or \
+            not bool(torch.isfinite(torch.view_as_real(alm2)).all()):
+        raise AssertionError(f"{mode}: non-finite or misshapen output")
+    err = spectra.d_err(alm, alm2)
+    log(f"  {mode} l_max={l_max} K={K}: maps {tuple(maps.shape)}, "
+        f"round-trip d_err = {err:.3e} (limit {ROUNDTRIP_TOL:g}), "
+        f"{secs:.2f} s with plan build")
+    if not err < ROUNDTRIP_TOL:
+        raise AssertionError(f"{mode} round trip d_err {err}")
+    return plan, alm, maps
+
+
+def plain_ms(fn) -> tuple:
+    """(output, wall ms) of one call of a plain version, synchronised."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def time_kernels(mode: str, l_max: int, K: int, run: tuple) -> dict:
+    """Each kernel of one main path at the shapes that path gave it: held
+    against its plain version on the same inputs, then kernel time, plain
+    version time, bound, and the library call where one exists."""
+    var = mode[5:]
+    plan, alm, maps = run
+    m_t, x, pmm, pms = plan._seeds()
+    a = torch.cat([alm.real, alm.imag], dim=-1).to(torch.float32)
+    dwc = plan.phase.anal(maps)
+    dw = torch.cat([dwc.real, dwc.imag], dim=-1)[:, None].contiguous()
+    K2, R, L = 2 * K, x.shape[0], l_max + 1
+    what = f"l_max {l_max}, K {K} (main path)"
+    triples, flops = legendre_work(m_t.cpu().numpy(), L, R, K2)
+    synth = getattr(lc, f"synth_{var}")
+
+    def run_s():
+        return synth(a, m_t, x, pmm, pms, l_max=l_max)
+
+    def run_a():
+        return lc.anal_partials(var, dw, m_t, x, pmm, pms, l_max=l_max)
+
+    out_s, part = run_s(), run_a()
+    out_a = lc.anal_reduce(part, m_t, l_max=l_max)
+    want_s, plain_s = plain_ms(lambda: kref.synth_ref(a, m_t, x, pmm, pms,
+                                                      l_max=l_max))
+    want_a, plain_a = plain_ms(lambda: kref.anal_ref(dw, m_t, x, pmm, pms,
+                                                     l_max=l_max))
+    want_r, plain_r = plain_ms(lambda: kref.anal_reduce_ref(part, m_t,
+                                                            l_max=l_max))
+    err_s = held(f"synth_{var}", out_s, want_s, what)
+    err_a = held(f"anal_{var}", out_a, want_a, what)
+    err_r = held("anal_reduce", out_a, want_r, what)
+    del want_s, want_a, want_r, out_s, out_a
+    ms_s, ms_a = cuda_time_ms(run_s), cuda_time_ms(run_a)
+    ms_r = cuda_time_ms(lambda: lc.anal_reduce(part, m_t, l_max=l_max))
+    lib_r = cuda_time_ms(lambda: part.sum(dim=1))
+    seeds = nbytes(m_t, x, pmm, pms)
+    shape = f"l_max {l_max}, K {K}"
+    # the second pass reads the l >= m rows of every chunk and writes the
+    # full output
+    n_ch = part.shape[1]
+    red_bytes = triples // R * n_ch * K2 * 4 + m_t.numel() * L * K2 * 4
+    red_ops = triples // R * (n_ch - 1) * K2
+    return {
+        f"synth_{var}": dict(
+            ms=ms_s, plain_ms=plain_s, library_ms=None, err=err_s,
+            shape=shape, bound=bound_ms(flops, nbytes(a) + seeds
+                                        + m_t.numel() * R * K2 * 4)),
+        f"anal_{var}": dict(
+            ms=ms_a, plain_ms=plain_a, library_ms=None, err=err_a,
+            shape=shape, bound=bound_ms(flops, nbytes(dw, part) + seeds)),
+        "anal_reduce": dict(
+            ms=ms_r, plain_ms=plain_r, library_ms=lib_r, err=err_r,
+            shape=f"{shape}, {n_ch} chunks",
+            bound=bound_ms(red_ops, red_bytes)),
+    }
+
+
+def time_round_trip(mode: str, l_max: int, K: int, run: tuple) -> None:
+    """Steady-state time of each direction of one main path, and of its
+    FFT phase stage alone (the rest is the Legendre kernels and the layout
+    glue around them)."""
+    plan, alm, maps = run
+    delta = plan.phase.anal(maps)
+    syn = host_ms(lambda: plan.alm2map(alm))
+    ana = host_ms(lambda: plan.map2alm(maps))
+    ph_s = cuda_time_ms(lambda: plan.phase.synth(delta))
+    ph_a = cuda_time_ms(lambda: plan.phase.anal(maps))
+    log(f"  {mode} l_max={l_max} K={K}: alm2map {syn:.2f} ms (phase "
+        f"stage {ph_s:.2f} ms), map2alm {ana:.2f} ms (phase stage "
+        f"{ph_a:.2f} ms)")
+
+
+# ---------------------------------------------------------------------------
+# phase 4: float64 anchor
+# ---------------------------------------------------------------------------
+
+
+def f64_anchor(dev) -> None:
+    l_max, K = 512, 2
+    gen = torch.Generator().manual_seed(7)
+    alm = sht.random_alm(gen, l_max, l_max, K, device=dev)
+    p64 = repro_torch.make_plan("gl", l_max, K=K, dtype="float64",
+                                mode="torch")
+    maps64 = p64.alm2map(alm)
+    alm64 = p64.map2alm(maps64)
+    for mode in ("cuda_vpu", "cuda_mxu"):
+        p32 = repro_torch.make_plan("gl", l_max, K=K, dtype="float32",
+                                    mode=mode)
+        maps32 = p32.alm2map(alm.to(torch.complex64))
+        alm32 = p32.map2alm(maps64.to(torch.float32))
+        rel_s = float((maps32 - maps64).abs().max() / maps64.abs().max())
+        rel_a = float((alm32 - alm64).abs().max() / alm64.abs().max())
+        log(f"  {mode} vs torch float64, l_max={l_max} K={K}: synthesis "
+            f"{rel_s:.3e}, analysis {rel_a:.3e} (limit {ANCHOR_TOL:g})")
+        if not max(rel_s, rel_a) < ANCHOR_TOL:
+            raise AssertionError(f"{mode} strays from the float64 plan")
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is visible", file=sys.stderr)
+        return 1
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    log(f"card: {card}")
+    log(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
+
+    t0 = time.perf_counter()
+    _, build_log = build.build()
+    log(f"phase 1: kernels built in {time.perf_counter() - t0:.1f} s")
+    for line in build_log.splitlines():
+        if "registers" in line or "error" in line.lower():
+            log(f"  ptxas: {line.strip()}")
+
+    log("phase 2: kernels against their plain versions, limit "
+        f"{KERNEL_TOL:g}")
+    check_kernels(dev)
+
+    log("phase 3: main path at full width; each kernel against its plain "
+        "version at the shapes the path gave it")
+    kernels = []
+    for mode, l_max, K in MAIN_PATH:
+        lc.reset_launches()
+        run = run_main_path(dev, mode, l_max, K)
+        torch.cuda.synchronize()
+        counts = dict(lc.launches)
+        log(f"  launches on the {mode} path: {counts}")
+        var = mode[5:]
+        missing = [k for k in (f"synth_{var}", f"anal_{var}", "anal_reduce")
+                   if counts[k] == 0]
+        if missing:
+            raise AssertionError(f"kernels never launched on the {mode} "
+                                 f"path: {missing}")
+        for name, r in time_kernels(mode, l_max, K, run).items():
+            bms, by = r["bound"]
+            log(f"  {name:11s} {r['shape']}: {r['ms']:.3f} ms, bound "
+                f"{bms:.3f} ms ({by}), plain {r['plain_ms']:.1f} ms, "
+                f"library {r['library_ms']}, launches {counts[name]}")
+            kernels.append({
+                "name": name, "route": "cuda", "source": SOURCE,
+                "replaces": TPU_KERNELS[name], "path": mode,
+                "shape": r["shape"], "launches": counts[name],
+                "max_abs_err": r["err"], "ms": r["ms"],
+                "plain_ms": r["plain_ms"], "bound_ms": bms, "bound_by": by,
+                "library_ms": r["library_ms"]})
+        time_round_trip(mode, l_max, K, run)
+
+    log("phase 4: float64 anchor")
+    f64_anchor(dev)
+
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,146 @@
+"""Plain PyTorch versions of the Legendre kernels, and their seed tables.
+
+Counterpart of ``repro.kernels.ref``.  ``synth_ref``/``anal_ref`` run the
+float32 scaled recurrence of the reference's ``_f32_step``
+(``repro/kernels/legendre_pallas.py``) over all m rows at once, with the l
+loop in Python.  They are what ``kernels.ops`` runs on CPU tensors and what
+the CUDA kernels are held against on the card.  ``anal_reduce_ref`` is the
+plain version of the analysis kernels' second pass.
+
+Layouts are the unpadded ones of the ``ops`` seam:
+  a  (Mp, L1, 2K) f32 -> Delta (Mp, P, R, 2K) f32, P = 2 (even, odd) if fold;
+  dw (Mp, P, R, 2K) f32 -> a (Mp, l_max+1, 2K) f32.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+__all__ = ["prepare_seeds", "synth_ref", "anal_ref", "anal_reduce_ref",
+           "SCALE_BITS_F32"]
+
+SCALE_BITS_F32 = 64
+_BIG = float(2.0 ** (SCALE_BITS_F32 // 2))        # 2^32
+_INV_BIG2 = float(2.0 ** (-SCALE_BITS_F32))       # 2^-64
+_BIG2 = float(2.0 ** SCALE_BITS_F32)              # 2^64
+
+
+def prepare_seeds(m_vals, sin_theta, log_mu_all, scale_bits: int = 64):
+    """Scaled P_mm seeds for the float32 kernels, computed in float64.
+
+    m_vals (Mp,) int, -1 rows are padding with inert 0 seeds; sin_theta
+    (R,) f64.  Returns numpy (pmm (Mp, R) f32, pms (Mp, R) i32).
+    """
+    m_vals = np.asarray(m_vals)
+    msafe = np.maximum(m_vals, 0)
+    lm = np.asarray(log_mu_all, np.float64)[msafe][:, None]
+    st = np.asarray(sin_theta, np.float64)[None, :]
+    log_p = lm + msafe.astype(np.float64)[:, None] * np.log(st)
+    denom = scale_bits * np.log(2.0)
+    scale = np.minimum(np.round(log_p / denom), 0.0)
+    mant = np.exp(log_p - scale * denom)
+    mant = np.where((m_vals >= 0)[:, None], mant, 0.0)
+    return mant.astype(np.float32), scale.astype(np.int32)
+
+
+def _f32_step(l: int, m_f, x, pp, pc, sc, pmm, pms):
+    """One scaled-recurrence step in float32, branch-free.
+
+    m_f (Mp, 1) f32; x (1, R) f32; pp, pc, pmm (Mp, R) f32; sc, pms i32.
+    Returns (pp', pc', sc', value), ``value`` the descaled P_{l,m}.
+    """
+    lf = torch.tensor(float(l), dtype=torch.float32, device=m_f.device)
+    zero = torch.zeros((), dtype=torch.float32, device=m_f.device)
+    # 1/sqrt, not rsqrt: both are correctly rounded on every device, so
+    # the CUDA kernels reproduce these bits (rsqrt is approximate on CUDA)
+    lb = torch.maximum(lf, m_f + 2.0)
+    bl = 1.0 / torch.sqrt((lb * lb - m_f * m_f) / (4.0 * lb * lb - 1.0))
+    lb1 = torch.maximum(lf - 1.0, m_f + 1.0)
+    bl1 = 1.0 / torch.sqrt((lb1 * lb1 - m_f * m_f) / (4.0 * lb1 * lb1 - 1.0))
+    ratio = bl / bl1
+    p_rec = bl * x * pc - ratio * pp
+    p_first = torch.sqrt(torch.clamp(2.0 * m_f + 3.0, min=0.0)) * x * pc
+
+    is_seed = lf == m_f
+    is_first = lf == m_f + 1.0
+    before = lf < m_f
+    new_c = torch.where(before, zero,
+                        torch.where(is_seed, pmm,
+                                    torch.where(is_first, p_first, p_rec)))
+    new_p = torch.where(before | is_seed, zero, pc)
+    new_s = torch.where(is_seed, pms, sc)
+
+    grow = (new_c.abs() > _BIG) & (new_s < 0)
+    new_c = torch.where(grow, new_c * _INV_BIG2, new_c)
+    new_p = torch.where(grow, new_p * _INV_BIG2, new_p)
+    new_s = torch.where(grow, new_s + 1, new_s)
+    shrink = ((new_c.abs() < 1.0 / _BIG) & (new_p.abs() < 1.0 / _BIG)
+              & ~before & ~is_seed)
+    new_c = torch.where(shrink, new_c * _BIG2, new_c)
+    new_p = torch.where(shrink, new_p * _BIG2, new_p)
+    new_s = torch.where(shrink, new_s - 1, new_s)
+
+    value = torch.where((new_s == 0) & ~before, new_c, zero)
+    return new_p, new_c, new_s, value
+
+
+def _carry(m_vals, x):
+    m = m_vals.to(torch.int32)[:, None]
+    Mp, R = m.shape[0], x.shape[0]
+    z = torch.zeros(Mp, R, dtype=torch.float32, device=x.device)
+    return (m, m.to(torch.float32), x.to(torch.float32)[None, :], z, z.clone(),
+            torch.zeros(Mp, R, dtype=torch.int32, device=x.device))
+
+
+def synth_ref(a, m_vals, x, pmm, pms, *, l_max: int, fold: bool = False):
+    """Plain version of the synthesis kernels.
+
+    a (Mp, L1, 2K) f32; m_vals (Mp,) int tensor; x (R,) f32; pmm/pms
+    (Mp, R).  Returns Delta (Mp, P, R, 2K) f32 (P = 2 if fold).
+    """
+    Mp, L1, K2 = a.shape
+    m, m_f, xb, pp, pc, sc = _carry(m_vals, x)
+    acc = torch.zeros(Mp, 2 if fold else 1, x.shape[0], K2,
+                      dtype=torch.float32, device=a.device)
+    for l in range(min(l_max + 1, L1)):
+        pp, pc, sc, val = _f32_step(l, m_f, xb, pp, pc, sc, pmm, pms)
+        contrib = val[:, :, None] * a[:, l][:, None, :]      # (Mp, R, 2K)
+        if fold:
+            odd = ((l + m) % 2 == 1)[..., None]               # (Mp, 1, 1)
+            zero = torch.zeros((), dtype=acc.dtype, device=acc.device)
+            acc[:, 0] += torch.where(odd, zero, contrib)
+            acc[:, 1] += torch.where(odd, contrib, zero)
+        else:
+            acc[:, 0] += contrib
+    return acc
+
+
+def anal_ref(dw, m_vals, x, pmm, pms, *, l_max: int, fold: bool = False):
+    """Plain version of the analysis kernels.
+
+    dw (Mp, P, R, 2K) f32 weighted Delta.  Returns (Mp, l_max+1, 2K) f32.
+    """
+    m, m_f, xb, pp, pc, sc = _carry(m_vals, x)
+    rows = []
+    for l in range(l_max + 1):
+        pp, pc, sc, val = _f32_step(l, m_f, xb, pp, pc, sc, pmm, pms)
+        if fold:
+            d = torch.where(((l + m) % 2 == 0)[..., None], dw[:, 0], dw[:, 1])
+        else:
+            d = dw[:, 0]
+        rows.append(torch.einsum("mr,mrk->mk", val, d))
+    return torch.stack(rows, dim=1)
+
+
+def anal_reduce_ref(partials, m_vals, *, l_max: int):
+    """Plain version of the analysis second pass: sum the per-ring-chunk
+    partials (Mp, n_chunks, l_max+1, 2K) over chunks; rows with l < m and
+    padding rows (m < 0) are zero."""
+    L = l_max + 1
+    m = m_vals.to(torch.int64)[:, None]
+    l = torch.arange(L, device=partials.device)[None, :]
+    keep = ((m >= 0) & (l >= m))[..., None]
+    total = partials[:, :, :L].sum(dim=1)
+    return torch.where(keep, total, torch.zeros((), dtype=total.dtype,
+                                                device=total.device))
