@@ -2,12 +2,14 @@
 
     python3 chip_smoke.py
 
-Builds the CUDA Legendre kernels from the sources in this checkout, holds
-each against its plain PyTorch version on the card, drives the port's main
-path at the repo's full widths (``make_plan("gl", ...)`` then ``alm2map``
-then ``map2alm``, the ``sht_cmb`` shapes l_max 2048 K 8 and l_max 4096 K 1),
-checks that every kernel of that path launched, times each kernel beside
-its bound, and anchors both kernel plans to the float64 ``torch`` plan.
+Builds the CUDA kernels from the sources in this checkout (one ``nvcc``
+per source, started together), holds each against its plain PyTorch
+version on the card, drives the port's main paths at the repo's full
+widths (``make_plan("gl", ...)`` then ``alm2map`` then ``map2alm``, the
+``sht_cmb`` shapes l_max 2048 K 8 and l_max 4096 K 1, on the fused layout
+the plans pick by default and on the staged plain layout), checks that
+every kernel of each path launched, times each kernel beside its bound,
+and anchors every kernel plan to the float64 ``torch`` plan.
 Prints the card's name and power limit, one JSON line of per-kernel
 numbers, and as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -31,7 +33,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
 
 import repro_torch  # noqa: E402
 from repro_torch.core import sht, spectra  # noqa: E402
-from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels import build, fused, fused_cuda, ops, pack  # noqa: E402
 from repro_torch.kernels import legendre_cuda as lc  # noqa: E402
 from repro_torch.kernels import ref as kref  # noqa: E402
 from repro_torch.core import grids, legendre  # noqa: E402
@@ -57,8 +59,14 @@ TPU_KERNELS = {
     "anal_vpu": "src/repro/kernels/legendre_pallas.py:436",
     "anal_mxu": "src/repro/kernels/legendre_pallas.py:1042",
     "anal_reduce": "src/repro/kernels/legendre_pallas.py:430",
+    "synth_fused_vpu": "src/repro/kernels/fused.py:222",
+    "synth_fused_mxu": "src/repro/kernels/fused.py:385",
+    "anal_fused_vpu": "src/repro/kernels/fused.py:526",
+    "anal_fused_mxu": "src/repro/kernels/fused.py:666",
 }
-SOURCE = "src/repro_torch/kernels/csrc/legendre.cu"
+SOURCES = {name: ("src/repro_torch/kernels/csrc/fused.cu" if "fused" in name
+                  else "src/repro_torch/kernels/csrc/legendre.cu")
+           for name in TPU_KERNELS}
 
 
 def log(msg: str) -> None:
@@ -126,7 +134,14 @@ def bound_ms(flops: float, nbytes: float) -> tuple:
 
 
 def nbytes(*ts) -> int:
-    return int(sum(t.numel() * t.element_size() for t in ts))
+    return int(sum(t.numel() * t.element_size() for t in ts if t is not None))
+
+
+def rotation_ops(tab, K: int) -> int:
+    """Float32 operations of the in-kernel rotation: 8 per (row, plane,
+    ring) and map where tables are applied."""
+    return 0 if tab is None else tab.shape[0] * 2 * tab.shape[2] \
+        * tab.shape[4] * 8 * K
 
 
 # ---------------------------------------------------------------------------
@@ -143,8 +158,8 @@ def held(name: str, got: torch.Tensor, want: torch.Tensor, what: str,
     err = float((got - want).abs().max())
     rel = err / float(want.abs().max())
     zero_pad = pad is None or bool((got[pad] == 0).all())
-    log(f"  {name:11s} {what}: max|d|/max|plain| = {rel:.3e}"
-        + ("" if pad is None else f"  padding rows zero: {zero_pad}"))
+    log(f"  {name:15s} {what}: max|d|/max|plain| = {rel:.3e}"
+        + ("" if pad is None else f"  padding zero: {zero_pad}"))
     if not (rel < KERNEL_TOL and zero_pad):
         raise AssertionError(f"{name} disagrees with its plain version "
                              f"({what})")
@@ -186,7 +201,7 @@ def check_kernels(dev) -> None:
                     if not fold and K == (1 if var == "vpu" else 8):
                         k_ms = cuda_time_ms(lambda: fn(op, m_t, x, pmm, pms,
                                                        l_max=l_max))
-                        log(f"  {d + '_' + var:11s} {what}: kernel {k_ms:.3f} ms, "
+                        log(f"  {d + '_' + var:15s} {what}: kernel {k_ms:.3f} ms, "
                             f"plain version {plain[d]:.1f} ms")
     part = torch.rand((len(m_vals), 3, L, 16), generator=gen).to(dev)
     m_t = torch.as_tensor(m_vals, dtype=torch.int32, device=dev)
@@ -195,21 +210,101 @@ def check_kernels(dev) -> None:
          f"l_max {l_max}, 3 chunks, K 8", pad)
 
 
+def check_fused_kernels(dev) -> None:
+    """Hold each fused kernel against its plain version at l_max 256, K 1
+    and 8, fold off and on, with random (non-identity) rotation tables and
+    without tables (identity tables are skipped, as on the GL main path).  A padding row makes the row count odd, so one slot has an
+    empty segment 1, whose synthesis rows must come out exactly zero, as
+    must every dead position of the analysis stream.  Logs kernel and plain
+    times with fold off at each variant's main-path K."""
+    l_max = 256
+    gen = torch.Generator().manual_seed(3)
+    m_vals = np.insert(np.arange(l_max + 1), 17, -1)
+    lo = pack.build_layout(m_vals, l_max)
+    empty = torch.as_tensor(lo.slot_seed == lo.S, device=dev)
+    dead = torch.as_tensor(lo.a_row < 0, device=dev)
+    for fold in (False, True):
+        _, x, pmm, pms = seeds_for(l_max, m_vals, fold, dev)
+        maps, x, pmm_pk, pms_pk = fused._prep(lo, x, pmm, pms)
+        R, P = x.shape[0], (2 if fold else 1)
+        for K in (1, 8):
+            K2 = 2 * K
+            a_pk = ops._pack_a(random_a(gen, m_vals, l_max + 1, K2, dev),
+                               lo).contiguous()
+            f = (torch.rand((lo.n_slots, 2, P, R, K2), generator=gen) * 2
+                 - 1).to(dev)
+            tab = (torch.rand((lo.n_slots, 2, P, 4, R), generator=gen) * 2
+                   - 1).to(dev)
+            for var in ("vpu", "mxu"):
+                fk = f.movedim(-1, 3).contiguous() if var == "vpu" else f
+                synth = getattr(fused_cuda, f"synth_fused_{var}")
+                anal = getattr(fused_cuda, f"anal_fused_{var}")
+                for t, tname in ((tab, "random tables"), (None, "no tables")):
+                    what = f"l_max {l_max} fold={fold!s:5s} K={K} {tname}"
+                    want_s, plain_s = plain_ms(lambda: kref.synth_fused_ref(
+                        a_pk, maps, x, pmm_pk, pms_pk, t, l_max=l_max,
+                        fold=fold, layout=var))
+                    want_a, plain_a = plain_ms(lambda: kref.anal_fused_ref(
+                        fk, maps, x, pmm_pk, pms_pk, t, l_max=l_max,
+                        s_len=lo.S, layout=var))
+
+                    def run_s():
+                        return synth(a_pk, maps, x, pmm_pk, pms_pk, t,
+                                     l_max=l_max, fold=fold)
+
+                    def run_a():
+                        return anal(fk, maps, x, pmm_pk, pms_pk, t,
+                                    l_max=l_max, s_len=lo.S)
+
+                    held(f"synth_fused_{var}", run_s(), want_s, what,
+                         (empty, 1))
+                    held(f"anal_fused_{var}", run_a(), want_a, what, dead)
+                    if not fold and K == (1 if var == "vpu" else 8) \
+                            and t is tab:
+                        for d, fn, pl in (("synth", run_s, plain_s),
+                                          ("anal", run_a, plain_a)):
+                            log(f"  {d + '_fused_' + var:15s} {what}: kernel "
+                                f"{cuda_time_ms(fn):.3f} ms, plain version "
+                                f"{pl:.1f} ms")
+
+
 # ---------------------------------------------------------------------------
-# phase 3: the main path at full width, then each kernel at its shapes
+# phase 3: the main paths at full width, then each kernel at its shapes
 # ---------------------------------------------------------------------------
 
-MAIN_PATH = (("cuda_mxu", 2048, 8), ("cuda_vpu", 4096, 1))
+#: (mode, l_max, K, layout): the sht_cmb shapes, first on the fused layout
+#: the plans pick by default, then on the staged plain layout
+MAIN_PATH = (("cuda_mxu", 2048, 8, "fused"), ("cuda_vpu", 4096, 1, "fused"),
+             ("cuda_mxu", 2048, 8, "plain"), ("cuda_vpu", 4096, 1, "plain"))
+
+#: the kernels each layout's path must launch, for a variant
+PATH_KERNELS = {
+    "fused": lambda v: (f"synth_fused_{v}", f"anal_fused_{v}", "anal_reduce"),
+    "plain": lambda v: (f"synth_{v}", f"anal_{v}", "anal_reduce"),
+}
 
 
-def run_main_path(dev, mode: str, l_max: int, K: int) -> tuple:
+def reset_launches() -> None:
+    lc.reset_launches()
+    fused_cuda.reset_launches()
+
+
+def read_launches() -> dict:
+    return {**lc.launches, **fused_cuda.launches}
+
+
+def run_main_path(dev, mode: str, l_max: int, K: int, layout: str) -> tuple:
     """One sht_cmb round trip through make_plan/alm2map/map2alm."""
     gen = torch.Generator().manual_seed(l_max + K)
     alm = sht.random_alm(gen, l_max, l_max, K, dtype=torch.float32,
                          device=dev)
     t0 = time.perf_counter()
+    # the fused paths are the plans' default layout: called as a user would
     plan = repro_torch.make_plan("gl", l_max, K=K, dtype="float32",
-                                 mode=mode)
+                                 mode=mode,
+                                 layout=None if layout == "fused" else layout)
+    if plan.layouts != {"synth": layout, "anal": layout}:
+        raise AssertionError(f"{mode}: layouts {plan.layouts}")
     maps = plan.alm2map(alm)
     alm2 = plan.map2alm(maps)
     torch.cuda.synchronize()
@@ -220,7 +315,7 @@ def run_main_path(dev, mode: str, l_max: int, K: int) -> tuple:
             not bool(torch.isfinite(torch.view_as_real(alm2)).all()):
         raise AssertionError(f"{mode}: non-finite or misshapen output")
     err = spectra.d_err(alm, alm2)
-    log(f"  {mode} l_max={l_max} K={K}: maps {tuple(maps.shape)}, "
+    log(f"  {mode} [{layout}] l_max={l_max} K={K}: maps {tuple(maps.shape)}, "
         f"round-trip d_err = {err:.3e} (limit {ROUNDTRIP_TOL:g}), "
         f"{secs:.2f} s with plan build")
     if not err < ROUNDTRIP_TOL:
@@ -295,19 +390,110 @@ def time_kernels(mode: str, l_max: int, K: int, run: tuple) -> dict:
     }
 
 
-def time_round_trip(mode: str, l_max: int, K: int, run: tuple) -> None:
-    """Steady-state time of each direction of one main path, and of its
-    FFT phase stage alone (the rest is the Legendre kernels and the layout
-    glue around them)."""
+def time_fused_kernels(mode: str, l_max: int, K: int, run: tuple) -> dict:
+    """Each kernel of one fused main path at the shapes that path gave it
+    (the plan's own packed seeds and tables), as :func:`time_kernels`."""
+    var = mode[5:]
     plan, alm, maps = run
-    delta = plan.phase.anal(maps)
+    _, kw = plan._fused_parts(var)
+    lo, store = kw["lo"], kw["store"]
+    pmaps, x, pmm_pk, pms_pk = store["prep"]
+    tab_s = store[("tables", "synth")]
+    tab_a = store[("tables", "anal")]
+    a_pk = ops._pack_a(torch.cat([alm.real, alm.imag], dim=-1), lo)
+    a_pk = a_pk.contiguous()
+    w = torch.as_tensor(plan.grid.weights, dtype=torch.float32, device=x.device)
+    fp = fused._anal_rows(maps * w[:, None, None], plan._m_vals,
+                          n=plan.phase.n, fold_rings=None, n_half=x.shape[0])
+    f_pk = ops._pack_rows(fp, lo)
+    f_pk = (f_pk.movedim(-1, 3) if var == "vpu" else f_pk).contiguous()
+    K2, R, L, S = 2 * K, x.shape[0], l_max + 1, lo.S
+    zeros = torch.zeros(lo.n_slots, dtype=torch.int32, device=x.device)
+    what = f"l_max {l_max}, K {K} (fused main path)"
+    triples, flops = legendre_work(plan._m_vals, L, R, K2)
+    synth = getattr(fused_cuda, f"synth_fused_{var}")
+
+    def run_s():
+        return synth(a_pk, pmaps, x, pmm_pk, pms_pk, tab_s, l_max=l_max)
+
+    def run_a():
+        return fused_cuda.anal_fused_partials(var, f_pk, pmaps, x, pmm_pk,
+                                              pms_pk, tab_a, l_max=l_max,
+                                              s_len=S)
+
+    out_s, part = run_s(), run_a()
+    out_a = lc.anal_reduce(part, zeros, l_max=S - 1)
+    want_s, plain_s = plain_ms(lambda: kref.synth_fused_ref(
+        a_pk, pmaps, x, pmm_pk, pms_pk, tab_s, l_max=l_max, layout=var))
+    want_a, plain_a = plain_ms(lambda: kref.anal_fused_ref(
+        f_pk, pmaps, x, pmm_pk, pms_pk, tab_a, l_max=l_max, s_len=S,
+        layout=var))
+    want_r, plain_r = plain_ms(lambda: kref.anal_reduce_ref(part, zeros,
+                                                            l_max=S - 1))
+    empty = torch.as_tensor(lo.slot_seed == S, device=x.device)
+    dead = torch.as_tensor(lo.a_row < 0, device=x.device)
+    err_s = held(f"synth_fused_{var}", out_s, want_s, what, (empty, 1))
+    err_a = held(f"anal_fused_{var}", out_a, want_a, what, dead)
+    err_r = held("anal_reduce", out_a, want_r, what)
+    del want_s, want_a, want_r, out_s, out_a
+    ms_s, ms_a = cuda_time_ms(run_s), cuda_time_ms(run_a)
+    ms_r = cuda_time_ms(lambda: lc.anal_reduce(part, zeros, l_max=S - 1))
+    lib_r = cuda_time_ms(lambda: part.sum(dim=1))
+    seeds = nbytes(x, pmm_pk, pms_pk, *pmaps)
+    shape = f"l_max {l_max}, K {K}, {lo.n_slots} slots x S {S}"
+    # rows: one (slot, segment) each; the reduce reads the live positions
+    # of every chunk and writes the full packed output
+    live = triples // R
+    n_ch = part.shape[1]
+    red_bytes = live * n_ch * K2 * 4 + lo.n_slots * S * K2 * 4
+    red_ops = live * (n_ch - 1) * K2
+    return {
+        f"synth_fused_{var}": dict(
+            ms=ms_s, plain_ms=plain_s, library_ms=None, err=err_s,
+            shape=shape, tables=tab_s is not None,
+            bound=bound_ms(flops + rotation_ops(tab_s, K),
+                           nbytes(a_pk, tab_s) + seeds
+                           + lo.n_slots * 2 * R * K2 * 4)),
+        f"anal_fused_{var}": dict(
+            ms=ms_a, plain_ms=plain_a, library_ms=None, err=err_a,
+            shape=shape, tables=tab_a is not None,
+            bound=bound_ms(flops + rotation_ops(tab_a, K),
+                           nbytes(f_pk, tab_a, part) + seeds)),
+        "anal_reduce": dict(
+            ms=ms_r, plain_ms=plain_r, library_ms=lib_r, err=err_r,
+            shape=f"{shape}, {n_ch} chunks",
+            bound=bound_ms(red_ops, red_bytes)),
+    }
+
+
+def time_round_trip(mode: str, l_max: int, K: int, layout: str, run: tuple,
+                    kernel_ms: dict) -> None:
+    """Steady-state time of each direction of one main path, with its
+    Legendre (or fused) kernel time and its FFT time; the rest is the
+    layout glue (re|im split, packing, scatter/gather)."""
+    plan, alm, maps = run
     syn = host_ms(lambda: plan.alm2map(alm))
     ana = host_ms(lambda: plan.map2alm(maps))
-    ph_s = cuda_time_ms(lambda: plan.phase.synth(delta))
-    ph_a = cuda_time_ms(lambda: plan.phase.anal(maps))
-    log(f"  {mode} l_max={l_max} K={K}: alm2map {syn:.2f} ms (phase "
-        f"stage {ph_s:.2f} ms), map2alm {ana:.2f} ms (phase stage "
-        f"{ph_a:.2f} ms)")
+    g, n = plan.grid, plan.phase.n
+    if layout == "plain":
+        delta = plan.phase.anal(maps)
+        fft_s = cuda_time_ms(lambda: plan.phase.synth(delta))
+        fft_a = cuda_time_ms(lambda: plan.phase.anal(maps))
+        what = "phase stage"
+    else:
+        H = torch.zeros((g.n_rings, n // 2 + 1, K), dtype=torch.complex64,
+                        device=maps.device)
+        fft_s = cuda_time_ms(lambda: torch.fft.irfft(H, n=n, dim=1))
+        fft_a = cuda_time_ms(lambda: torch.fft.rfft(maps, dim=1))
+        what = "FFT"
+    var = mode[5:]
+    names = PATH_KERNELS[layout](var)
+    k_s = kernel_ms[names[0]]
+    k_a = kernel_ms[names[1]] + kernel_ms["anal_reduce"]
+    log(f"  {mode} [{layout}] l_max={l_max} K={K}: alm2map {syn:.2f} ms "
+        f"(kernel {k_s:.2f}, {what} {fft_s:.2f}, rest "
+        f"{syn - k_s - fft_s:.2f}), map2alm {ana:.2f} ms (kernels "
+        f"{k_a:.2f}, {what} {fft_a:.2f}, rest {ana - k_a - fft_a:.2f})")
 
 
 # ---------------------------------------------------------------------------
@@ -324,16 +510,19 @@ def f64_anchor(dev) -> None:
     maps64 = p64.alm2map(alm)
     alm64 = p64.map2alm(maps64)
     for mode in ("cuda_vpu", "cuda_mxu"):
-        p32 = repro_torch.make_plan("gl", l_max, K=K, dtype="float32",
-                                    mode=mode)
-        maps32 = p32.alm2map(alm.to(torch.complex64))
-        alm32 = p32.map2alm(maps64.to(torch.float32))
-        rel_s = float((maps32 - maps64).abs().max() / maps64.abs().max())
-        rel_a = float((alm32 - alm64).abs().max() / alm64.abs().max())
-        log(f"  {mode} vs torch float64, l_max={l_max} K={K}: synthesis "
-            f"{rel_s:.3e}, analysis {rel_a:.3e} (limit {ANCHOR_TOL:g})")
-        if not max(rel_s, rel_a) < ANCHOR_TOL:
-            raise AssertionError(f"{mode} strays from the float64 plan")
+        for layout in ("fused", "plain"):
+            p32 = repro_torch.make_plan("gl", l_max, K=K, dtype="float32",
+                                        mode=mode, layout=layout)
+            maps32 = p32.alm2map(alm.to(torch.complex64))
+            alm32 = p32.map2alm(maps64.to(torch.float32))
+            rel_s = float((maps32 - maps64).abs().max() / maps64.abs().max())
+            rel_a = float((alm32 - alm64).abs().max() / alm64.abs().max())
+            log(f"  {mode} [{layout}] vs torch float64, l_max={l_max} K={K}: "
+                f"synthesis {rel_s:.3e}, analysis {rel_a:.3e} (limit "
+                f"{ANCHOR_TOL:g})")
+            if not max(rel_s, rel_a) < ANCHOR_TOL:
+                raise AssertionError(f"{mode} [{layout}] strays from the "
+                                     "float64 plan")
 
 
 def main() -> int:
@@ -351,44 +540,55 @@ def main() -> int:
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     t0 = time.perf_counter()
-    _, build_log = build.build()
-    log(f"phase 1: kernels built in {time.perf_counter() - t0:.1f} s")
-    for line in build_log.splitlines():
-        if "registers" in line or "error" in line.lower():
-            log(f"  ptxas: {line.strip()}")
+    built = build.build()
+    log(f"phase 1: kernels built in {time.perf_counter() - t0:.1f} s "
+        f"({', '.join(sorted(built))}, one nvcc each, run together)")
+    for name, (_, build_log) in sorted(built.items()):
+        for line in build_log.splitlines():
+            if "registers" in line or "error" in line.lower():
+                log(f"  ptxas {name}: {line.strip()}")
 
     log("phase 2: kernels against their plain versions, limit "
         f"{KERNEL_TOL:g}")
     check_kernels(dev)
+    check_fused_kernels(dev)
 
-    log("phase 3: main path at full width; each kernel against its plain "
+    log("phase 3: main paths at full width; each kernel against its plain "
         "version at the shapes the path gave it")
     kernels = []
-    for mode, l_max, K in MAIN_PATH:
-        lc.reset_launches()
-        run = run_main_path(dev, mode, l_max, K)
+    for mode, l_max, K, layout in MAIN_PATH:
+        reset_launches()
+        run = run_main_path(dev, mode, l_max, K, layout)
         torch.cuda.synchronize()
-        counts = dict(lc.launches)
-        log(f"  launches on the {mode} path: {counts}")
+        counts = read_launches()
+        log(f"  launches on the {mode} [{layout}] path: {counts}")
         var = mode[5:]
-        missing = [k for k in (f"synth_{var}", f"anal_{var}", "anal_reduce")
-                   if counts[k] == 0]
-        if missing:
-            raise AssertionError(f"kernels never launched on the {mode} "
-                                 f"path: {missing}")
-        for name, r in time_kernels(mode, l_max, K, run).items():
+        wanted = PATH_KERNELS[layout](var)
+        missing = [k for k in wanted if counts[k] == 0]
+        stray = [k for k, c in counts.items() if c and k not in wanted]
+        if missing or stray:
+            raise AssertionError(f"{mode} [{layout}] path: never launched "
+                                 f"{missing}, launched outside it {stray}")
+        timed = (time_fused_kernels if layout == "fused" else time_kernels)(
+            mode, l_max, K, run)
+        for name, r in timed.items():
             bms, by = r["bound"]
-            log(f"  {name:11s} {r['shape']}: {r['ms']:.3f} ms, bound "
+            log(f"  {name:15s} {r['shape']}: {r['ms']:.3f} ms, bound "
                 f"{bms:.3f} ms ({by}), plain {r['plain_ms']:.1f} ms, "
-                f"library {r['library_ms']}, launches {counts[name]}")
+                f"library {r['library_ms']}, launches {counts[name]}"
+                + ("" if "tables" not in r else
+                   f", tables {'applied' if r['tables'] else 'skipped'}"))
             kernels.append({
-                "name": name, "route": "cuda", "source": SOURCE,
-                "replaces": TPU_KERNELS[name], "path": mode,
+                "name": name, "route": "cuda", "source": SOURCES[name],
+                "replaces": TPU_KERNELS[name], "path": f"{mode} {layout}",
                 "shape": r["shape"], "launches": counts[name],
                 "max_abs_err": r["err"], "ms": r["ms"],
                 "plain_ms": r["plain_ms"], "bound_ms": bms, "bound_by": by,
                 "library_ms": r["library_ms"]})
-        time_round_trip(mode, l_max, K, run)
+        time_round_trip(mode, l_max, K, layout, run,
+                        {k: r["ms"] for k, r in timed.items()})
+        del run
+        torch.cuda.empty_cache()
 
     log("phase 4: float64 anchor")
     f64_anchor(dev)

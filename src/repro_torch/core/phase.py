@@ -16,8 +16,9 @@ import torch
 
 from repro_torch.core.grids import RingGrid
 
-__all__ = ["phase_factors", "uniform_bin_maps", "uniform_synth",
-           "uniform_anal", "PhaseStage", "UniformPhase", "make_phase"]
+__all__ = ["phase_factors", "uniform_bin_maps", "uniform_rotation_tables",
+           "uniform_synth", "uniform_anal", "PhaseStage", "UniformPhase",
+           "make_phase"]
 
 
 def _complex_dtype(dtype):
@@ -56,6 +57,48 @@ def uniform_bin_maps(m_vals, n):
     bins = np.where(hi, n - b, b)
     nyq = 2 * b == n
     return bins, hi, nyq
+
+
+def uniform_rotation_tables(m_vals, phi0, n, direction):
+    """Real 2x2 per-(row, ring) phase-rotation tables, (M, 4, R) f64 numpy.
+
+    Encodes the uniform engine's e^{+-i m phi0(r)} rotation and the
+    conjugate-wrap / Nyquist handling of :func:`uniform_bin_maps` as one
+    real linear map, so the fused kernels apply the phase stage in-kernel:
+
+        h_re = t0 * d_re + t1 * d_im
+        h_im = t2 * d_re + t3 * d_im
+
+    ``"synth"``: Delta -> half-spectrum row (sign +1; the conjugate is
+    scattered for ``hi`` rows, whose imaginary row flips sign; the Nyquist
+    row keeps twice its real part and no imaginary part).  ``"anal"``:
+    gathered half-spectrum row -> Delta (sign -1, conjugate gathered for
+    ``hi`` rows, no Nyquist term).  Rows with m < 0 are zero.
+    """
+    m = np.asarray(m_vals)
+    _, hi, nyq = uniform_bin_maps(m, n)
+    msafe = np.maximum(m, 0).astype(np.float64)
+    ang = msafe[:, None] * np.asarray(phi0, np.float64)[None, :]
+    c, s = np.cos(ang), np.sin(ang)
+    hi_c = hi[:, None]
+    if direction == "synth":
+        ta, tb = c, -s
+        tc = np.where(hi_c, -s, s)
+        td = np.where(hi_c, -c, c)
+        nyq_c = nyq[:, None]
+        ta = np.where(nyq_c, 2.0 * c, ta)
+        tb = np.where(nyq_c, -2.0 * s, tb)
+        tc = np.where(nyq_c, 0.0, tc)
+        td = np.where(nyq_c, 0.0, td)
+    elif direction == "anal":
+        ta = c
+        tb = np.where(hi_c, -s, s)
+        tc = -s
+        td = np.where(hi_c, -c, c)
+    else:
+        raise ValueError(f"unknown direction {direction!r}")
+    t = np.stack([ta, tb, tc, td], axis=1)             # (M, 4, R)
+    return np.where((m >= 0)[:, None, None], t, 0.0)
 
 
 def uniform_synth(delta: torch.Tensor, m_vals, n: int, phi0) -> torch.Tensor:

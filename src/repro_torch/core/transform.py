@@ -15,16 +15,19 @@ Backends
     The serial engine (``core.sht.SHT``) in the plan dtype, float64 or
     float32: the oracle.
 ``cuda_vpu`` / ``cuda_mxu``
-    The hand-written CUDA Legendre kernels (``kernels.legendre_cuda``) for
-    the recurrence stage, in float32, and the uniform phase stage
-    (``torch.fft``) for the FFTs.  ``vpu`` is one ring per thread (small
-    K), ``mxu`` contracts P panels (large K).  On a CPU plan they run the
+    The hand-written CUDA kernels for the recurrence stage, in float32, and
+    ``torch.fft`` for the FFTs.  ``vpu`` is one ring per thread (small K),
+    ``mxu`` contracts P panels (large K).  On a CPU plan they run the
     kernels' plain versions (``kernels.ref``).
 
-The Legendre layout is ``plain`` only.  Plans run on the CUDA device unless
-``device="cpu"`` is passed.  What the port does not have yet raises a
-``ValueError`` that names the ROADMAP.md item it waits on; nothing is
-substituted silently.
+Layouts of the kernel backends (``plan.layouts``): ``fused``, the default
+where the plan is eligible (``Plan._fusion_eligibility``), runs the fused
+Legendre+phase kernels on the packed slot layout (``kernels.fused``), as
+the reference's planner does at the sht_cmb shapes; ``plain`` runs the
+staged kernels (``kernels.legendre_cuda``) and the phase stage apart.
+Plans run on the CUDA device unless ``device="cpu"`` is passed.  What the
+port does not have yet raises a ``ValueError`` that names the ROADMAP.md
+item it waits on; nothing is substituted silently.
 """
 
 from __future__ import annotations
@@ -52,7 +55,7 @@ _CDTYPES = {"float64": torch.complex128, "float32": torch.complex64}
 #: Open items section 1 item each waits on
 _WAITING = {
     "mode auto": 9, "mode model": 9, "mode dist": 11,
-    "layout packed": 5, "layout fused": 6, "spin": 7,
+    "layout packed": 5, "spin": 7,
 }
 
 #: make_plan memoisation: signature key -> Plan
@@ -128,6 +131,9 @@ class Plan:
                         dtype=self.dtype, fold=self.fold)
         self._m_vals = np.arange(self.m_max + 1)
         self._seeds_cache: Optional[tuple] = None
+        #: what the fused kernels reuse across calls: packed seeds, rotation
+        #: tables and the pack/unpack index tensors (``kernels.fused``)
+        self._fused_store: dict = {}
         self._fns: dict = {}
         self.backends: dict = {}
         self.layouts: dict = {}
@@ -180,29 +186,39 @@ class Plan:
 
     # -- per-backend execution ------------------------------------------------
 
-    def _synth_fn(self, backend: str):
-        """Synthesis callable alm -> maps for ``backend`` (cached)."""
-        key = ("synth", backend)
+    def _fn(self, direction: str, backend: str, layout: Optional[str]):
+        if layout is None:
+            layout = self.layouts.get(direction)
+        key = (direction, backend, layout)
         if key not in self._fns:
             if backend == "torch":
-                self._fns[key] = self._sht.alm2map
-            elif backend in ("cuda_vpu", "cuda_mxu"):
-                self._fns[key] = self._make_kernel_synth(backend[5:])
-            else:
+                fn = (self._sht.alm2map if direction == "synth"
+                      else self._sht.map2alm)
+            elif backend not in ("cuda_vpu", "cuda_mxu"):
                 raise ValueError(f"unknown backend {backend!r}")
+            elif layout == "fused":
+                ok, reason = self._fusion_eligibility()
+                if not ok:
+                    raise ValueError(f"fused layout unavailable: {reason}")
+                fn = (self._make_fused_synth if direction == "synth"
+                      else self._make_fused_anal)(backend[5:])
+            elif layout in (None, "plain"):
+                fn = (self._make_kernel_synth if direction == "synth"
+                      else self._make_kernel_anal)(backend[5:])
+            else:
+                raise ValueError(f"unknown layout {layout!r}")
+            self._fns[key] = fn
         return self._fns[key]
 
-    def _anal_fn(self, backend: str):
-        """Analysis callable maps -> alm for ``backend`` (cached)."""
-        key = ("anal", backend)
-        if key not in self._fns:
-            if backend == "torch":
-                self._fns[key] = self._sht.map2alm
-            elif backend in ("cuda_vpu", "cuda_mxu"):
-                self._fns[key] = self._make_kernel_anal(backend[5:])
-            else:
-                raise ValueError(f"unknown backend {backend!r}")
-        return self._fns[key]
+    def _synth_fn(self, backend: str, layout: Optional[str] = None):
+        """Synthesis callable alm -> maps for ``backend`` (cached);
+        ``layout`` overrides the plan's (``"plain"`` | ``"fused"``)."""
+        return self._fn("synth", backend, layout)
+
+    def _anal_fn(self, backend: str, layout: Optional[str] = None):
+        """Analysis callable maps -> alm for ``backend`` (cached);
+        ``layout`` as in :meth:`_synth_fn`."""
+        return self._fn("anal", backend, layout)
 
     def _make_kernel_synth(self, variant: str):
         from repro_torch.kernels import ops as kops
@@ -254,6 +270,64 @@ class Plan:
 
         return fn
 
+    # -- fused pipeline (layout "fused") --------------------------------------
+
+    def _fusion_eligibility(self) -> tuple:
+        """(eligible, reason) for the fused Legendre+phase pipeline.
+
+        See :func:`_fusion_eligibility`.
+        """
+        return _fusion_eligibility(self.grid, self.spin)
+
+    def _fused_layout(self):
+        """The packed slot layout shared by both fused directions (numpy,
+        memoised by ``kernels.pack.build_layout``)."""
+        from repro_torch.kernels import fused as kfused
+        from repro_torch.kernels import pack as kpack
+        return kpack.build_layout(self._m_vals, self.l_max,
+                                  lp_size=kfused.FUSED_LP_SIZE)
+
+    def _fused_parts(self, variant: str):
+        """(seeds, keyword block) of the fused kernel chains: the uniform
+        phase stage's FFT length and ring offsets, the fold's full ring
+        count, and the plan's store of packed seeds, tables and indices."""
+        g = self.grid
+        m_t, x32, pmm, pms = self._seeds()
+        kw = dict(l_max=self.l_max, variant=variant, lo=self._fused_layout(),
+                  n=self.phase.n, phi0=g.phi0,
+                  fold_rings=g.n_rings if self.fold else None,
+                  store=self._fused_store)
+        return (x32, pmm, pms), kw
+
+    def _make_fused_synth(self, variant: str):
+        from repro_torch.kernels import fused as kfused
+        K, rdt = self.K, _DTYPES[self.dtype]
+        (x32, pmm, pms), kw = self._fused_parts(variant)
+
+        def fn(alm):
+            a32 = torch.cat([alm.real, alm.imag], dim=-1).to(torch.float32)
+            maps = kfused.fused_synth(a32, self._m_vals, x32, pmm, pms, **kw)
+            return maps.to(rdt)
+
+        return fn
+
+    def _make_fused_anal(self, variant: str):
+        from repro_torch.kernels import fused as kfused
+        K, cdt = self.K, _CDTYPES[self.dtype]
+        (x32, pmm, pms), kw = self._fused_parts(variant)
+        mask = torch.as_tensor(alm_mask(self.l_max, self.m_max),
+                               device=self.device)[..., None]
+
+        def fn(maps):
+            # the quadrature weights are applied outside the kernel chain
+            out = kfused.fused_anal(maps, self.grid.weights, self._m_vals,
+                                    x32, pmm, pms, **kw)
+            alm = torch.complex(out[..., :K], out[..., K:]).to(cdt)
+            return torch.where(mask, alm, torch.zeros((), dtype=cdt,
+                                                      device=alm.device))
+
+        return fn
+
     # -- public API -----------------------------------------------------------
 
     def _as_input(self, v, shape, what: str) -> torch.Tensor:
@@ -297,8 +371,12 @@ class Plan:
         return out
 
     def describe(self) -> dict:
-        """Structured report: signature, chosen kernels, layouts, memory
-        footprint and cache counters."""
+        """Structured report: signature, chosen kernels, layouts, fusion,
+        memory footprint and cache counters."""
+        from repro_torch.kernels.fused import FUSED_LP_SIZE
+        fusion_ok, fusion_reason = self._fusion_eligibility()
+        layouts = dict(self.layouts)
+        fused = any(v == "fused" for v in layouts.values())
         return {
             "signature": {
                 "grid": self.grid.name, "n_rings": self.grid.n_rings,
@@ -310,7 +388,17 @@ class Plan:
             "device": str(self.device),
             "mode": self.mode,
             "backends": dict(self.backends),
-            "layouts": dict(self.layouts),
+            "layouts": layouts,
+            "fusion": {
+                "eligible": fusion_ok, "reason": fusion_reason,
+                "skipped": fusion_reason,
+                "lp_size": FUSED_LP_SIZE if fused else None,
+                "active": {d: layouts.get(d) == "fused"
+                           for d in ("synth", "anal")},
+                "pipelines": {d: ("fused" if layouts.get(d) == "fused"
+                                  else "staged")
+                              for d in ("synth", "anal")},
+            },
             "candidates": list(self.candidates),
             "skipped": dict(self.skipped),
             "phase": self._sht.phase.describe(),
@@ -349,6 +437,23 @@ class Plan:
                 f"backends={self.backends})")
 
 
+def _fusion_eligibility(grid: RingGrid, spin: int) -> tuple:
+    """(eligible, reason) for the fused Legendre+phase pipeline.
+
+    The port's fused kernels cover spin 0 on a uniform phase stage,
+    equator fold on or off.  The fused ring-bucket stage waits for
+    ROADMAP.md Open items section 1, item 8, and the spin-2 row set for
+    item 7.
+    """
+    if not grid.uniform:
+        return False, ("the fused ring-bucket phase stage waits for "
+                       "ROADMAP.md Open items section 1, item 8")
+    if spin != 0:
+        return False, ("the fused spin-2 kernels wait for ROADMAP.md "
+                       "Open items section 1, item 7")
+    return True, None
+
+
 def _resolve_grid(grid, l_max):
     """Grid spec -> (RingGrid, signature fields); string specs go through
     the geometry cache."""
@@ -374,8 +479,8 @@ def _resolve_grid(grid, l_max):
 def make_plan(grid: Union[str, RingGrid] = "gl", l_max: Optional[int] = None,
               *, m_max: Optional[int] = None, K: int = 1,
               dtype: str = "float64", mode: Optional[str] = None,
-              fold: bool = False, spin: int = 0, layout: str = "plain",
-              device=None) -> Plan:
+              fold: bool = False, spin: int = 0,
+              layout: Optional[str] = None, device=None) -> Plan:
     """Build (or fetch) the transform plan for a problem signature.
 
     grid : ``"gl"`` or a prebuilt :class:`RingGrid` (other grid families
@@ -388,7 +493,10 @@ def make_plan(grid: Union[str, RingGrid] = "gl", l_max: Optional[int] = None,
         static ``2K >= 16 -> mxu`` rule.  ``"auto"``/``"model"``/``"dist"``
         raise (not ported yet).
     fold : the equator fold (symmetric grids only).
-    layout : ``"plain"``; ``"packed"``/``"fused"`` raise (not ported yet).
+    layout : the Legendre layout of the ``cuda_*`` backends: ``None`` (the
+        default) means ``"fused"`` where the plan is eligible, else
+        ``"plain"``; ``"packed"`` raises (not ported yet).  The ``torch``
+        backend takes none.  Both spellings of the default give one plan.
     device : ``None`` (the CUDA device, which must be visible), ``"cuda"``,
         ``"cuda:N"`` or ``"cpu"``.
 
@@ -401,7 +509,7 @@ def make_plan(grid: Union[str, RingGrid] = "gl", l_max: Optional[int] = None,
                          f"name {BACKENDS}")
     if f"layout {layout}" in _WAITING:
         raise _not_ported(f"layout {layout}")
-    if layout != "plain":
+    if layout not in (None, "plain", "fused"):
         raise ValueError(f"unknown layout {layout!r}")
     if spin != 0:
         raise _not_ported("spin")
@@ -422,10 +530,19 @@ def make_plan(grid: Union[str, RingGrid] = "gl", l_max: Optional[int] = None,
         from repro_torch.kernels.ops import pick_variant
         mode = "torch" if dtype == "float64" \
             else "cuda_" + pick_variant(2 * K)
+    if mode == "torch":
+        if layout is not None:
+            raise ValueError(f"layout {layout!r} applies to the cuda_* "
+                             "backends, not to 'torch'")
+    else:
+        fusion_ok, reason = _fusion_eligibility(g, spin)
+        if layout == "fused" and not fusion_ok:
+            raise ValueError(f"fused layout unavailable: {reason}")
+        layout = layout or ("fused" if fusion_ok else "plain")
 
     sig_key = plancache.signature_key(
         "plan", l_max=l_max, m_max=m_max, K=K, dtype=dtype, mode=mode,
-        fold=fold, device=str(dev), **grid_sig)
+        fold=fold, layout=layout, device=str(dev), **grid_sig)
     if sig_key in _PLANS:
         plancache.stats().memory_hits += 1
         return _PLANS[sig_key]
@@ -442,7 +559,6 @@ def make_plan(grid: Union[str, RingGrid] = "gl", l_max: Optional[int] = None,
         elig[mode] = None
     plan.skipped = {b: r for b, r in elig.items() if r is not None}
     plan.backends = {"synth": mode, "anal": mode}
-    plan.layouts = {d: ("plain" if mode != "torch" else None)
-                    for d in ("synth", "anal")}
+    plan.layouts = {d: layout for d in ("synth", "anal")}
     _PLANS[sig_key] = plan
     return plan

@@ -1,15 +1,17 @@
 """Carry the reference's state into the port.
 
 An SHT has no learned weights: its state is the grid geometry, the seed
-tables, the alm and the maps.  :func:`from_reference` takes those as the
+tables, the alm and the maps, and for the fused kernels the packed
+operands of a slot layout.  :func:`from_reference` takes those as the
 reference produces them (numpy arrays) and returns the port's tensors on
-a device, in the same layouts, so one set of inputs can be fed to both
-packages.
+a device, so one set of inputs can be fed to both packages.  Layouts are
+unchanged, except that the reference's ring axis padded to (R1, 128)
+tiles becomes the port's unpadded ring axis of ``n_rings``.
 """
 
 from __future__ import annotations
 
-from typing import Mapping
+from typing import Mapping, Optional
 
 import numpy as np
 import torch
@@ -30,17 +32,29 @@ _FIELDS = {
     "pms": (torch.int32, 2),            # (Mp, R) seed scales
     "alm": (None, 3),                   # (M, L, K) complex
     "maps": (None, 3),                  # (R, n_phi, K) real
+    "a_pk": (torch.float32, 3),         # (n_slots, S, 2K) packed streams
+    "slot_maps": (torch.int32, 2),      # (5, n_slots): m0, m1, mp0, mp1, seed
+    "pmm_pk": (torch.float32, 4),       # (n_slots, 2, R1, 128) -> (.., R)
+    "pms_pk": (torch.int32, 4),         # (n_slots, 2, R1, 128) -> (.., R)
+    "tab_pk": (torch.float32, 6),       # (n_slots, 2, n_pl, 4, R1, 128)
 }
 
+#: fields whose last two axes are the reference's (R1, 128) ring tiles
+_RING_TILED = ("pmm_pk", "pms_pk", "tab_pk")
 
-def from_reference(arrays: Mapping[str, np.ndarray],
-                   device=None) -> dict[str, torch.Tensor]:
+
+def from_reference(arrays: Mapping[str, np.ndarray], device=None,
+                   n_rings: Optional[int] = None) -> dict[str, torch.Tensor]:
     """Reference arrays -> port tensors on ``device`` (``None``: the CUDA
     device, which must be visible).
 
     Keys are grid fields (``cos_theta``, ``sin_theta``, ``weights``,
-    ``n_phi``, ``phi0``), seeds (``pmm``, ``pms``), ``alm`` (complex) and
-    ``maps`` (real).  Values are copied; layouts are unchanged.
+    ``n_phi``, ``phi0``), seeds (``pmm``, ``pms``), ``alm`` (complex),
+    ``maps`` (real), and the packed operands of the fused kernels:
+    ``a_pk``, ``slot_maps`` (the five per-slot maps stacked), and the
+    ring-tiled ``pmm_pk``/``pms_pk``/``tab_pk``, whose (R1, 128) ring tiles
+    are flattened and cut to ``n_rings`` (required for them).  Values are
+    copied.
     """
     device = resolve_device(device)
     out = {}
@@ -57,5 +71,10 @@ def from_reference(arrays: Mapping[str, np.ndarray],
         if name == "maps" and np.iscomplexobj(a):
             raise ValueError("maps must be real")
         t = torch.from_numpy(a)
+        if name in _RING_TILED:
+            if n_rings is None:
+                raise ValueError(f"{name} needs n_rings to cut its ring "
+                                 "padding")
+            t = t.flatten(-2)[..., :n_rings].contiguous()
         out[name] = (t if dtype is None else t.to(dtype)).to(device)
     return out

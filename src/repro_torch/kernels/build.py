@@ -1,12 +1,13 @@
-"""Build the port's CUDA Legendre kernels into a shared library at first use.
+"""Build the port's CUDA kernels into shared libraries at first use.
 
-``csrc/legendre.cu`` compiles with one ``nvcc`` process into
-``_build/legendre_<hash>.so`` next to this file (the directory is
-git-ignored); the hash covers the source bytes and the flags, so an edited
-source rebuilds and an unchanged one loads at once.  The library has a
-plain C interface and is loaded with ctypes.  Needs ``nvcc``
-(``$CUDA_HOME/bin``, ``/usr/local/cuda/bin`` or the PATH); nothing here runs
-at import time.
+Each source in :data:`SOURCES` (``csrc/legendre.cu``, ``csrc/fused.cu``)
+compiles with its own ``nvcc`` process into ``_build/<name>_<hash>.so``
+next to this file (the directory is git-ignored); :func:`build` starts the
+missing ones together.  The hash covers the source, the shared header
+``csrc/recurrence.cuh`` and the flags, so an edited source or header
+rebuilds and an unchanged one loads at once.  The libraries have a plain C
+interface and are loaded with ctypes.  Needs ``nvcc`` (``$CUDA_HOME/bin``,
+``/usr/local/cuda/bin`` or the PATH); nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -18,17 +19,19 @@ import shutil
 import subprocess
 import threading
 
-__all__ = ["SOURCE", "NVCC_FLAGS", "build_dir", "build", "load"]
+__all__ = ["SOURCES", "HEADERS", "NVCC_FLAGS", "build_dir", "build", "load"]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 
-SOURCE = os.path.join(_HERE, "csrc", "legendre.cu")
+SOURCES = {name: os.path.join(_HERE, "csrc", f"{name}.cu")
+           for name in ("legendre", "fused")}
+HEADERS = [os.path.join(_HERE, "csrc", "recurrence.cuh")]
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _LOCK = threading.Lock()
-_LIB: list[ctypes.CDLL] = []
+_LIBS: dict[str, ctypes.CDLL] = {}
 
 
 def build_dir() -> str:
@@ -44,35 +47,53 @@ def _nvcc() -> str:
                        "machine with the CUDA toolkit")
 
 
-def build() -> tuple[str, str]:
-    """Compile the library if it is missing.
+def _path(name: str) -> str:
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in (SOURCES[name], *HEADERS):
+        with open(f, "rb") as fh:
+            digest.update(fh.read())
+    return os.path.join(build_dir(), f"{name}_{digest.hexdigest()[:16]}.so")
 
-    Returns ``(library path, compiler output)``, the output empty when the
-    library was already built; raises with the compiler's output if the
-    build fails.
+
+def build(names=None) -> dict[str, tuple[str, str]]:
+    """Compile the libraries of ``names`` (default: every source) that are
+    missing, one ``nvcc`` per source, all started together.
+
+    Returns ``{name: (library path, compiler output)}``, the output empty
+    for a library that was already built; raises with the compiler's output
+    if a build fails.
     """
-    with open(SOURCE, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
-    path = os.path.join(build_dir(), f"legendre_{digest.hexdigest()[:16]}.so")
-    if os.path.exists(path):
-        return path, ""
-    os.makedirs(build_dir(), exist_ok=True)
-    tmp = f"{path}.{os.getpid()}.tmp"
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE],
-                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                          text=True)
-    if proc.returncode != 0:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-        raise RuntimeError(f"CUDA build failed: nvcc exited "
-                           f"{proc.returncode}\n{proc.stdout}")
-    os.replace(tmp, path)
-    return path, proc.stdout
+    names = list(SOURCES) if names is None else list(names)
+    out, procs = {}, {}
+    for name in names:
+        path = _path(name)
+        if os.path.exists(path):
+            out[name] = (path, "")
+            continue
+        os.makedirs(build_dir(), exist_ok=True)
+        tmp = f"{path}.{os.getpid()}.tmp"
+        procs[name] = (path, tmp, subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCES[name]],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    failed = []
+    for name, (path, tmp, proc) in procs.items():
+        log = proc.communicate()[0]
+        if proc.returncode != 0:
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+            failed.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
+            continue
+        os.replace(tmp, path)
+        out[name] = (path, log)
+    if failed:
+        raise RuntimeError("CUDA build failed: " + "\n".join(failed))
+    return out
 
 
-def load() -> ctypes.CDLL:
-    """The loaded library, built first if needed (once per process)."""
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of source ``name``, built first if needed (once
+    per process)."""
     with _LOCK:
-        if not _LIB:
-            _LIB.append(ctypes.CDLL(build()[0]))
-        return _LIB[0]
+        if name not in _LIBS:
+            _LIBS[name] = ctypes.CDLL(build([name])[name][0])
+        return _LIBS[name]

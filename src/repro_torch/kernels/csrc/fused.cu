@@ -1,0 +1,792 @@
+// Fused Legendre+phase kernels of the spherical harmonic transforms, for
+// Hopper, on the packed slot layout (repro_torch/kernels/pack.py).
+//
+// Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
+//        -Xcompiler -fPIC (no --use_fast_math); bound through the plain C
+//        interface at the end of this file (ctypes,
+//        repro_torch.kernels.fused_cuda).
+//
+// A slot holds up to two m rows (segments) back to back in one l-stream of
+// length S: segment 0 (m0) at positions [0, l_max + 1 - m0), segment 1 (m1)
+// from position `seed` (seed == S: no segment 1).  Positions past both are
+// dead.  The recurrence (recurrence.cuh) re-seeds at each segment's l == m,
+// so every P_lm is bit-identical to the staged kernels' (legendre.cu) and
+// to the plain PyTorch versions (kernels/ref.py).  Channels are 2K (re | im);
+// a block takes a chunk of KM maps, i.e. the channel pairs (k, K + k), so
+// that the phase rotation, which mixes re and im, stays inside the block.
+//
+// Rotation tables tab (n_slots, 2 segments, P planes, 4, R) f32:
+//   h_re = t0 d_re + t1 d_im,  h_im = t2 d_re + t3 d_im
+// (core/phase.py uniform_rotation_tables); tab == nullptr is the identity.
+// With the equator fold P = 2: synthesis sums even and odd (l + m) into two
+// planes and writes north = even + odd, south = even - odd; analysis takes
+// north and south rows and contracts even = N + S, odd = N - S.  The
+// rotation and the combine are separately rounded, as in the plain version.
+//
+// Kernels (TPU kernel each replaces; what bounds it on the H100; design):
+//
+//   synth_fused_vpu  replaces synth_fused_vpu, src/repro/kernels/fused.py:222.
+//                    float32 operations bound: one thread per ring, one
+//                    block per (128-ring tile, slot, chunk of <= 8 maps); each
+//                    segment's l loop runs in the thread with the a rows of
+//                    each 32-l tile staged in shared memory and the planes in
+//                    registers, then the fold combine and the rotation run on
+//                    the registers and only the rotated rows are written,
+//                    (n_slots, 2, P, 2K, R): Delta never reaches HBM.
+//   synth_fused_mxu  replaces synth_fused_mxu, fused.py:385.  float32
+//                    operations bound: per (slot, 128-ring tile) and segment
+//                    the block builds (32 l x 128 ring) P panels in shared
+//                    memory and contracts them against the (32 l x 2KM)
+//                    coefficient panel with register tiles (full float32, no
+//                    TF32), then stages the sums in shared memory and rotates
+//                    once per ring tile into (n_slots, 2, P, R, 2K).
+//   anal_fused_vpu   replaces anal_fused_vpu, fused.py:526.  float32
+//                    operations bound: one block per (slot, 1024-ring chunk,
+//                    chunk of <= 2 maps); per segment each thread rotates the
+//                    FFT rows of its 8 rings into Delta in registers, once,
+//                    then carries their recurrences, sums its rings per l, and
+//                    a fixed xor-butterfly warp reduction and a fixed-order
+//                    sum over the 4 warps give the chunk's partial row.
+//   anal_fused_mxu   replaces anal_fused_mxu, fused.py:666.  float32
+//                    operations bound: one block per (slot, 512-ring chunk,
+//                    chunk of <= 8 maps); per segment the chunk's FFT rows are
+//                    rotated into Delta in shared memory once, then each 32-l
+//                    P panel of each 128-ring tile is contracted against it
+//                    with register tiles and the ring groups are summed in a
+//                    fixed order into the chunk's partial rows.
+//
+// The TPU analysis kernels add into one output block across ring blocks in
+// sequential grid order (fused.py:477, :600); CUDA blocks run in no order,
+// so both analysis kernels write per-ring-chunk partials (n_slots, n_chunks,
+// S, 2K), dead positions zero, and the chunk-order second pass anal_reduce
+// (legendre.cu) sums them: no atomics, identical bits on every run.
+
+#include "recurrence.cuh"
+
+namespace {
+
+// One segment of a slot's l-stream: its m, first stream position, and
+// number of l steps (0 for an empty segment 1).
+struct Seg {
+  int m;
+  int g0;
+  int len;
+};
+
+__device__ __forceinline__ Seg segment(const int* __restrict__ m0s,
+                                       const int* __restrict__ m1s,
+                                       const int* __restrict__ seeds, int si,
+                                       int seg, int S, int l_max) {
+  if (seg == 0) {
+    const int m = m0s[si];
+    return {m, 0, l_max + 1 - m};
+  }
+  const int m = m1s[si], seed = seeds[si];
+  return {m, seed, seed < S ? l_max + 1 - m : 0};
+}
+
+// First stream position past both segments: the dead tail starts here.
+__device__ __forceinline__ int live_end(const int* __restrict__ m0s,
+                                        const int* __restrict__ m1s,
+                                        const int* __restrict__ seeds, int si,
+                                        int S, int l_max) {
+  const int seed = seeds[si];
+  return seed < S ? seed + l_max + 1 - m1s[si] : l_max + 1 - m0s[si];
+}
+
+// Global channel of local channel c of a chunk of KM maps from map k0:
+// local [0, KM) are the real parts, [KM, 2KM) the imaginary parts.
+template <int KM>
+__device__ __forceinline__ int channel(int c, int k0, int K) {
+  return c < KM ? k0 + c : K + k0 + (c - KM);
+}
+
+// (t0 re + t1 im, t2 re + t3 im), separately rounded as the plain version.
+__device__ __forceinline__ void rotate(const float* __restrict__ tab,
+                                       size_t row, int R, float* re,
+                                       float* im) {
+  const float t0 = tab[row], t1 = tab[row + R], t2 = tab[row + 2 * R],
+              t3 = tab[row + 3 * R];
+  const float a = *re, b = *im;
+  *re = __fadd_rn(__fmul_rn(t0, a), __fmul_rn(t1, b));
+  *im = __fadd_rn(__fmul_rn(t2, a), __fmul_rn(t3, b));
+}
+
+// Offset of table row (slot, seg, plane, q = 0, ring r).
+__device__ __forceinline__ size_t tab_row(int si, int seg, int p, int P,
+                                          int R, int r) {
+  return ((static_cast<size_t>(si) * 2 + seg) * P + p) * 4 * R + r;
+}
+
+// Zero the partial rows [end, S) of the dead stream tail.
+template <int KM>
+__device__ __forceinline__ void zero_tail(float* __restrict__ part,
+                                          size_t chunk_row, int end, int S,
+                                          int k0, int nk, int K) {
+  constexpr int CC = 2 * KM;
+  for (int i = threadIdx.x; i < (S - end) * CC; i += kTile) {
+    const int g = end + i / CC, c = i % CC;
+    if (c % KM < nk)
+      part[(chunk_row + g) * 2 * K + channel<KM>(c, k0, K)] = 0.0f;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// synth_fused_vpu: grid (ceil(R / 128), n_slots, ceil(K / KM)), block 128.
+// out (n_slots, 2, P, 2K, R).
+// ---------------------------------------------------------------------------
+template <int KM, bool FOLD>
+__global__ void __launch_bounds__(kTile)
+synth_fused_vpu_kernel(const float* __restrict__ a_pk,
+                       const int* __restrict__ m0s,
+                       const int* __restrict__ m1s,
+                       const int* __restrict__ seeds,
+                       const float* __restrict__ x,
+                       const float* __restrict__ pmm_pk,
+                       const int* __restrict__ pms_pk,
+                       const float* __restrict__ tab, float* __restrict__ out,
+                       int S, int K, int R, int l_max) {
+  constexpr int P = FOLD ? 2 : 1;
+  constexpr int CC = 2 * KM;
+  __shared__ __align__(16) float a_s[kLT][CC];
+  __shared__ float bl_s[kLT], ratio_s[kLT];
+  const int si = blockIdx.y;
+  const int r = blockIdx.x * kTile + threadIdx.x;
+  const int k0 = blockIdx.z * KM;
+  const int nk = min(KM, K - k0);
+  const int K2 = 2 * K;
+  const bool live = r < R;
+  const float xr = live ? x[r] : 0.0f;
+
+  for (int seg = 0; seg < 2; ++seg) {
+    const Seg sg = segment(m0s, m1s, seeds, si, seg, S, l_max);
+    const size_t srow = (static_cast<size_t>(si) * 2 + seg) * R + r;
+    const float pmm_r = live ? pmm_pk[srow] : 0.0f;
+    const int pms_r = live ? pms_pk[srow] : 0;
+    const float p1 = p_first_coef(sg.m);
+    const int l_end = sg.m + sg.len;
+    float acc[P][CC];
+#pragma unroll
+    for (int p = 0; p < P; ++p)
+#pragma unroll
+      for (int c = 0; c < CC; ++c) acc[p][c] = 0.0f;
+    Rec s;
+    for (int l0 = sg.m; l0 < l_end; l0 += kLT) {   // block-uniform
+      const int n = min(kLT, l_end - l0);
+      __syncthreads();                             // previous tile consumed
+      for (int i = threadIdx.x; i < kLT * CC; i += kTile) {
+        const int j = i / CC, c = i % CC;
+        a_s[j][c] = (j < n && c % KM < nk)
+            ? a_pk[(static_cast<size_t>(si) * S + sg.g0 + l0 - sg.m + j) * K2 +
+                   channel<KM>(c, k0, K)]
+            : 0.0f;
+      }
+      fill_beta(l0, sg.m, bl_s, ratio_s);
+      __syncthreads();
+      for (int j = 0; j < n; ++j) {
+        const int l = l0 + j;
+        const float v = rec_advance(&s, l, sg.m, xr, bl_s[j], ratio_s[j], p1,
+                                    pmm_r, pms_r);
+        if (FOLD && ((l + sg.m) & 1)) {
+#pragma unroll
+          for (int c = 0; c < CC; ++c)
+            acc[P - 1][c] = fmaf(v, a_s[j][c], acc[P - 1][c]);
+        } else {
+#pragma unroll
+          for (int c = 0; c < CC; ++c) acc[0][c] = fmaf(v, a_s[j][c], acc[0][c]);
+        }
+      }
+    }
+    if (!live) continue;
+    if (FOLD) {
+#pragma unroll
+      for (int c = 0; c < CC; ++c) {
+        const float e = acc[0][c], o = acc[P - 1][c];
+        acc[0][c] = e + o;                         // north
+        acc[P - 1][c] = e - o;                     // south
+      }
+    }
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+#pragma unroll
+      for (int k = 0; k < KM; ++k) {
+        if (k >= nk) continue;
+        float re = acc[p][k], im = acc[p][KM + k];
+        if (tab != nullptr) rotate(tab, tab_row(si, seg, p, P, R, r), R, &re, &im);
+        const size_t o = ((static_cast<size_t>(si) * 2 + seg) * P + p) * K2;
+        out[(o + k0 + k) * R + r] = re;
+        out[(o + K + k0 + k) * R + r] = im;
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// synth_fused_mxu: grid (ceil(R / 128), n_slots, ceil(K / KM)), block 128.
+// Thread t owns TR consecutive rings x TC local channels of the (128 x 2KM)
+// sums; the epilogue stages them in shared memory and rotates with one
+// thread per ring.  out (n_slots, 2, P, R, 2K).
+// ---------------------------------------------------------------------------
+template <int KM, bool FOLD>
+__global__ void __launch_bounds__(kTile)
+synth_fused_mxu_kernel(const float* __restrict__ a_pk,
+                       const int* __restrict__ m0s,
+                       const int* __restrict__ m1s,
+                       const int* __restrict__ seeds,
+                       const float* __restrict__ x,
+                       const float* __restrict__ pmm_pk,
+                       const int* __restrict__ pms_pk,
+                       const float* __restrict__ tab, float* __restrict__ out,
+                       int S, int K, int R, int l_max) {
+  constexpr int P = FOLD ? 2 : 1;
+  constexpr int CC = 2 * KM;
+  constexpr int TC = CC < 4 ? CC : 4;     // channels per thread
+  constexpr int CG = CC / TC;             // channel groups
+  constexpr int TR = CG;                  // rings per thread
+  __shared__ __align__(16) float panel_s[kLT][kTile];
+  __shared__ __align__(16) float coef_s[kLT][CC];
+  __shared__ float stage_s[P][kTile][CC + 1];
+  __shared__ float bl_s[kLT], ratio_s[kLT];
+  const int si = blockIdx.y;
+  const int tile0 = blockIdx.x * kTile;
+  const int k0 = blockIdx.z * KM;
+  const int nk = min(KM, K - k0);
+  const int K2 = 2 * K;
+  const int t = threadIdx.x;
+  const int cg = t % CG, rg = t / CG;
+  const int r = tile0 + t;                // this thread's recurrence ring
+  const bool live = r < R;
+  const float xr = live ? x[r] : 0.0f;
+
+  for (int seg = 0; seg < 2; ++seg) {
+    const Seg sg = segment(m0s, m1s, seeds, si, seg, S, l_max);
+    const size_t srow = (static_cast<size_t>(si) * 2 + seg) * R + r;
+    const float pmm_r = live ? pmm_pk[srow] : 0.0f;
+    const int pms_r = live ? pms_pk[srow] : 0;
+    const float p1 = p_first_coef(sg.m);
+    const int l_end = sg.m + sg.len;
+    float acc[P][TR][TC];
+#pragma unroll
+    for (int p = 0; p < P; ++p)
+#pragma unroll
+      for (int i = 0; i < TR; ++i)
+#pragma unroll
+        for (int k = 0; k < TC; ++k) acc[p][i][k] = 0.0f;
+    Rec s;
+    for (int l0 = sg.m; l0 < l_end; l0 += kLT) {   // block-uniform
+      const int n = min(kLT, l_end - l0);
+      __syncthreads();                             // previous panel consumed
+      fill_beta(l0, sg.m, bl_s, ratio_s);
+      for (int i = t; i < kLT * CC; i += kTile) {
+        const int j = i / CC, c = i % CC;
+        coef_s[j][c] = (j < n && c % KM < nk)
+            ? a_pk[(static_cast<size_t>(si) * S + sg.g0 + l0 - sg.m + j) * K2 +
+                   channel<KM>(c, k0, K)]
+            : 0.0f;
+      }
+      __syncthreads();
+      for (int j = 0; j < n; ++j)                  // build the P panel
+        panel_s[j][t] = rec_advance(&s, l0 + j, sg.m, xr, bl_s[j],
+                                    ratio_s[j], p1, pmm_r, pms_r);
+      __syncthreads();
+      for (int j = 0; j < n; ++j) {                // contract over l
+        float pv[TR], cv[TC];
+#pragma unroll
+        for (int i = 0; i < TR; ++i) pv[i] = panel_s[j][rg * TR + i];
+#pragma unroll
+        for (int k = 0; k < TC; ++k) cv[k] = coef_s[j][cg * TC + k];
+        if (FOLD && ((l0 + j + sg.m) & 1)) {
+#pragma unroll
+          for (int i = 0; i < TR; ++i)
+#pragma unroll
+            for (int k = 0; k < TC; ++k)
+              acc[P - 1][i][k] = fmaf(pv[i], cv[k], acc[P - 1][i][k]);
+        } else {
+#pragma unroll
+          for (int i = 0; i < TR; ++i)
+#pragma unroll
+            for (int k = 0; k < TC; ++k)
+              acc[0][i][k] = fmaf(pv[i], cv[k], acc[0][i][k]);
+        }
+      }
+    }
+    __syncthreads();                               // stage_s consumed
+#pragma unroll
+    for (int p = 0; p < P; ++p)
+#pragma unroll
+      for (int i = 0; i < TR; ++i)
+#pragma unroll
+        for (int k = 0; k < TC; ++k)
+          stage_s[p][rg * TR + i][cg * TC + k] = acc[p][i][k];
+    __syncthreads();
+    if (!live) continue;
+    for (int k = 0; k < nk; ++k) {
+      float re[P], im[P];
+#pragma unroll
+      for (int p = 0; p < P; ++p) {
+        re[p] = stage_s[p][t][k];
+        im[p] = stage_s[p][t][KM + k];
+      }
+      if (FOLD) {
+        const float er = re[0], ei = im[0];
+        re[0] = er + re[P - 1];                    // north
+        im[0] = ei + im[P - 1];
+        re[P - 1] = er - re[P - 1];                // south
+        im[P - 1] = ei - im[P - 1];
+      }
+#pragma unroll
+      for (int p = 0; p < P; ++p) {
+        if (tab != nullptr)
+          rotate(tab, tab_row(si, seg, p, P, R, r), R, &re[p], &im[p]);
+        const size_t o =
+            (((static_cast<size_t>(si) * 2 + seg) * P + p) * R + r) * K2;
+        out[o + k0 + k] = re[p];
+        out[o + K + k0 + k] = im[p];
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// anal_fused_vpu partials: part[slot][chunk][g][c] = sum over the chunk's
+// rings of Delta(r) P_lm(r) at stream position g.  Thread t carries rings
+// chunk0 + k * 128 + t, k < 8.  f_pk (n_slots, 2, P, 2K, R).
+// grid (n_chunks, n_slots, ceil(K / KM)), block 128.
+// ---------------------------------------------------------------------------
+template <int KM, bool FOLD>
+__global__ void __launch_bounds__(kTile)
+anal_fused_vpu_kernel(const float* __restrict__ f_pk,
+                      const int* __restrict__ m0s,
+                      const int* __restrict__ m1s,
+                      const int* __restrict__ seeds,
+                      const float* __restrict__ x,
+                      const float* __restrict__ pmm_pk,
+                      const int* __restrict__ pms_pk,
+                      const float* __restrict__ tab, float* __restrict__ part,
+                      int S, int K, int R, int l_max) {
+  constexpr int P = FOLD ? 2 : 1;
+  constexpr int CC = 2 * KM;
+  constexpr int kWarps = kTile / 32;
+  __shared__ float row_s[kWarps][kLT][CC];
+  __shared__ float bl_s[kLT], ratio_s[kLT];
+  const int si = blockIdx.y;
+  const int chunk = blockIdx.x;
+  const int base = chunk * kVpuAnalTiles * kTile;
+  const int k0 = blockIdx.z * KM;
+  const int nk = min(KM, K - k0);
+  const int K2 = 2 * K;
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int ntile = min(kVpuAnalTiles, (R - base + kTile - 1) / kTile);
+  const size_t chunk_row = (static_cast<size_t>(si) * gridDim.x + chunk) * S;
+
+  float xr[kVpuAnalTiles];
+#pragma unroll
+  for (int k = 0; k < kVpuAnalTiles; ++k) {
+    const int r = base + k * kTile + t;
+    xr[k] = (k < ntile && r < R) ? x[r] : 0.0f;
+  }
+  for (int seg = 0; seg < 2; ++seg) {
+    const Seg sg = segment(m0s, m1s, seeds, si, seg, S, l_max);
+    if (sg.len == 0) continue;                     // block-uniform
+    const float p1 = p_first_coef(sg.m);
+    const int l_end = sg.m + sg.len;
+    float pmm_r[kVpuAnalTiles];
+    int pms_r[kVpuAnalTiles];
+    float d[kVpuAnalTiles][P][CC];                 // rotated Delta, planes
+#pragma unroll
+    for (int k = 0; k < kVpuAnalTiles; ++k) {
+      const int r = base + k * kTile + t;
+      const bool live = k < ntile && r < R;
+      const size_t srow = (static_cast<size_t>(si) * 2 + seg) * R + r;
+      pmm_r[k] = live ? pmm_pk[srow] : 0.0f;
+      pms_r[k] = live ? pms_pk[srow] : 0;
+      float re[P][KM], im[P][KM];
+#pragma unroll
+      for (int p = 0; p < P; ++p) {
+        const size_t o = ((static_cast<size_t>(si) * 2 + seg) * P + p) * K2;
+#pragma unroll
+        for (int c = 0; c < KM; ++c) {
+          const bool ok = live && c < nk;
+          re[p][c] = ok ? f_pk[(o + k0 + c) * R + r] : 0.0f;
+          im[p][c] = ok ? f_pk[(o + K + k0 + c) * R + r] : 0.0f;
+          if (ok && tab != nullptr)
+            rotate(tab, tab_row(si, seg, p, P, R, r), R, &re[p][c], &im[p][c]);
+        }
+      }
+#pragma unroll
+      for (int c = 0; c < KM; ++c) {
+        if (FOLD) {
+          d[k][0][c] = re[0][c] + re[P - 1][c];     // even = N + S
+          d[k][0][KM + c] = im[0][c] + im[P - 1][c];
+          d[k][P - 1][c] = re[0][c] - re[P - 1][c]; // odd = N - S
+          d[k][P - 1][KM + c] = im[0][c] - im[P - 1][c];
+        } else {
+          d[k][0][c] = re[0][c];
+          d[k][0][KM + c] = im[0][c];
+        }
+      }
+    }
+
+    Rec s[kVpuAnalTiles];
+    for (int l0 = sg.m; l0 < l_end; l0 += kLT) {   // block-uniform
+      const int n = min(kLT, l_end - l0);
+      fill_beta(l0, sg.m, bl_s, ratio_s);
+      __syncthreads();
+      for (int j = 0; j < n; ++j) {
+        const int l = l0 + j;
+        const int p = (FOLD && ((l + sg.m) & 1)) ? P - 1 : 0;
+        float sum[CC];
+#pragma unroll
+        for (int c = 0; c < CC; ++c) sum[c] = 0.0f;
+#pragma unroll
+        for (int k = 0; k < kVpuAnalTiles; ++k) {
+          if (k < ntile) {                         // block-uniform
+            const float v = rec_advance(&s[k], l, sg.m, xr[k], bl_s[j],
+                                        ratio_s[j], p1, pmm_r[k], pms_r[k]);
+            if (p) {
+#pragma unroll
+              for (int c = 0; c < CC; ++c)
+                sum[c] = fmaf(v, d[k][P - 1][c], sum[c]);
+            } else {
+#pragma unroll
+              for (int c = 0; c < CC; ++c) sum[c] = fmaf(v, d[k][0][c], sum[c]);
+            }
+          }
+        }
+#pragma unroll
+        for (int c = 0; c < CC; ++c) {
+#pragma unroll
+          for (int off = 16; off > 0; off >>= 1)
+            sum[c] += __shfl_xor_sync(0xffffffffu, sum[c], off);
+        }
+        if (lane == 0) {
+#pragma unroll
+          for (int c = 0; c < CC; ++c) row_s[warp][j][c] = sum[c];
+        }
+      }
+      __syncthreads();
+      for (int i = t; i < n * CC; i += kTile) {
+        const int j = i / CC, c = i % CC;
+        if (c % KM < nk) {
+          float total = 0.0f;
+#pragma unroll
+          for (int w = 0; w < kWarps; ++w) total += row_s[w][j][c];
+          part[(chunk_row + sg.g0 + l0 - sg.m + j) * K2 +
+               channel<KM>(c, k0, K)] = total;
+        }
+      }
+      __syncthreads();                             // row_s / beta reused
+    }
+  }
+  zero_tail<KM>(part, chunk_row, live_end(m0s, m1s, seeds, si, S, l_max), S,
+                k0, nk, K);
+}
+
+// ---------------------------------------------------------------------------
+// anal_fused_mxu partials: per segment the chunk's rotated Delta sits in
+// shared memory; per 32-l panel, for each of the chunk's 4 ring tiles, the
+// block builds the (32 x 128) P panel and contracts it.  Thread
+// t = q * (8 * CG) + jg * CG + cg owns output rows jg*4 .. jg*4+3, local
+// channels cg*TC .. +TC, over ring split q of each tile.  f_pk (n_slots, 2,
+// P, R, 2K).  grid (n_chunks, n_slots, ceil(K / KM)), block 128, dynamic
+// shared memory.
+// ---------------------------------------------------------------------------
+template <int KM, bool FOLD>
+struct AnalFusedMxuShape {
+  static constexpr int P = FOLD ? 2 : 1;
+  static constexpr int CC = 2 * KM;
+  static constexpr int TC = CC < 4 ? CC : 4;
+  static constexpr int CG = CC / TC;
+  static constexpr int TJ = 4;                     // rows per thread
+  static constexpr int JG = kLT / TJ;              // row groups (8)
+  static constexpr int Q = kTile / (JG * CG);      // ring splits
+  static constexpr int RS = kTile / Q;             // rings per split
+  static constexpr int kChunk = kMxuAnalTiles * kTile;
+  static constexpr int kPanelStride = kTile + 1;   // conflict-free columns
+  static constexpr size_t dw_floats = static_cast<size_t>(P) * kChunk * CC;
+  static constexpr size_t panel_floats = static_cast<size_t>(kLT) * kPanelStride;
+  static constexpr size_t red_floats = static_cast<size_t>(Q) * kLT * CC;
+  static constexpr size_t smem_bytes =
+      (dw_floats + panel_floats + red_floats + 2 * kLT) * sizeof(float);
+};
+
+template <int KM, bool FOLD>
+__global__ void __launch_bounds__(kTile)
+anal_fused_mxu_kernel(const float* __restrict__ f_pk,
+                      const int* __restrict__ m0s,
+                      const int* __restrict__ m1s,
+                      const int* __restrict__ seeds,
+                      const float* __restrict__ x,
+                      const float* __restrict__ pmm_pk,
+                      const int* __restrict__ pms_pk,
+                      const float* __restrict__ tab, float* __restrict__ part,
+                      int S, int K, int R, int l_max) {
+  using Sh = AnalFusedMxuShape<KM, FOLD>;
+  constexpr int P = Sh::P, CC = Sh::CC, TC = Sh::TC, CG = Sh::CG,
+                TJ = Sh::TJ, Q = Sh::Q, RS = Sh::RS;
+  extern __shared__ __align__(16) float smem[];
+  float* dw_s = smem;                                  // [P][kChunk][CC]
+  float* panel_s = dw_s + Sh::dw_floats;               // [kLT][kPanelStride]
+  float* red_s = panel_s + Sh::panel_floats;           // [Q][kLT][CC]
+  float* bl_s = red_s + Sh::red_floats;                // [kLT]
+  float* ratio_s = bl_s + kLT;                         // [kLT]
+
+  const int si = blockIdx.y;
+  const int chunk = blockIdx.x;
+  const int base = chunk * Sh::kChunk;
+  const int k0 = blockIdx.z * KM;
+  const int nk = min(KM, K - k0);
+  const int K2 = 2 * K;
+  const int t = threadIdx.x;
+  const int cg = t % CG, jg = (t / CG) % Sh::JG, q = t / (CG * Sh::JG);
+  const int ntile = min(kMxuAnalTiles, (R - base + kTile - 1) / kTile);
+  const size_t chunk_row = (static_cast<size_t>(si) * gridDim.x + chunk) * S;
+
+  float xr[kMxuAnalTiles];
+#pragma unroll
+  for (int k = 0; k < kMxuAnalTiles; ++k) {
+    const int r = base + k * kTile + t;
+    xr[k] = (k < ntile && r < R) ? x[r] : 0.0f;
+  }
+  for (int seg = 0; seg < 2; ++seg) {
+    const Seg sg = segment(m0s, m1s, seeds, si, seg, S, l_max);
+    if (sg.len == 0) continue;                     // block-uniform
+    const float p1 = p_first_coef(sg.m);
+    const int l_end = sg.m + sg.len;
+    __syncthreads();                               // dw_s of seg 0 consumed
+    // rotate the chunk's FFT rows into Delta once, combine the planes
+    for (int rr = t; rr < Sh::kChunk; rr += kTile) {
+      const int r = base + rr;
+      for (int c = 0; c < KM; ++c) {
+        float re[P], im[P];
+#pragma unroll
+        for (int p = 0; p < P; ++p) {
+          const bool ok = r < R && c < nk;
+          const size_t o =
+              (((static_cast<size_t>(si) * 2 + seg) * P + p) * R + r) * K2;
+          re[p] = ok ? f_pk[o + k0 + c] : 0.0f;
+          im[p] = ok ? f_pk[o + K + k0 + c] : 0.0f;
+          if (ok && tab != nullptr)
+            rotate(tab, tab_row(si, seg, p, P, R, r), R, &re[p], &im[p]);
+        }
+        float* d0 = dw_s + static_cast<size_t>(rr) * CC;
+        if (FOLD) {
+          float* d1 = d0 + static_cast<size_t>(Sh::kChunk) * CC;
+          d0[c] = re[0] + re[P - 1];               // even = N + S
+          d0[KM + c] = im[0] + im[P - 1];
+          d1[c] = re[0] - re[P - 1];               // odd = N - S
+          d1[KM + c] = im[0] - im[P - 1];
+        } else {
+          d0[c] = re[0];
+          d0[KM + c] = im[0];
+        }
+      }
+    }
+    Rec s[kMxuAnalTiles];
+    float pmm_r[kMxuAnalTiles];
+    int pms_r[kMxuAnalTiles];
+#pragma unroll
+    for (int k = 0; k < kMxuAnalTiles; ++k) {
+      const int r = base + k * kTile + t;
+      const bool live = k < ntile && r < R;
+      const size_t srow = (static_cast<size_t>(si) * 2 + seg) * R + r;
+      pmm_r[k] = live ? pmm_pk[srow] : 0.0f;
+      pms_r[k] = live ? pms_pk[srow] : 0;
+    }
+
+    for (int l0 = sg.m; l0 < l_end; l0 += kLT) {   // block-uniform
+      const int n = min(kLT, l_end - l0);
+      fill_beta(l0, sg.m, bl_s, ratio_s);
+      __syncthreads();
+      const int pb = FOLD ? ((l0 + sg.m) & 1) : 0;  // plane of even rows
+      float acc[TJ][TC];
+#pragma unroll
+      for (int i = 0; i < TJ; ++i)
+#pragma unroll
+        for (int k = 0; k < TC; ++k) acc[i][k] = 0.0f;
+#pragma unroll
+      for (int k = 0; k < kMxuAnalTiles; ++k) {
+        if (k >= ntile) break;                     // block-uniform
+        for (int j = 0; j < kLT; ++j)              // build the P panel
+          panel_s[j * Sh::kPanelStride + t] =
+              j < n ? rec_advance(&s[k], l0 + j, sg.m, xr[k], bl_s[j],
+                                  ratio_s[j], p1, pmm_r[k], pms_r[k])
+                    : 0.0f;
+        __syncthreads();
+        const float* d0 = dw_s + (static_cast<size_t>(pb) * Sh::kChunk +
+                                  k * kTile) * CC;
+        const float* d1 = dw_s + (static_cast<size_t>(FOLD ? 1 - pb : 0) *
+                                  Sh::kChunk + k * kTile) * CC;
+        for (int rr = 0; rr < RS; ++rr) {          // contract over rings
+          const int ring = q * RS + rr;
+          float pv[TJ], e0[TC], e1[TC];
+#pragma unroll
+          for (int i = 0; i < TJ; ++i)
+            pv[i] = panel_s[(jg * TJ + i) * Sh::kPanelStride + ring];
+#pragma unroll
+          for (int c = 0; c < TC; ++c) {
+            e0[c] = d0[ring * CC + cg * TC + c];
+            e1[c] = FOLD ? d1[ring * CC + cg * TC + c] : e0[c];
+          }
+#pragma unroll
+          for (int i = 0; i < TJ; ++i)
+#pragma unroll
+            for (int c = 0; c < TC; ++c)
+              acc[i][c] = fmaf(pv[i], (i & 1) ? e1[c] : e0[c], acc[i][c]);
+        }
+        __syncthreads();                           // panel reused next tile
+      }
+#pragma unroll
+      for (int i = 0; i < TJ; ++i)
+#pragma unroll
+        for (int c = 0; c < TC; ++c)
+          red_s[(q * kLT + jg * TJ + i) * CC + cg * TC + c] = acc[i][c];
+      __syncthreads();
+      for (int i = t; i < n * CC; i += kTile) {
+        const int j = i / CC, c = i % CC;
+        if (c % KM < nk) {
+          float total = 0.0f;
+#pragma unroll
+          for (int qq = 0; qq < Q; ++qq) total += red_s[(qq * kLT + j) * CC + c];
+          part[(chunk_row + sg.g0 + l0 - sg.m + j) * K2 +
+               channel<KM>(c, k0, K)] = total;
+        }
+      }
+      __syncthreads();                             // red_s / beta reused
+    }
+  }
+  zero_tail<KM>(part, chunk_row, live_end(m0s, m1s, seeds, si, S, l_max), S,
+                k0, nk, K);
+}
+
+// ---------------------------------------------------------------------------
+// launch helpers
+// ---------------------------------------------------------------------------
+struct FusedArgs {
+  const float* in; const int* m0s; const int* m1s; const int* seeds;
+  const float* x; const float* pmm; const int* pms; const float* tab;
+  float* out; int n_slots; int S; int K; int R; int l_max; int n_chunks;
+  cudaStream_t stream;
+};
+
+// The map-chunk template for km (a power of two up to kMax) and the fold.
+template <template <int, bool> class Launch, int kMax>
+int dispatch_maps(int km, int fold, const FusedArgs& g) {
+  switch (km) {
+    case 1: return fold ? Launch<1, true>::run(g) : Launch<1, false>::run(g);
+    case 2: return fold ? Launch<2, true>::run(g) : Launch<2, false>::run(g);
+    case 4:
+      if constexpr (kMax >= 4)
+        return fold ? Launch<4, true>::run(g) : Launch<4, false>::run(g);
+      break;
+    case 8:
+      if constexpr (kMax >= 8)
+        return fold ? Launch<8, true>::run(g) : Launch<8, false>::run(g);
+      break;
+    default: break;
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <int KM, bool FOLD>
+struct LaunchSynthVpu {
+  static int run(const FusedArgs& g) {
+    dim3 grid((g.R + kTile - 1) / kTile, g.n_slots, (g.K + KM - 1) / KM);
+    synth_fused_vpu_kernel<KM, FOLD><<<grid, kTile, 0, g.stream>>>(
+        g.in, g.m0s, g.m1s, g.seeds, g.x, g.pmm, g.pms, g.tab, g.out, g.S,
+        g.K, g.R, g.l_max);
+    return static_cast<int>(cudaGetLastError());
+  }
+};
+
+template <int KM, bool FOLD>
+struct LaunchSynthMxu {
+  static int run(const FusedArgs& g) {
+    dim3 grid((g.R + kTile - 1) / kTile, g.n_slots, (g.K + KM - 1) / KM);
+    synth_fused_mxu_kernel<KM, FOLD><<<grid, kTile, 0, g.stream>>>(
+        g.in, g.m0s, g.m1s, g.seeds, g.x, g.pmm, g.pms, g.tab, g.out, g.S,
+        g.K, g.R, g.l_max);
+    return static_cast<int>(cudaGetLastError());
+  }
+};
+
+template <int KM, bool FOLD>
+struct LaunchAnalVpu {
+  static int run(const FusedArgs& g) {
+    dim3 grid(g.n_chunks, g.n_slots, (g.K + KM - 1) / KM);
+    anal_fused_vpu_kernel<KM, FOLD><<<grid, kTile, 0, g.stream>>>(
+        g.in, g.m0s, g.m1s, g.seeds, g.x, g.pmm, g.pms, g.tab, g.out, g.S,
+        g.K, g.R, g.l_max);
+    return static_cast<int>(cudaGetLastError());
+  }
+};
+
+template <int KM, bool FOLD>
+struct LaunchAnalMxu {
+  static int run(const FusedArgs& g) {
+    using Sh = AnalFusedMxuShape<KM, FOLD>;
+    cudaError_t err = cudaFuncSetAttribute(
+        anal_fused_mxu_kernel<KM, FOLD>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(Sh::smem_bytes));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    dim3 grid(g.n_chunks, g.n_slots, (g.K + KM - 1) / KM);
+    anal_fused_mxu_kernel<KM, FOLD><<<grid, kTile, Sh::smem_bytes, g.stream>>>(
+        g.in, g.m0s, g.m1s, g.seeds, g.x, g.pmm, g.pms, g.tab, g.out, g.S,
+        g.K, g.R, g.l_max);
+    return static_cast<int>(cudaGetLastError());
+  }
+};
+
+}  // namespace
+
+// ---------------------------------------------------------------------------
+// Plain C interface.  Pointers are device pointers of contiguous tensors
+// (tab may be null: identity tables); every function launches on `stream`
+// and returns cudaGetLastError().  m0/m1/seed are the per-slot maps.
+// ---------------------------------------------------------------------------
+extern "C" {
+
+int fused_synth_vpu(const float* a_pk, const int* m0, const int* m1,
+                    const int* seed, const float* x, const float* pmm,
+                    const int* pms, const float* tab, float* out, int n_slots,
+                    int S, int K, int R, int l_max, int fold, void* stream) {
+  FusedArgs g{a_pk, m0, m1, seed, x, pmm, pms, tab, out, n_slots, S, K, R,
+              l_max, 0, static_cast<cudaStream_t>(stream)};
+  return dispatch_maps<LaunchSynthVpu, 8>(chunk_for(K, 8, 1), fold, g);
+}
+
+int fused_synth_mxu(const float* a_pk, const int* m0, const int* m1,
+                    const int* seed, const float* x, const float* pmm,
+                    const int* pms, const float* tab, float* out, int n_slots,
+                    int S, int K, int R, int l_max, int fold, void* stream) {
+  FusedArgs g{a_pk, m0, m1, seed, x, pmm, pms, tab, out, n_slots, S, K, R,
+              l_max, 0, static_cast<cudaStream_t>(stream)};
+  return dispatch_maps<LaunchSynthMxu, 8>(chunk_for(K, 8, 1), fold, g);
+}
+
+int fused_anal_vpu(const float* f_pk, const int* m0, const int* m1,
+                   const int* seed, const float* x, const float* pmm,
+                   const int* pms, const float* tab, float* part, int n_slots,
+                   int S, int K, int R, int l_max, int n_chunks, int fold,
+                   void* stream) {
+  if (n_chunks != chunks_of(R, kVpuAnalTiles))
+    return static_cast<int>(cudaErrorInvalidValue);
+  FusedArgs g{f_pk, m0, m1, seed, x, pmm, pms, tab, part, n_slots, S, K, R,
+              l_max, n_chunks, static_cast<cudaStream_t>(stream)};
+  return dispatch_maps<LaunchAnalVpu, 2>(chunk_for(K, 2, 1), fold, g);
+}
+
+int fused_anal_mxu(const float* f_pk, const int* m0, const int* m1,
+                   const int* seed, const float* x, const float* pmm,
+                   const int* pms, const float* tab, float* part, int n_slots,
+                   int S, int K, int R, int l_max, int n_chunks, int fold,
+                   void* stream) {
+  if (n_chunks != chunks_of(R, kMxuAnalTiles))
+    return static_cast<int>(cudaErrorInvalidValue);
+  FusedArgs g{f_pk, m0, m1, seed, x, pmm, pms, tab, part, n_slots, S, K, R,
+              l_max, n_chunks, static_cast<cudaStream_t>(stream)};
+  return dispatch_maps<LaunchAnalMxu, 8>(chunk_for(K, 8, 1), fold, g);
+}
+
+}  // extern "C"

@@ -1,0 +1,291 @@
+"""Fused Legendre+phase pipeline: host side of the fused kernels.
+
+Counterpart of ``repro.kernels.fused``, uniform phase stage, spin 0.  The
+staged pipeline writes Delta_m(r) to device memory between the Legendre
+kernel and the phase stage; the fused kernels keep it on chip:
+
+* synthesis: per slot of a ``kernels.pack`` layout, the kernel sums the
+  recurrence against the packed coefficient streams, combines the fold
+  planes (north = even + odd, south = even - odd) and rotates each
+  segment's rows by its per-(row, ring) phase table
+  (``core.phase.uniform_rotation_tables``: e^{+i m phi0} with the
+  conjugate-wrap and Nyquist handling baked in).  Its only output is the
+  rotated spectrum rows, which the host scatters into the half spectrum
+  and inverse-FFTs.
+* analysis: the host FFTs the weighted maps and gathers each row's bin;
+  the kernel rotates those rows into Delta once per (slot, ring chunk) and
+  contracts them against the recurrence.  Only packed a_lm l-streams leave
+  it.
+
+On a CPU tensor the kernels' plain versions (``kernels.ref``) run, on a
+CUDA tensor the CUDA kernels (``kernels.fused_cuda``).  ``fused_synth`` and
+``fused_anal`` are forward only; what is not ported yet raises, naming the
+ROADMAP.md item it waits on: the backward (item 4), the spin-2 row set
+(item 7), ring buckets (item 8) and the bfloat16 contraction (item 6).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.core import phase
+from repro_torch.kernels import ops as kops
+from repro_torch.kernels import pack as kpack
+from repro_torch.kernels import ref as kref
+
+__all__ = ["fused_synth", "fused_anal", "FUSED_LP_SIZE"]
+
+#: the packed layout's panel length: the reference planner's choice at both
+#: sht_cmb shapes.  The CUDA kernels walk each segment in 32-l tiles, so on
+#: the GPU it only rounds the stream length S up; a second value waits for
+#: a measured choice (ROADMAP.md Open items section 1, item 9).
+FUSED_LP_SIZE = 128
+
+
+def _waits(what: str, item: int) -> ValueError:
+    return ValueError(f"{what} is not ported yet: it waits for ROADMAP.md "
+                      f"Open items section 1, item {item}")
+
+
+def _tables_identity(tabs) -> bool:
+    """True iff the (host-side) rotation tables are exactly the identity on
+    every plane and ring -- any uniform grid with phi0 == 0 (the
+    Gauss-Legendre default).  The kernels of both variants then skip the
+    tables; ``1*re + 0*im == re`` exactly in float32, so the skip changes
+    no bit.  Fold tables with an odd ring count never qualify: their south
+    plane zeroes the equator row, which has no mirror, and that masking
+    must stay."""
+    t = np.asarray(tabs)
+    return bool(np.all(t[:, :, 0] == 1.0) and np.all(t[:, :, 3] == 1.0)
+                and np.all(t[:, :, 1] == 0.0) and np.all(t[:, :, 2] == 0.0))
+
+
+def _rotation_tables(m_vals, direction, *, phase_kind, n, phi0, fold_rings,
+                     n_half):
+    """(M, n_pl, 4, R_kernel) f64 tables.
+
+    Unfolded: one plane of ``uniform_rotation_tables``.  Fold: north plane
+    = rings [0, nh), south plane row i = full-grid ring R-1-i (the staged
+    combine's reversal baked into the table order); rows past the southern
+    count stay zero, since the odd-R equator has no mirror."""
+    if phase_kind != "uniform":
+        raise _waits("the fused ring-bucket phase stage", 8)
+    full = phase.uniform_rotation_tables(m_vals, phi0, n, direction)
+    if fold_rings is None:
+        return full[:, None]
+    nh = n_half
+    ns = fold_rings - nh
+    north = full[:, :, :nh]
+    south = np.zeros_like(north)
+    south[:, :, :ns] = full[:, :, nh:][:, :, ::-1]
+    return np.stack([north, south], axis=1)
+
+
+def _pack_tables(tabs, lo, device, store=None):
+    """(M, n_pl, 4, R) f64 tables -> (n_slots, 2, n_pl, 4, R) f32."""
+    t = torch.as_tensor(np.asarray(tabs, np.float32), device=device)
+    return kops._pack_rows(t, lo, cache=store).contiguous()
+
+
+def _prep(lo, x, pmm, pms, store=None):
+    """Per-slot packing shared by both directions: the five slot maps, x,
+    and the per-segment seeds (n_slots, 2, R), on x's device."""
+    dev = x.device
+
+    def rows(v):
+        return kops._pack_rows(torch.as_tensor(v, device=dev), lo,
+                               cache=store).contiguous()
+
+    return (kops._pack_maps(lo, dev), x.to(torch.float32).contiguous(),
+            rows(pmm), rows(pms))
+
+
+def _stored(store, key, build):
+    """``build()``, kept in the caller's ``store`` dict when one is given."""
+    if store is None:
+        return build()
+    if key not in store:
+        store[key] = build()
+    return store[key]
+
+
+def _tables(store, direction, m_vals, lo, device, *, n, phi0, fold_rings,
+            n_half):
+    """Packed rotation tables for ``direction``, or None where they are the
+    identity and the kernels skip them."""
+    def build():
+        tabs = _rotation_tables(m_vals, direction, phase_kind="uniform",
+                                n=n, phi0=phi0, fold_rings=fold_rings,
+                                n_half=n_half)
+        if _tables_identity(tabs):
+            return None
+        return _pack_tables(tabs, lo, device, store)
+    return _stored(store, ("tables", direction), build)
+
+
+def _kernel_synth(a, tab_pk, prep, *, l_max, var, lo, fold, store):
+    """Packed fused kernel leg: a (Mr, L1, 2K) -> rotated per-plane rows
+    h (Mr, n_pl, R, 2K)."""
+    maps, x, pmm_pk, pms_pk = prep
+    Mr, K2 = a.shape[0], a.shape[-1]
+    R = x.shape[0]
+    a_pk = kops._pack_a(a.to(torch.float32), lo, cache=store).contiguous()
+    if kops._route(a.device) == "cpu":
+        out = kref.synth_fused_ref(a_pk, maps, x, pmm_pk, pms_pk, tab_pk,
+                                   l_max=l_max, fold=fold, layout=var)
+    else:
+        from repro_torch.kernels import fused_cuda
+        kernel = getattr(fused_cuda, f"synth_fused_{var}")
+        out = kernel(a_pk, maps, x, pmm_pk, pms_pk, tab_pk, l_max=l_max,
+                     fold=fold)
+    if var == "vpu":
+        out = out.movedim(3, -1)              # (n_slots, 2, n_pl, R, 2K)
+    seg = out.reshape(lo.n_slots * 2, 2 if fold else 1, R, K2)
+    return kops._unpack_rows(seg, lo, Mr, cache=store)
+
+
+def _kernel_anal(fp, tab_pk, prep, *, l_max, var, lo, store):
+    """Packed fused kernel leg: per-plane unrotated rows fp (Mr, n_pl, R,
+    2K) -> a (Mr, l_max + 1, 2K)."""
+    maps, x, pmm_pk, pms_pk = prep
+    f_pk = kops._pack_rows(fp, lo, cache=store)   # (n_slots, 2, n_pl, R, 2K)
+    if var == "vpu":
+        f_pk = f_pk.movedim(-1, 3)            # (n_slots, 2, n_pl, 2K, R)
+    f_pk = f_pk.contiguous()
+    if kops._route(fp.device) == "cpu":
+        out = kref.anal_fused_ref(f_pk, maps, x, pmm_pk, pms_pk, tab_pk,
+                                  l_max=l_max, s_len=lo.S, layout=var)
+    else:
+        from repro_torch.kernels import fused_cuda
+        kernel = getattr(fused_cuda, f"anal_fused_{var}")
+        out = kernel(f_pk, maps, x, pmm_pk, pms_pk, tab_pk, l_max=l_max,
+                     s_len=lo.S)
+    return kops._unpack_alm(out, lo, cache=store)
+
+
+def _synth_chain(a, m_vals, x, pmm, pms, *, l_max, var, lo, n, phi0,
+                 fold_rings, store):
+    """Weight-free fused synthesis: a (M, L1, 2K) f32 -> maps (R, n, K)."""
+    prep = _stored(store, "prep", lambda: _prep(lo, x, pmm, pms, store))
+    nh = prep[1].shape[0]
+    tab = _tables(store, "synth", m_vals, lo, a.device, n=n, phi0=phi0,
+                  fold_rings=fold_rings, n_half=nh)
+    h = _kernel_synth(a, tab, prep, l_max=l_max, var=var, lo=lo,
+                      fold=fold_rings is not None, store=store)
+    if fold_rings is not None:
+        # the kernel's combine produced (north | south) planes; the south
+        # rows come out in fold order (equator-out): reverse and trim
+        ns = fold_rings - nh
+        flat = torch.cat([h[:, 0], h[:, 1, :ns].flip(1)], dim=1)
+    else:
+        flat = h[:, 0]                        # (M, R, 2K)
+    K = flat.shape[-1] // 2
+    hc = torch.complex(flat[..., :K], flat[..., K:])        # (M, R, K)
+    bins, _, _ = phase.uniform_bin_maps(m_vals, n)
+    H = torch.zeros((n // 2 + 1,) + tuple(hc.shape[1:]), dtype=hc.dtype,
+                    device=hc.device)
+    H.index_add_(0, torch.as_tensor(bins, device=hc.device), hc)
+    return torch.fft.irfft(H.movedim(0, 1), n=n, dim=1) * n
+
+
+def _anal_rows(maps_w, m_vals, *, n, fold_rings, n_half):
+    """The analysis kernels' input: ring-weighted maps (R, n, K) f32 ->
+    gathered, unrotated FFT rows (M, n_pl, R_kernel, 2K) f32, with the fold
+    as north rings and reversed south rings (zero past the southern
+    count)."""
+    dev = maps_w.device
+    F = torch.fft.rfft(maps_w, dim=1)                       # (R, half, K)
+    bins, _, _ = phase.uniform_bin_maps(m_vals, n)
+    Fm = F[:, torch.as_tensor(bins, device=dev)].movedim(1, 0)   # (M, R, K)
+    f = torch.cat([Fm.real, Fm.imag], dim=-1)               # (M, R, 2K)
+    if fold_rings is None:
+        return f[:, None]                     # (M, 1, R, 2K)
+    nh, ns = n_half, fold_rings - n_half
+    f_n = f[:, :nh]
+    f_s = torch.zeros_like(f_n)
+    f_s[:, :ns] = f[:, nh:].flip(1)
+    return torch.stack([f_n, f_s], dim=1)     # (M, 2, nh, 2K)
+
+
+def _anal_chain(maps_w, m_vals, x, pmm, pms, *, l_max, var, lo, n, phi0,
+                fold_rings, store):
+    """Weight-free fused analysis core: ring-weighted maps (R, n, K) f32
+    -> a (M, l_max + 1, 2K) f32."""
+    prep = _stored(store, "prep", lambda: _prep(lo, x, pmm, pms, store))
+    nh = prep[1].shape[0]
+    fp = _anal_rows(maps_w, m_vals, n=n, fold_rings=fold_rings, n_half=nh)
+    tab = _tables(store, "anal", m_vals, lo, maps_w.device, n=n, phi0=phi0,
+                  fold_rings=fold_rings, n_half=nh)
+    return _kernel_anal(fp, tab, prep, l_max=l_max, var=var, lo=lo,
+                        store=store)
+
+
+class _ForwardOnly(torch.autograd.Function):
+    """Runs ``fn`` on its input; a backward through it raises."""
+
+    @staticmethod
+    def forward(ctx, inp, fn):
+        return fn(inp)
+
+    @staticmethod
+    def backward(ctx, grad):
+        raise _waits("the backward of the fused transforms (autograd)", 4)
+
+
+def _resolve(m_vals, l_max, lo, mp_vals, bf16):
+    if mp_vals is not None:
+        raise _waits("the fused spin-2 row set (mp_vals)", 7)
+    if bf16:
+        raise _waits("the bfloat16 fused contraction (bf16=True)", 6)
+    if lo is None:
+        lo = kpack.build_layout(np.asarray(m_vals), l_max,
+                                lp_size=FUSED_LP_SIZE)
+    return lo
+
+
+def fused_synth(a, m_vals, x, pmm, pms, *, l_max, n, phi0, variant="vpu",
+                bf16=False, lo=None, mp_vals=None, fold_rings=None,
+                store=None):
+    """Fused synthesis on a uniform grid: a (M, L1, 2K) f32 -> maps (R, n,
+    K) f32, on a's device.
+
+    m_vals (M,) numpy rows; x (R_k,) f32 cos(theta) and pmm/pms (M, R_k)
+    seeds on a's device.  Equator fold: pass ``fold_rings`` = the full ring
+    count; x/pmm/pms then cover the northern half only and the
+    north/south combine runs in the kernel.  ``store``: a dict the caller
+    keeps, for one layout and device, to reuse the packed seeds, rotation
+    tables and pack/unpack index tensors across calls (a plan passes its
+    own).  Forward only.
+    """
+    lo = _resolve(m_vals, l_max, lo, mp_vals, bf16)
+
+    def fwd(a_):
+        return _synth_chain(a_, m_vals, x, pmm, pms, l_max=l_max,
+                            var=variant, lo=lo, n=n, phi0=phi0,
+                            fold_rings=fold_rings, store=store)
+
+    return _ForwardOnly.apply(a, fwd)
+
+
+def fused_anal(maps, weights, m_vals, x, pmm, pms, *, l_max, n, phi0,
+               variant="vpu", bf16=False, lo=None, mp_vals=None,
+               fold_rings=None, store=None):
+    """Fused analysis on a uniform grid: maps (R, n, K) -> a (M, l_max + 1,
+    2K) f32, on the maps' device.
+
+    The ring quadrature ``weights`` are applied to the maps outside the
+    kernel chain (they commute with the phi-axis FFT).  Other arguments as
+    :func:`fused_synth`.  Forward only.
+    """
+    lo = _resolve(m_vals, l_max, lo, mp_vals, bf16)
+    maps = torch.as_tensor(maps)
+    w = torch.as_tensor(np.asarray(weights), dtype=torch.float32,
+                        device=maps.device)
+
+    def fwd(mw):
+        return _anal_chain(mw, m_vals, x, pmm, pms, l_max=l_max, var=variant,
+                           lo=lo, n=n, phi0=phi0, fold_rings=fold_rings,
+                           store=store)
+
+    return _ForwardOnly.apply(maps.to(torch.float32) * w[:, None, None], fwd)

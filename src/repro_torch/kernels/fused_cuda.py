@@ -1,0 +1,172 @@
+"""Python wrappers of the fused CUDA kernels (``csrc/fused.cu``).
+
+Each wrapper checks device, dtype, shape and contiguity, allocates its
+output and scratch with ``torch.empty``, launches on the current CUDA
+stream, raises if the launch reports an error, and adds one to its entry of
+:data:`launches` per kernel launch.  They take CUDA tensors only: the plain
+versions for CPU tensors are ``kernels.ref.synth_fused_ref`` /
+``anal_fused_ref``, and ``kernels.fused`` chooses between the two.
+
+Operands, on a ``kernels.pack`` slot layout (n_slots slots, stream length
+S, P = 2 planes with the equator fold, else 1):
+  maps   the five per-slot i32 (n_slots,) maps of ``ops._pack_maps``
+         (m0, m1, mp0, mp1, seed); mp0/mp1 belong to the spin branch and
+         are not read;
+  x (R,) f32; pmm_pk / pms_pk (n_slots, 2, R) f32 / i32 segment seeds;
+  tab_pk (n_slots, 2, P, 4, R) f32 rotation tables, or None (identity).
+  synth_fused_vpu: a_pk (n_slots, S, 2K) -> (n_slots, 2, P, 2K, R);
+  synth_fused_mxu: a_pk (n_slots, S, 2K) -> (n_slots, 2, P, R, 2K);
+  anal_fused_vpu:  f_pk (n_slots, 2, P, 2K, R) -> (n_slots, S, 2K);
+  anal_fused_mxu:  f_pk (n_slots, 2, P, R, 2K) -> (n_slots, S, 2K).
+Analysis writes per-ring-chunk partials and sums them in chunk order with
+``legendre_cuda.anal_reduce``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels import legendre_cuda as lc
+from repro_torch.kernels.ops import _pad_to
+
+__all__ = ["synth_fused_vpu", "synth_fused_mxu", "anal_fused_vpu",
+           "anal_fused_mxu", "anal_fused_partials", "launches",
+           "reset_launches"]
+
+#: kernel name -> launches since the last :func:`reset_launches`
+launches = {"synth_fused_vpu": 0, "synth_fused_mxu": 0, "anal_fused_vpu": 0,
+            "anal_fused_mxu": 0}
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_SIGNATURES = {
+    "fused_synth_vpu": [_P] * 9 + [_I] * 6 + [_P],
+    "fused_synth_mxu": [_P] * 9 + [_I] * 6 + [_P],
+    "fused_anal_vpu": [_P] * 9 + [_I] * 7 + [_P],
+    "fused_anal_mxu": [_P] * 9 + [_I] * 7 + [_P],
+}
+
+
+def reset_launches() -> None:
+    for k in launches:
+        launches[k] = 0
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    """The kernel library, built at first use, with its C signatures set."""
+    lib = build.load("fused")
+    for fn, argtypes in _SIGNATURES.items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = ctypes.c_int
+    return lib
+
+
+def _operands(maps, x, pmm_pk, pms_pk, tab_pk, n_slots, P, device):
+    """Check the shared operands; returns (m0, m1, seed, tab pointer)."""
+    m0, m1, _, _, seed = maps
+    R = x.shape[0]
+    for name, t in (("m0", m0), ("m1", m1), ("seed", seed)):
+        lc._check(name, t, torch.int32, (n_slots,))
+    lc._check("x", x, torch.float32, (R,))
+    lc._check("pmm_pk", pmm_pk, torch.float32, (n_slots, 2, R))
+    lc._check("pms_pk", pms_pk, torch.int32, (n_slots, 2, R))
+    if tab_pk is not None:
+        lc._check("tab_pk", tab_pk, torch.float32, (n_slots, 2, P, 4, R))
+    for t in (m0, m1, seed, x, pmm_pk, pms_pk,
+              *([] if tab_pk is None else [tab_pk])):
+        if t.device != device:
+            raise ValueError(f"operands on {t.device} and {device}")
+    return m0, m1, seed, (0 if tab_pk is None else tab_pk.data_ptr())
+
+
+def _synth(kernel, a_pk, maps, x, pmm_pk, pms_pk, tab_pk, *, l_max, fold):
+    n_slots, S, K2 = a_pk.shape
+    R, P = x.shape[0], (2 if fold else 1)
+    lc._check("a_pk", a_pk, torch.float32, (n_slots, S, K2))
+    m0, m1, seed, tab = _operands(maps, x, pmm_pk, pms_pk, tab_pk, n_slots,
+                                  P, a_pk.device)
+    shape = ((n_slots, 2, P, K2, R) if kernel.endswith("vpu")
+             else (n_slots, 2, P, R, K2))
+    out = torch.empty(shape, dtype=torch.float32, device=a_pk.device)
+    fn = getattr(_lib(), "fused_" + kernel.replace("_fused", ""))
+    with torch.cuda.device(a_pk.device):
+        err = fn(a_pk.data_ptr(), m0.data_ptr(), m1.data_ptr(),
+                 seed.data_ptr(), x.data_ptr(), pmm_pk.data_ptr(),
+                 pms_pk.data_ptr(), tab, out.data_ptr(), n_slots, S, K2 // 2,
+                 R, l_max, int(fold), lc._stream())
+    lc._raise_on(err, kernel)
+    launches[kernel] += 1
+    return out
+
+
+def synth_fused_vpu(a_pk, maps, x, pmm_pk, pms_pk, tab_pk=None, *,
+                    l_max: int, fold: bool = False):
+    """Fused synthesis, one ring per thread."""
+    return _synth("synth_fused_vpu", a_pk, maps, x, pmm_pk, pms_pk, tab_pk,
+                  l_max=l_max, fold=fold)
+
+
+def synth_fused_mxu(a_pk, maps, x, pmm_pk, pms_pk, tab_pk=None, *,
+                    l_max: int, fold: bool = False):
+    """Fused synthesis as (l x ring) P panels contracted in float32."""
+    return _synth("synth_fused_mxu", a_pk, maps, x, pmm_pk, pms_pk, tab_pk,
+                  l_max=l_max, fold=fold)
+
+
+def anal_fused_partials(variant: str, f_pk, maps, x, pmm_pk, pms_pk,
+                        tab_pk=None, *, l_max: int, s_len: int):
+    """First pass of ``anal_fused_<variant>``: per-ring-chunk partial sums
+    (n_slots, n_chunks, S, 2K), dead stream positions zero."""
+    kernel = f"anal_fused_{variant}"
+    if variant == "vpu":
+        n_slots, _, P, K2, R = f_pk.shape
+    else:
+        n_slots, _, P, R, K2 = f_pk.shape
+    lc._check("f_pk", f_pk, torch.float32, f_pk.shape)
+    if R != x.shape[0] or P not in (1, 2):
+        raise ValueError(f"f_pk {tuple(f_pk.shape)} does not fit x "
+                         f"({x.shape[0]} rings) and 1 or 2 planes")
+    m0, m1, seed, tab = _operands(maps, x, pmm_pk, pms_pk, tab_pk, n_slots,
+                                  P, f_pk.device)
+    chunk = lc.ANAL_CHUNK[variant]
+    n_chunks = _pad_to(R, chunk) // chunk
+    part = torch.empty((n_slots, n_chunks, s_len, K2), dtype=torch.float32,
+                       device=f_pk.device)
+    fn = getattr(_lib(), f"fused_anal_{variant}")
+    with torch.cuda.device(f_pk.device):
+        err = fn(f_pk.data_ptr(), m0.data_ptr(), m1.data_ptr(),
+                 seed.data_ptr(), x.data_ptr(), pmm_pk.data_ptr(),
+                 pms_pk.data_ptr(), tab, part.data_ptr(), n_slots, s_len,
+                 K2 // 2, R, l_max, n_chunks, int(P == 2), lc._stream())
+    lc._raise_on(err, kernel)
+    launches[kernel] += 1
+    return part
+
+
+def _reduce(part):
+    """Chunk-order sum of the partials through ``anal_reduce``, every
+    stream position kept (all slots passed as m = 0)."""
+    n_slots, _, S, _ = part.shape
+    zeros = torch.zeros(n_slots, dtype=torch.int32, device=part.device)
+    return lc.anal_reduce(part, zeros, l_max=S - 1)
+
+
+def anal_fused_vpu(f_pk, maps, x, pmm_pk, pms_pk, tab_pk=None, *,
+                   l_max: int, s_len: int):
+    """Fused analysis, rings reduced in registers, warps and a fixed-order
+    pass."""
+    return _reduce(anal_fused_partials("vpu", f_pk, maps, x, pmm_pk, pms_pk,
+                                       tab_pk, l_max=l_max, s_len=s_len))
+
+
+def anal_fused_mxu(f_pk, maps, x, pmm_pk, pms_pk, tab_pk=None, *,
+                   l_max: int, s_len: int):
+    """Fused analysis as (l x ring) P panels contracted against the rotated
+    Delta resident in shared memory."""
+    return _reduce(anal_fused_partials("mxu", f_pk, maps, x, pmm_pk, pms_pk,
+                                       tab_pk, l_max=l_max, s_len=s_len))

@@ -55,7 +55,7 @@ def reset_launches() -> None:
 @functools.cache
 def _lib() -> ctypes.CDLL:
     """The kernel library, built at first use, with its C signatures set."""
-    lib = build.load()
+    lib = build.load("legendre")
     for fn, argtypes in _SIGNATURES.items():
         getattr(lib, fn).argtypes = argtypes
         getattr(lib, fn).restype = ctypes.c_int

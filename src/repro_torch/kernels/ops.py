@@ -1,6 +1,7 @@
-"""The Legendre-stage seam: variant choice and CPU / CUDA dispatch.
+"""The Legendre-stage seam: variant choice, CPU / CUDA dispatch, and the
+packed-layout conversions.
 
-Counterpart of the plain-layout part of ``repro.kernels.ops``.  ``synth``
+Counterpart of the plain-layout and packing parts of ``repro.kernels.ops``.  ``synth``
 and ``anal`` take the unpadded layouts (the CUDA kernels mask the ragged
 ring edge themselves, so nothing is padded to the TPU's 128-lane tiles):
 
@@ -12,10 +13,19 @@ launches the hand-written kernel (``kernels.legendre_cuda``) or raises;
 any other device raises.  The environment overrides and the measured
 autotune of the reference's ``pick_variant`` wait for ROADMAP.md Open
 items section 1, item 9.
+
+The packing helpers (``_pack_a``, ``_pack_rows``, ``_unpack_rows``,
+``_unpack_alm``, ``_pack_maps``) convert between the plain (row, ...)
+world and a ``kernels.pack.PackedLayout``'s (slot, segment | stream
+position) world with ``index_select`` gathers on the operand's device.
+Each takes an optional ``cache`` dict (a plan's fused store) that keeps its
+index tensors per (layout, device) for as long as the caller keeps it;
+without one they are built per call.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import ref as kref
@@ -88,3 +98,92 @@ def anal(dw, m_vals, x, pmm, pms, *, l_max: int, fold: bool = False,
     kernel = legendre_cuda.anal_vpu if var == "vpu" \
         else legendre_cuda.anal_mxu
     return kernel(dw, m_t, x_t, pmm_t, pms_t, l_max=l_max, fold=fold)
+
+
+def _pad_to(n: int, mult: int) -> int:
+    return -(-n // mult) * mult
+
+
+# ---------------------------------------------------------------------------
+# packed-layout conversion (kernels.pack <-> the plain (Mp, L1/R) world)
+# ---------------------------------------------------------------------------
+
+
+def _index(name: str, device: torch.device, build, cache):
+    """The (index, mask) tensors ``build()`` gives, on ``device``; kept in
+    ``cache`` under (name, device type, device index) when one is given.
+    The caller's cache belongs to one layout."""
+    key = ("index", name, device.type, device.index)
+    if cache is not None and key in cache:
+        return cache[key]
+    idx, mask = build()
+    out = (torch.as_tensor(idx, dtype=torch.int64, device=device),
+           torch.as_tensor(mask, dtype=torch.bool, device=device))
+    if cache is not None:
+        cache[key] = out
+    return out
+
+
+def _masked_take(src, idx, mask, shape):
+    """``src[idx]`` along dim 0, zero where ``mask`` is False."""
+    out = src.index_select(0, idx)
+    mask = mask.reshape((-1,) + (1,) * (out.ndim - 1))
+    out = torch.where(mask, out, torch.zeros((), dtype=out.dtype,
+                                             device=out.device))
+    return out.reshape(shape)
+
+
+def _pack_maps(lo, device):
+    """The five per-slot maps (m0, m1, mp0, mp1, seed) as i32 tensors."""
+    def t(v):
+        return torch.as_tensor(np.ascontiguousarray(v), dtype=torch.int32,
+                               device=device)
+    return (t(lo.slot_m[:, 0]), t(lo.slot_m[:, 1]), t(lo.slot_mp[:, 0]),
+            t(lo.slot_mp[:, 1]), t(lo.slot_seed))
+
+
+def _pack_a(a, lo, cache=None):
+    """(Mp, L1, 2K) coefficients -> (n_slots, S, 2K) packed l-streams."""
+    Mp, L1, K2 = a.shape
+
+    def build():
+        valid = (lo.a_row >= 0) & (lo.a_l < L1)
+        idx = np.where(valid, lo.a_row * L1 + np.maximum(lo.a_l, 0), 0)
+        return idx.reshape(-1), valid.reshape(-1)
+
+    idx, mask = _index(f"a{L1}", a.device, build, cache)
+    return _masked_take(a.reshape(Mp * L1, K2), idx, mask,
+                        (lo.n_slots, lo.S, K2))
+
+
+def _slot_rows(lo):
+    return np.maximum(lo.slot_row, 0).reshape(-1), \
+        (lo.slot_row >= 0).reshape(-1)
+
+
+def _pack_rows(arr, lo, cache=None):
+    """(Mp, ...) per-row operand -> (n_slots, 2, ...) per-segment; empty
+    segments are zero."""
+    idx, mask = _index("rows", arr.device, lambda: _slot_rows(lo), cache)
+    return _masked_take(arr, idx, mask,
+                        (lo.n_slots, 2) + tuple(arr.shape[1:]))
+
+
+def _unpack_rows(seg, lo, n_rows, cache=None):
+    """(n_slots * 2, ...) per-segment results -> (n_rows, ...) plain rows
+    (plan-padding rows come back as zeros)."""
+    idx, mask = _index(
+        "row_dst", seg.device,
+        lambda: (np.maximum(lo.row_dst, 0), lo.row_dst >= 0), cache)
+    return _masked_take(seg, idx, mask, (n_rows,) + tuple(seg.shape[1:]))
+
+
+def _unpack_alm(packed, lo, cache=None):
+    """(n_slots, S, 2K) packed l-stream rows -> (n_rows, l_max + 1, 2K)."""
+    K2 = packed.shape[-1]
+    idx, mask = _index(
+        "alm_src", packed.device,
+        lambda: (np.maximum(lo.alm_src, 0).reshape(-1),
+                 (lo.alm_src >= 0).reshape(-1)), cache)
+    return _masked_take(packed.reshape(lo.n_slots * lo.S, K2), idx, mask,
+                        (lo.n_rows, lo.l_max + 1, K2))

@@ -10,6 +10,14 @@ plain version of the analysis kernels' second pass.
 Layouts are the unpadded ones of the ``ops`` seam:
   a  (Mp, L1, 2K) f32 -> Delta (Mp, P, R, 2K) f32, P = 2 (even, odd) if fold;
   dw (Mp, P, R, 2K) f32 -> a (Mp, l_max+1, 2K) f32.
+
+``synth_fused_ref``/``anal_fused_ref`` are the plain versions of the fused
+kernels (``repro/kernels/fused.py``), on a ``kernels.pack`` slot layout:
+  synth: a_pk (n_slots, S, 2K) -> rotated rows (n_slots, 2, n_pl, R, 2K)
+         (``layout="mxu"``) or (n_slots, 2, n_pl, 2K, R) (``"vpu"``);
+  anal:  f_pk in those two layouts -> packed rows (n_slots, S, 2K).
+n_pl = 2 (north, south) with the equator fold, else 1.  Stream positions
+past a segment's l_max, and empty segments, give exact zeros.
 """
 
 from __future__ import annotations
@@ -18,7 +26,7 @@ import numpy as np
 import torch
 
 __all__ = ["prepare_seeds", "synth_ref", "anal_ref", "anal_reduce_ref",
-           "SCALE_BITS_F32"]
+           "synth_fused_ref", "anal_fused_ref", "SCALE_BITS_F32"]
 
 SCALE_BITS_F32 = 64
 _BIG = float(2.0 ** (SCALE_BITS_F32 // 2))        # 2^32
@@ -47,10 +55,12 @@ def prepare_seeds(m_vals, sin_theta, log_mu_all, scale_bits: int = 64):
 def _f32_step(l: int, m_f, x, pp, pc, sc, pmm, pms):
     """One scaled-recurrence step in float32, branch-free.
 
-    m_f (Mp, 1) f32; x (1, R) f32; pp, pc, pmm (Mp, R) f32; sc, pms i32.
-    Returns (pp', pc', sc', value), ``value`` the descaled P_{l,m}.
+    l an int, or an (Mp, 1) f32 tensor (one l per row, as on the packed
+    stream); m_f (Mp, 1) f32; x (1, R) f32; pp, pc, pmm (Mp, R) f32; sc,
+    pms i32.  Returns (pp', pc', sc', value), ``value`` the descaled P_{l,m}.
     """
-    lf = torch.tensor(float(l), dtype=torch.float32, device=m_f.device)
+    lf = l if torch.is_tensor(l) else torch.tensor(
+        float(l), dtype=torch.float32, device=m_f.device)
     zero = torch.zeros((), dtype=torch.float32, device=m_f.device)
     # 1/sqrt, not rsqrt: both are correctly rounded on every device, so
     # the CUDA kernels reproduce these bits (rsqrt is approximate on CUDA)
@@ -144,3 +154,109 @@ def anal_reduce_ref(partials, m_vals, *, l_max: int):
     total = partials[:, :, :L].sum(dim=1)
     return torch.where(keep, total, torch.zeros((), dtype=total.dtype,
                                                 device=total.device))
+
+
+# ---------------------------------------------------------------------------
+# fused kernels (packed slot layout)
+# ---------------------------------------------------------------------------
+
+
+def _stream(maps, x, pmm_pk, pms_pk, *, l_max: int, s_len: int):
+    """Walk the packed l-stream of every slot at once.
+
+    Yields ``(g, val, seg1, odd)`` per stream position g up to the last
+    live one of any slot: ``val`` (n_slots, R) the descaled P_{l,m} (zero
+    past the segment's l_max), ``seg1`` and ``odd`` ((l + m) odd) as
+    (n_slots, 1) bools.  Segment 1 re-seeds at ``slot_seed`` because the
+    step seeds wherever l == m.
+    """
+    m0, m1 = maps[0].to(torch.int64)[:, None], maps[1].to(torch.int64)[:, None]
+    seed = maps[4].to(torch.int64)[:, None]
+    # slot_seed == s_len marks an empty segment 1
+    S_live = int(torch.where(seed < s_len, seed + l_max + 1 - m1,
+                             l_max + 1 - m0).max()) if m0.numel() else 0
+    z = torch.zeros(pmm_pk.shape[0], x.shape[0], dtype=torch.float32,
+                    device=x.device)
+    pp, pc = z, z.clone()
+    sc = torch.zeros_like(z, dtype=torch.int32)
+    xb = x.to(torch.float32)[None, :]
+    for g in range(S_live):
+        seg1 = g >= seed
+        m = torch.where(seg1, m1, m0)
+        l = torch.where(seg1, m1 + g - seed, m0 + g)
+        pmm = torch.where(seg1, pmm_pk[:, 1], pmm_pk[:, 0])
+        pms = torch.where(seg1, pms_pk[:, 1], pms_pk[:, 0])
+        pp, pc, sc, val = _f32_step(l.to(torch.float32), m.to(torch.float32),
+                                    xb, pp, pc, sc, pmm, pms)
+        val = torch.where(l <= l_max, val, torch.zeros((), device=x.device))
+        yield g, val, seg1, ((l + m) % 2 == 1)
+
+
+def _rotate(tab, re, im):
+    """(t0 re + t1 im, t2 re + t3 im); tab (..., 4, R) against (..., R, K)."""
+    t = [tab[..., q, :, None] for q in range(4)]
+    return t[0] * re + t[1] * im, t[2] * re + t[3] * im
+
+
+def synth_fused_ref(a_pk, maps, x, pmm_pk, pms_pk, tab_pk=None, *,
+                    l_max: int, fold: bool = False, layout: str = "mxu"):
+    """Plain version of the fused synthesis kernels.
+
+    a_pk (n_slots, S, 2K) f32 packed coefficient streams; maps the five
+    per-slot i32 tensors of ``ops._pack_maps`` (m0, m1, mp0, mp1, seed;
+    mp0/mp1 belong to the spin branch and are not read); x (R,) f32;
+    pmm_pk/pms_pk (n_slots, 2, R) per-segment seeds; tab_pk (n_slots, 2,
+    n_pl, 4, R) f32 rotation tables, or None for the identity.  Each
+    segment's Delta (even/odd (l+m) planes combined into north = e + o,
+    south = e - o with ``fold``) is rotated by its table and returned in
+    ``layout``'s order.
+    """
+    n_slots, S, K2 = a_pk.shape
+    R, K = x.shape[0], K2 // 2
+    P = 2 if fold else 1
+    acc = torch.zeros(n_slots, 2, P, R, K2, dtype=torch.float32,
+                      device=a_pk.device)
+    zero = torch.zeros((), dtype=torch.float32, device=a_pk.device)
+    for g, val, seg1, odd in _stream(maps, x, pmm_pk, pms_pk, l_max=l_max,
+                                     s_len=S):
+        contrib = val[:, :, None] * a_pk[:, g][:, None, :]   # (n_slots, R, 2K)
+        for seg, in_seg in ((0, ~seg1), (1, seg1)):
+            for p in range(P):
+                keep = in_seg & (odd if p else ~odd) if fold else in_seg
+                acc[:, seg, p] += torch.where(keep[..., None], contrib, zero)
+    if fold:
+        acc = torch.stack([acc[:, :, 0] + acc[:, :, 1],
+                           acc[:, :, 0] - acc[:, :, 1]], dim=2)
+    if tab_pk is not None:
+        re, im = _rotate(tab_pk, acc[..., :K], acc[..., K:])
+        acc = torch.cat([re, im], dim=-1)
+    return acc.movedim(-1, 3).contiguous() if layout == "vpu" else acc
+
+
+def anal_fused_ref(f_pk, maps, x, pmm_pk, pms_pk, tab_pk=None, *,
+                   l_max: int, s_len: int, layout: str = "mxu"):
+    """Plain version of the fused analysis kernels.
+
+    f_pk (n_slots, 2, n_pl, R, 2K) (``layout="mxu"``) or (n_slots, 2, n_pl,
+    2K, R) (``"vpu"``) gathered, unrotated FFT rows per segment and plane;
+    the rest as :func:`synth_fused_ref`.  Each segment's rows are rotated
+    into Delta (with two planes: even = N + S, odd = N - S), then contracted
+    against the recurrence over the rings.  Returns (n_slots, s_len, 2K).
+    """
+    f = f_pk.movedim(3, -1) if layout == "vpu" else f_pk
+    n_slots, _, P, R, K2 = f.shape
+    K = K2 // 2
+    if tab_pk is not None:
+        re, im = _rotate(tab_pk, f[..., :K], f[..., K:])
+        f = torch.cat([re, im], dim=-1)
+    if P == 2:
+        f = torch.stack([f[:, :, 0] + f[:, :, 1], f[:, :, 0] - f[:, :, 1]],
+                        dim=2)
+    out = torch.zeros(n_slots, s_len, K2, dtype=torch.float32,
+                      device=f.device)
+    for g, val, seg1, odd in _stream(maps, x, pmm_pk, pms_pk, l_max=l_max,
+                                     s_len=s_len):
+        d = torch.where(seg1[:, :, None, None], f[:, 1], f[:, 0])  # (s, P, R, 2K)
+        d = torch.where(odd[..., None], d[:, -1], d[:, 0])        # (s, R, 2K)
+        out[:, g] = torch.einsum("sr,src->sc", val, d)
+    return out

@@ -1,6 +1,7 @@
 """The CUDA kernels of the port on the card: each against its plain
 version, determinism of the analysis reduction, and the launch counters
-of a plan's main path.  Skipped without a CUDA device; run on the GPU with
+of a plan's main path, for the staged (``legendre_cuda``) and the fused
+(``fused_cuda``) kernels.  Skipped without a CUDA device; run on the GPU with
 ``python -m pytest -m cuda tests/test_torch_cuda.py``.
 
 Tolerance 5e-5 x max|plain|: kernel and plain version compute the
@@ -14,6 +15,7 @@ import torch
 
 import repro_torch
 from repro_torch.core import grids, legendre, spectra
+from repro_torch.kernels import fused, fused_cuda, ops, pack
 from repro_torch.kernels import legendre_cuda as lc
 from repro_torch.kernels import ref as kref
 
@@ -90,7 +92,8 @@ def test_anal_reduce_matches_plain_version(dev):
 @pytest.mark.parametrize("mode,K", [("cuda_vpu", 1), ("cuda_mxu", 8)])
 def test_plan_main_path_launches_its_kernels(dev, mode, K):
     var = mode[5:]
-    plan = repro_torch.make_plan("gl", 96, K=K, dtype="float32", mode=mode)
+    plan = repro_torch.make_plan("gl", 96, K=K, dtype="float32", mode=mode,
+                                 layout="plain")
     gen = torch.Generator().manual_seed(0)
     from repro_torch.core import sht
     alm = sht.random_alm(gen, 96, 96, K, dtype=torch.float32, device=dev)
@@ -98,5 +101,91 @@ def test_plan_main_path_launches_its_kernels(dev, mode, K):
     back = plan.map2alm(plan.alm2map(alm))
     assert lc.launches[f"synth_{var}"] == 1
     assert lc.launches[f"anal_{var}"] == 1 and lc.launches["anal_reduce"] == 1
+    assert back.device.type == "cuda"
+    assert spectra.d_err(alm, back) < 1e-4
+
+
+def fused_operands(l_max, K, fold, dev, seed=0):
+    """Packed operands of one fused case: a layout over the rows 0..l_max
+    with plan padding (so one slot has an empty segment 1), random
+    non-identity rotation tables, coefficients and FFT rows."""
+    m_vals = np.insert(np.arange(l_max + 1), 5, -1)
+    m_t, x, pmm, pms, a, _ = operands(l_max, K, fold, dev, seed)
+    m_t, pmm, pms, a = m_t[:-1], pmm[:-1], pms[:-1], a[:-1]
+    keep = torch.as_tensor(m_vals >= 0, device=dev)
+    idx = torch.as_tensor(np.maximum(m_vals, 0), device=dev)
+    pmm, pms, a = (torch.where(keep[:, None], pmm[idx], 0),
+                   torch.where(keep[:, None], pms[idx], 0),
+                   torch.where(keep[:, None, None], a[idx], 0))
+    lo = pack.build_layout(m_vals, l_max)
+    maps, x, pmm_pk, pms_pk = fused._prep(lo, x, pmm, pms)
+    gen = torch.Generator().manual_seed(seed + 1)
+    P, R = (2 if fold else 1), x.shape[0]
+    tab = (torch.rand((lo.n_slots, 2, P, 4, R), generator=gen) * 2 - 1)
+    f = torch.rand((lo.n_slots, 2, P, R, 2 * K), generator=gen) * 2 - 1
+    return (lo, maps, x, pmm_pk, pms_pk, ops._pack_a(a, lo).contiguous(),
+            tab.to(dev), f.to(dev))
+
+
+@pytest.mark.parametrize("fold", [False, True])
+@pytest.mark.parametrize("K", [1, 3, 12])
+@pytest.mark.parametrize("variant", ["vpu", "mxu"])
+def test_fused_kernels_match_plain_versions(dev, variant, K, fold):
+    """Random tables (the rotation) and no tables (identity tables are
+    skipped); the empty segment and the dead stream tail come out exactly
+    zero."""
+    l_max = 150
+    lo, maps, x, pmm_pk, pms_pk, a_pk, tab, f = fused_operands(
+        l_max, K, fold, dev, seed=K)
+    empty = torch.as_tensor(lo.slot_seed == lo.S, device=dev)
+    dead = torch.as_tensor(lo.a_row < 0, device=dev)
+    fk = f.movedim(-1, 3).contiguous() if variant == "vpu" else f
+    for t in (tab, None):
+        synth = getattr(fused_cuda, f"synth_fused_{variant}")
+        got = synth(a_pk, maps, x, pmm_pk, pms_pk, t, l_max=l_max, fold=fold)
+        want = kref.synth_fused_ref(a_pk, maps, x, pmm_pk, pms_pk, t,
+                                    l_max=l_max, fold=fold, layout=variant)
+        assert rel(got, want) < TOL and bool((got[empty, 1] == 0).all())
+        anal = getattr(fused_cuda, f"anal_fused_{variant}")
+        got = anal(fk, maps, x, pmm_pk, pms_pk, t, l_max=l_max, s_len=lo.S)
+        want = kref.anal_fused_ref(fk, maps, x, pmm_pk, pms_pk, t,
+                                   l_max=l_max, s_len=lo.S, layout=variant)
+        assert rel(got, want) < TOL and bool((got[dead] == 0).all())
+
+
+@pytest.mark.parametrize("variant", ["vpu", "mxu"])
+def test_fused_analysis_is_deterministic(dev, variant):
+    """Many ring chunks, no atomics: repeated runs give identical bits."""
+    l_max = 1100
+    lo, maps, x, pmm_pk, pms_pk, _, tab, f = fused_operands(l_max, 1, False,
+                                                            dev)
+    fk = f.movedim(-1, 3).contiguous() if variant == "vpu" else f
+    anal = getattr(fused_cuda, f"anal_fused_{variant}")
+    first = anal(fk, maps, x, pmm_pk, pms_pk, tab, l_max=l_max, s_len=lo.S)
+    assert lc.ANAL_CHUNK[variant] < x.shape[0]
+    for _ in range(3):
+        assert torch.equal(anal(fk, maps, x, pmm_pk, pms_pk, tab,
+                                l_max=l_max, s_len=lo.S), first)
+
+
+@pytest.mark.parametrize("mode,K,fold", [("cuda_vpu", 1, False),
+                                         ("cuda_mxu", 8, True)])
+def test_fused_plan_launches_fused_kernels_only(dev, mode, K, fold):
+    var = mode[5:]
+    plan = repro_torch.make_plan("gl", 96, K=K, dtype="float32", mode=mode,
+                                 fold=fold)
+    assert plan.layouts == {"synth": "fused", "anal": "fused"}
+    gen = torch.Generator().manual_seed(0)
+    from repro_torch.core import sht
+    alm = sht.random_alm(gen, 96, 96, K, dtype=torch.float32, device=dev)
+    lc.reset_launches()
+    fused_cuda.reset_launches()
+    back = plan.map2alm(plan.alm2map(alm))
+    torch.cuda.synchronize()
+    assert fused_cuda.launches[f"synth_fused_{var}"] == 1
+    assert fused_cuda.launches[f"anal_fused_{var}"] == 1
+    assert lc.launches["anal_reduce"] == 1
+    assert all(lc.launches[k] == 0 for k in
+               ("synth_vpu", "synth_mxu", "anal_vpu", "anal_mxu"))
     assert back.device.type == "cuda"
     assert spectra.d_err(alm, back) < 1e-4

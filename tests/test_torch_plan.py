@@ -61,13 +61,13 @@ def test_default_mode_follows_the_static_variant_rule(dtype, K, want):
     plan = repro_torch.make_plan("gl", 8, K=K, dtype=dtype, device="cpu")
     assert plan.backends == {"synth": want, "anal": want}
     assert plan.layouts == ({"synth": None, "anal": None} if want == "torch"
-                            else {"synth": "plain", "anal": "plain"})
+                            else {"synth": "fused", "anal": "fused"})
 
 
 @pytest.mark.parametrize("kwargs,item", [
     (dict(mode="auto"), "item 9"), (dict(mode="model"), "item 9"),
     (dict(mode="dist"), "item 11"), (dict(layout="packed"), "item 5"),
-    (dict(layout="fused"), "item 6"), (dict(spin=2), "item 7"),
+    (dict(layout="fused", spin=2), "item 7"), (dict(spin=2), "item 7"),
     (dict(grid="healpix"), "item 8"), (dict(grid="ecp"), "item 8")])
 def test_unported_requests_name_their_roadmap_item(kwargs, item):
     kwargs = dict(dict(grid="gl", l_max=8, device="cpu"), **kwargs)
@@ -178,7 +178,7 @@ def test_describe_and_report_well_formed():
     assert d["memory"]["seed_bytes"] > 0
     assert "seeds" in d["cache"]["events"]
     text = plan.report()
-    assert "synth -> cuda_mxu[plain]" in text and "device=cpu" in text
+    assert "synth -> cuda_mxu[fused]" in text and "device=cpu" in text
     assert "skipped" not in text
 
 

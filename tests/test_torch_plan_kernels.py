@@ -44,7 +44,7 @@ def test_kernel_plan_matches_reference_pallas_plan(variant, K, fold):
 
     plan = repro_torch.make_plan("gl", l_max, K=K, dtype="float32",
                                  mode=f"cuda_{variant}", fold=fold,
-                                 device="cpu")
+                                 layout="plain", device="cpu")
     assert plan.backends == {"synth": f"cuda_{variant}",
                              "anal": f"cuda_{variant}"}
     assert plan.layouts == {"synth": "plain", "anal": "plain"}
