@@ -7,9 +7,13 @@ per source, started together), holds each against its plain PyTorch
 version on the card, drives the port's main paths at the repo's full
 widths (``make_plan("gl", ...)`` then ``alm2map`` then ``map2alm``, the
 ``sht_cmb`` shapes l_max 2048 K 8 and l_max 4096 K 1, on the fused layout
-the plans pick by default and on the staged plain layout), checks that
-every kernel of each path launched, times each kernel beside its bound,
-and anchors every kernel plan to the float64 ``torch`` plan.
+the plans pick by default, on the staged plain layout and on the packed
+staged layout), checks that every kernel of each path launched, prints a
+digest of each kernel's output and holds the bits equal where two layouts
+run the same code, times each kernel beside its bound, anchors every
+kernel plan to the float64 ``torch`` plan, and takes gradients through
+the plans on the card (dot identities on every layout, one full-width
+step whose backward must run the other direction's kernels).
 Prints the card's name and power limit, one JSON line of per-kernel
 numbers, and as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -19,6 +23,7 @@ rest of the repository.
 
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 import subprocess
@@ -52,6 +57,15 @@ KERNEL_TOL = 5e-5
 ROUNDTRIP_TOL = 1e-3
 #: float32 kernel plans vs the float64 torch plan at l_max 512
 ANCHOR_TOL = 1e-3
+#: l_max of the kernel checks (phase 2) and the dot identities (phase 5),
+#: of the float64 anchor (phase 4), and (l_max, K) of the full-width
+#: gradient step (phase 5): the sht_cmb main shape of the mxu variant
+CHECK_L_MAX = 256
+ANCHOR_L_MAX = 512
+GRAD_SHAPE = (2048, 8)
+#: the plan-level dot identity <A x, y> = <x, A^T y> through autograd in
+#: float32: the reference's band (tests/test_adjoint.py)
+DOT_TOL = 2e-3
 
 TPU_KERNELS = {
     "synth_vpu": "src/repro/kernels/legendre_pallas.py:222",
@@ -63,8 +77,13 @@ TPU_KERNELS = {
     "synth_fused_mxu": "src/repro/kernels/fused.py:385",
     "anal_fused_vpu": "src/repro/kernels/fused.py:526",
     "anal_fused_mxu": "src/repro/kernels/fused.py:666",
+    "synth_packed_vpu": "src/repro/kernels/legendre_pallas.py:591",
+    "synth_packed_mxu": "src/repro/kernels/legendre_pallas.py:698",
+    "anal_packed_vpu": "src/repro/kernels/legendre_pallas.py:814",
+    "anal_packed_mxu": "src/repro/kernels/legendre_pallas.py:937",
 }
-SOURCES = {name: ("src/repro_torch/kernels/csrc/fused.cu" if "fused" in name
+SOURCES = {name: ("src/repro_torch/kernels/csrc/fused.cu"
+                  if "fused" in name or "packed" in name
                   else "src/repro_torch/kernels/csrc/legendre.cu")
            for name in TPU_KERNELS}
 
@@ -149,17 +168,24 @@ def rotation_ops(tab, K: int) -> int:
 # ---------------------------------------------------------------------------
 
 
+def digest(t: torch.Tensor) -> str:
+    """The first 16 hex digits of the SHA-256 of a tensor's bytes."""
+    return hashlib.sha256(t.detach().contiguous().cpu().numpy().tobytes()
+                          ).hexdigest()[:16]
+
+
 def held(name: str, got: torch.Tensor, want: torch.Tensor, what: str,
          pad=None) -> float:
     """Hold a kernel's output against its plain version's at KERNEL_TOL
-    (relative to max|plain|), padding rows exactly zero; log and return
-    max|difference|."""
+    (relative to max|plain|), padding rows exactly zero; log the gap and
+    both outputs' digests, and return max|difference|."""
     torch.cuda.synchronize()
     err = float((got - want).abs().max())
     rel = err / float(want.abs().max())
     zero_pad = pad is None or bool((got[pad] == 0).all())
     log(f"  {name:15s} {what}: max|d|/max|plain| = {rel:.3e}"
-        + ("" if pad is None else f"  padding zero: {zero_pad}"))
+        + ("" if pad is None else f"  padding zero: {zero_pad}")
+        + f"  digest {digest(got)} (plain {digest(want)})")
     if not (rel < KERNEL_TOL and zero_pad):
         raise AssertionError(f"{name} disagrees with its plain version "
                              f"({what})")
@@ -171,7 +197,7 @@ def check_kernels(dev) -> None:
     fold off and on, with padding rows among the real ones; log kernel and
     plain times with fold off at each variant's main-path K (1 for vpu, 8
     for mxu)."""
-    l_max = 256
+    l_max = CHECK_L_MAX
     gen = torch.Generator().manual_seed(2)
     # plan padding: -1 rows among the real ones must come out exactly zero
     m_vals = np.concatenate([np.arange(l_max + 1), [-1, -1]])
@@ -217,7 +243,7 @@ def check_fused_kernels(dev) -> None:
     empty segment 1, whose synthesis rows must come out exactly zero, as
     must every dead position of the analysis stream.  Logs kernel and plain
     times with fold off at each variant's main-path K."""
-    l_max = 256
+    l_max = CHECK_L_MAX
     gen = torch.Generator().manual_seed(3)
     m_vals = np.insert(np.arange(l_max + 1), 17, -1)
     lo = pack.build_layout(m_vals, l_max)
@@ -225,7 +251,7 @@ def check_fused_kernels(dev) -> None:
     dead = torch.as_tensor(lo.a_row < 0, device=dev)
     for fold in (False, True):
         _, x, pmm, pms = seeds_for(l_max, m_vals, fold, dev)
-        maps, x, pmm_pk, pms_pk = fused._prep(lo, x, pmm, pms)
+        maps, x, pmm_pk, pms_pk = ops._prep(lo, x, pmm, pms)
         R, P = x.shape[0], (2 if fold else 1)
         for K in (1, 8):
             K2 = 2 * K
@@ -268,19 +294,103 @@ def check_fused_kernels(dev) -> None:
                                 f"{pl:.1f} ms")
 
 
+def same_bits(what: str, a: torch.Tensor, b: torch.Tensor) -> None:
+    """Hold two outputs that run the same code on the same inputs equal
+    bit for bit; log the gap if they are not."""
+    torch.cuda.synchronize()
+    equal = torch.equal(a, b)
+    log(f"  {what}: bit-equal {equal}, digests {digest(a)} / {digest(b)}"
+        + ("" if equal else f", max|d| = {float((a - b).abs().max()):.3e}"))
+    if not equal:
+        raise AssertionError(f"{what}: not bit-equal")
+
+
+def check_packed_kernels(dev) -> None:
+    """Hold each packed kernel against its plain version at l_max 256, K 1
+    and 8, fold off and on.  A padding row makes the row count odd, so one
+    slot has an empty segment 1, whose synthesis planes must come out
+    exactly zero, as must every dead position of the analysis stream.
+    With the fold off the packed synthesis and analysis run the fused
+    kernels' code with no tables, so they must equal the fused kernels bit
+    for bit.  Logs kernel and plain times with fold off at each variant's
+    main-path K."""
+    l_max = CHECK_L_MAX
+    gen = torch.Generator().manual_seed(4)
+    m_vals = np.insert(np.arange(l_max + 1), 17, -1)
+    lo = pack.build_layout(m_vals, l_max)
+    empty = torch.as_tensor(lo.slot_seed == lo.S, device=dev)
+    dead = torch.as_tensor(lo.a_row < 0, device=dev)
+    for fold in (False, True):
+        _, x, pmm, pms = seeds_for(l_max, m_vals, fold, dev)
+        maps, x, pmm_pk, pms_pk = ops._prep(lo, x, pmm, pms)
+        R, P = x.shape[0], (2 if fold else 1)
+        for K in (1, 8):
+            K2 = 2 * K
+            a_pk = ops._pack_a(random_a(gen, m_vals, l_max + 1, K2, dev),
+                               lo).contiguous()
+            dw = (torch.rand((lo.n_slots, 2 * P, R, K2), generator=gen) * 2
+                  - 1).to(dev)
+            what = f"l_max {l_max} fold={fold!s:5s} K={K}"
+            for var in ("vpu", "mxu"):
+                dk = dw.movedim(-1, 2).contiguous() if var == "vpu" else dw
+                synth = getattr(fused_cuda, f"synth_packed_{var}")
+                anal = getattr(fused_cuda, f"anal_packed_{var}")
+                want_s, plain_s = plain_ms(lambda: kref.synth_packed_ref(
+                    a_pk, maps, x, pmm_pk, pms_pk, l_max=l_max, fold=fold,
+                    layout=var))
+                want_a, plain_a = plain_ms(lambda: kref.anal_packed_ref(
+                    dk, maps, x, pmm_pk, pms_pk, l_max=l_max, s_len=lo.S,
+                    layout=var))
+
+                def run_s():
+                    return synth(a_pk, maps, x, pmm_pk, pms_pk, l_max=l_max,
+                                 fold=fold)
+
+                def run_a():
+                    return anal(dk, maps, x, pmm_pk, pms_pk, l_max=l_max,
+                                s_len=lo.S)
+
+                out_s, out_a = run_s(), run_a()
+                # planes of segment 1 of an empty slot: q = P .. 2P - 1
+                held(f"synth_packed_{var}", out_s, want_s, what,
+                     (empty, slice(P, 2 * P)))
+                held(f"anal_packed_{var}", out_a, want_a, what, dead)
+                if fold:
+                    continue
+                fs = getattr(fused_cuda, f"synth_fused_{var}")(
+                    a_pk, maps, x, pmm_pk, pms_pk, None, l_max=l_max)
+                same_bits(f"synth_packed_{var} = synth_fused_{var} "
+                          f"(no tables), {what}", out_s, fs.reshape(
+                              out_s.shape))
+                fa = getattr(fused_cuda, f"anal_fused_{var}")(
+                    dk.reshape(lo.n_slots, 2, 1, *dk.shape[2:]), maps, x,
+                    pmm_pk, pms_pk, None, l_max=l_max, s_len=lo.S)
+                same_bits(f"anal_packed_{var} = anal_fused_{var} "
+                          f"(no tables), {what}", out_a, fa)
+                if K == (1 if var == "vpu" else 8):
+                    for d, fn, pl in (("synth", run_s, plain_s),
+                                      ("anal", run_a, plain_a)):
+                        log(f"  {d + '_packed_' + var:15s} {what}: kernel "
+                            f"{cuda_time_ms(fn):.3f} ms, plain version "
+                            f"{pl:.1f} ms")
+
+
 # ---------------------------------------------------------------------------
 # phase 3: the main paths at full width, then each kernel at its shapes
 # ---------------------------------------------------------------------------
 
 #: (mode, l_max, K, layout): the sht_cmb shapes, first on the fused layout
-#: the plans pick by default, then on the staged plain layout
+#: the plans pick by default, then on the staged plain and packed layouts
 MAIN_PATH = (("cuda_mxu", 2048, 8, "fused"), ("cuda_vpu", 4096, 1, "fused"),
-             ("cuda_mxu", 2048, 8, "plain"), ("cuda_vpu", 4096, 1, "plain"))
+             ("cuda_mxu", 2048, 8, "plain"), ("cuda_vpu", 4096, 1, "plain"),
+             ("cuda_mxu", 2048, 8, "packed"), ("cuda_vpu", 4096, 1, "packed"))
 
 #: the kernels each layout's path must launch, for a variant
 PATH_KERNELS = {
     "fused": lambda v: (f"synth_fused_{v}", f"anal_fused_{v}", "anal_reduce"),
     "plain": lambda v: (f"synth_{v}", f"anal_{v}", "anal_reduce"),
+    "packed": lambda v: (f"synth_packed_{v}", f"anal_packed_{v}",
+                         "anal_reduce"),
 }
 
 
@@ -364,9 +474,12 @@ def time_kernels(mode: str, l_max: int, K: int, run: tuple) -> dict:
     err_s = held(f"synth_{var}", out_s, want_s, what)
     err_a = held(f"anal_{var}", out_a, want_a, what)
     err_r = held("anal_reduce", out_a, want_r, what)
+    dig_a = digest(out_a)
     del want_s, want_a, want_r, out_s, out_a
     ms_s, ms_a = cuda_time_ms(run_s), cuda_time_ms(run_a)
     ms_r = cuda_time_ms(lambda: lc.anal_reduce(part, m_t, l_max=l_max))
+    rerun_same(f"anal_{var}", dig_a,
+               lambda: lc.anal_reduce(run_a(), m_t, l_max=l_max))
     lib_r = cuda_time_ms(lambda: part.sum(dim=1))
     seeds = nbytes(m_t, x, pmm, pms)
     shape = f"l_max {l_max}, K {K}"
@@ -388,6 +501,31 @@ def time_kernels(mode: str, l_max: int, K: int, run: tuple) -> dict:
             shape=f"{shape}, {n_ch} chunks",
             bound=bound_ms(red_ops, red_bytes)),
     }
+
+
+def identity_tables(var: str, out_a, want_a, f_pk, prep, l_max: int,
+                    S: int, what: str) -> None:
+    """The fused analysis with explicit identity tables against the skipped
+    tables of the main path: the kernel must give the same bits (1 re +
+    0 im == re), while the plain version, which then contracts a rotated
+    copy instead of a view of the rows, may round its ring sums in another
+    order.  Logs both, so a change in the gap between runs is seen to come
+    from the plain version or from the kernel."""
+    n_slots, _, P = f_pk.shape[:3]
+    R = prep[1].shape[0]
+    ident = torch.zeros((n_slots, 2, P, 4, R), device=f_pk.device)
+    ident[:, :, :, 0] = 1.0
+    ident[:, :, :, 3] = 1.0
+    kernel = getattr(fused_cuda, f"anal_fused_{var}")(
+        f_pk, *prep, ident, l_max=l_max, s_len=S)
+    same_bits(f"anal_fused_{var} with identity tables = without, {what}",
+              kernel, out_a)
+    plain = kref.anal_fused_ref(f_pk, *prep, ident, l_max=l_max, s_len=S,
+                                layout=var)
+    gap = float((out_a - plain).abs().max() / plain.abs().max())
+    log(f"  anal_fused_{var} plain version with identity tables: digest "
+        f"{digest(plain)} (without: {digest(want_a)}), kernel vs it "
+        f"{gap:.3e}")
 
 
 def time_fused_kernels(mode: str, l_max: int, K: int, run: tuple) -> dict:
@@ -435,9 +573,15 @@ def time_fused_kernels(mode: str, l_max: int, K: int, run: tuple) -> dict:
     err_s = held(f"synth_fused_{var}", out_s, want_s, what, (empty, 1))
     err_a = held(f"anal_fused_{var}", out_a, want_a, what, dead)
     err_r = held("anal_reduce", out_a, want_r, what)
+    dig_a = digest(out_a)
+    if tab_a is None:
+        identity_tables(var, out_a, want_a, f_pk, (pmaps, x, pmm_pk, pms_pk),
+                        l_max, S, what)
     del want_s, want_a, want_r, out_s, out_a
     ms_s, ms_a = cuda_time_ms(run_s), cuda_time_ms(run_a)
     ms_r = cuda_time_ms(lambda: lc.anal_reduce(part, zeros, l_max=S - 1))
+    rerun_same(f"anal_fused_{var}", dig_a,
+               lambda: lc.anal_reduce(run_a(), zeros, l_max=S - 1))
     lib_r = cuda_time_ms(lambda: part.sum(dim=1))
     seeds = nbytes(x, pmm_pk, pms_pk, *pmaps)
     shape = f"l_max {l_max}, K {K}, {lo.n_slots} slots x S {S}"
@@ -466,6 +610,99 @@ def time_fused_kernels(mode: str, l_max: int, K: int, run: tuple) -> dict:
     }
 
 
+def rerun_same(name: str, dig: str, fn) -> None:
+    """Run an analysis kernel and its reduce again after its timing runs:
+    its output must repeat bit for bit (chunk-order sums, no atomics)."""
+    again = digest(fn())
+    log(f"  {name:15s} rerun digest {again}: "
+        f"{'same bits' if again == dig else 'CHANGED from ' + dig}")
+    if again != dig:
+        raise AssertionError(f"{name}: output bits changed between runs")
+
+
+def time_packed_kernels(mode: str, l_max: int, K: int, run: tuple) -> dict:
+    """Each kernel of one packed main path at the shapes that path gave it
+    (the plan's own packed layout and seeds), as :func:`time_kernels`; the
+    packed synthesis and analysis are also held bit-equal to the fused
+    kernels' code (no tables, fold off) on the same inputs."""
+    var = mode[5:]
+    plan, alm, maps = run
+    store = plan._fused_store
+    lo = store["layout"]
+    pmaps, x, pmm_pk, pms_pk = store["prep"]
+    a_pk = ops._pack_a(torch.cat([alm.real, alm.imag], dim=-1), lo)
+    a_pk = a_pk.contiguous()
+    dwc = plan.phase.anal(maps)
+    dw = torch.cat([dwc.real, dwc.imag], dim=-1)[:, None]
+    del dwc
+    K2, R, L, S = 2 * K, x.shape[0], l_max + 1, lo.S
+    dk = ops._pack_rows(dw, lo).reshape(lo.n_slots, 2, R, K2)
+    del dw
+    dk = (dk.movedim(-1, 2) if var == "vpu" else dk).contiguous()
+    zeros = torch.zeros(lo.n_slots, dtype=torch.int32, device=x.device)
+    what = f"l_max {l_max}, K {K} (packed main path)"
+    triples, flops = legendre_work(plan._m_vals, L, R, K2)
+    synth = getattr(fused_cuda, f"synth_packed_{var}")
+
+    def run_s():
+        return synth(a_pk, pmaps, x, pmm_pk, pms_pk, l_max=l_max)
+
+    def run_a():
+        return fused_cuda.anal_packed_partials(var, dk, pmaps, x, pmm_pk,
+                                               pms_pk, l_max=l_max, s_len=S)
+
+    out_s, part = run_s(), run_a()
+    out_a = lc.anal_reduce(part, zeros, l_max=S - 1)
+    want_s, plain_s = plain_ms(lambda: kref.synth_packed_ref(
+        a_pk, pmaps, x, pmm_pk, pms_pk, l_max=l_max, layout=var))
+    want_a, plain_a = plain_ms(lambda: kref.anal_packed_ref(
+        dk, pmaps, x, pmm_pk, pms_pk, l_max=l_max, s_len=S, layout=var))
+    want_r, plain_r = plain_ms(lambda: kref.anal_reduce_ref(part, zeros,
+                                                            l_max=S - 1))
+    empty = torch.as_tensor(lo.slot_seed == S, device=x.device)
+    dead = torch.as_tensor(lo.a_row < 0, device=x.device)
+    err_s = held(f"synth_packed_{var}", out_s, want_s, what, (empty, 1))
+    err_a = held(f"anal_packed_{var}", out_a, want_a, what, dead)
+    err_r = held("anal_reduce", out_a, want_r, what)
+    del want_s, want_a, want_r
+    fused_s = getattr(fused_cuda, f"synth_fused_{var}")(
+        a_pk, pmaps, x, pmm_pk, pms_pk, None, l_max=l_max)
+    same_bits(f"synth_packed_{var} = synth_fused_{var} (no tables), {what}",
+              out_s, fused_s.reshape(out_s.shape))
+    del fused_s, out_s
+    fused_part = fused_cuda.anal_fused_partials(
+        var, dk.reshape(lo.n_slots, 2, 1, *dk.shape[2:]), pmaps, x, pmm_pk,
+        pms_pk, None, l_max=l_max, s_len=S)
+    same_bits(f"anal_packed_{var} = anal_fused_{var} (no tables), {what}",
+              part, fused_part)
+    dig_a = digest(out_a)
+    del fused_part, out_a
+    ms_s, ms_a = cuda_time_ms(run_s), cuda_time_ms(run_a)
+    ms_r = cuda_time_ms(lambda: lc.anal_reduce(part, zeros, l_max=S - 1))
+    lib_r = cuda_time_ms(lambda: part.sum(dim=1))
+    rerun_same(f"anal_packed_{var}", dig_a,
+               lambda: lc.anal_reduce(run_a(), zeros, l_max=S - 1))
+    seeds = nbytes(x, pmm_pk, pms_pk, *pmaps)
+    shape = f"l_max {l_max}, K {K}, {lo.n_slots} slots x S {S}"
+    live = triples // R
+    n_ch = part.shape[1]
+    red_bytes = live * n_ch * K2 * 4 + lo.n_slots * S * K2 * 4
+    red_ops = live * (n_ch - 1) * K2
+    return {
+        f"synth_packed_{var}": dict(
+            ms=ms_s, plain_ms=plain_s, library_ms=None, err=err_s,
+            shape=shape, bound=bound_ms(flops, nbytes(a_pk) + seeds
+                                        + lo.n_slots * 2 * R * K2 * 4)),
+        f"anal_packed_{var}": dict(
+            ms=ms_a, plain_ms=plain_a, library_ms=None, err=err_a,
+            shape=shape, bound=bound_ms(flops, nbytes(dk, part) + seeds)),
+        "anal_reduce": dict(
+            ms=ms_r, plain_ms=plain_r, library_ms=lib_r, err=err_r,
+            shape=f"{shape}, {n_ch} chunks",
+            bound=bound_ms(red_ops, red_bytes)),
+    }
+
+
 def time_round_trip(mode: str, l_max: int, K: int, layout: str, run: tuple,
                     kernel_ms: dict) -> None:
     """Steady-state time of each direction of one main path, with its
@@ -475,7 +712,7 @@ def time_round_trip(mode: str, l_max: int, K: int, layout: str, run: tuple,
     syn = host_ms(lambda: plan.alm2map(alm))
     ana = host_ms(lambda: plan.map2alm(maps))
     g, n = plan.grid, plan.phase.n
-    if layout == "plain":
+    if layout in ("plain", "packed"):
         delta = plan.phase.anal(maps)
         fft_s = cuda_time_ms(lambda: plan.phase.synth(delta))
         fft_a = cuda_time_ms(lambda: plan.phase.anal(maps))
@@ -502,7 +739,7 @@ def time_round_trip(mode: str, l_max: int, K: int, layout: str, run: tuple,
 
 
 def f64_anchor(dev) -> None:
-    l_max, K = 512, 2
+    l_max, K = ANCHOR_L_MAX, 2
     gen = torch.Generator().manual_seed(7)
     alm = sht.random_alm(gen, l_max, l_max, K, device=dev)
     p64 = repro_torch.make_plan("gl", l_max, K=K, dtype="float64",
@@ -510,7 +747,7 @@ def f64_anchor(dev) -> None:
     maps64 = p64.alm2map(alm)
     alm64 = p64.map2alm(maps64)
     for mode in ("cuda_vpu", "cuda_mxu"):
-        for layout in ("fused", "plain"):
+        for layout in ("fused", "plain", "packed"):
             p32 = repro_torch.make_plan("gl", l_max, K=K, dtype="float32",
                                         mode=mode, layout=layout)
             maps32 = p32.alm2map(alm.to(torch.complex64))
@@ -523,6 +760,116 @@ def f64_anchor(dev) -> None:
             if not max(rel_s, rel_a) < ANCHOR_TOL:
                 raise AssertionError(f"{mode} [{layout}] strays from the "
                                      "float64 plan")
+
+
+# ---------------------------------------------------------------------------
+# phase 5: gradients on the card
+# ---------------------------------------------------------------------------
+
+
+def dot_identity_err(plan, seed: int) -> float:
+    """Both directions of a plan through torch.autograd: the gradient of
+    <A x, y> in x is A^T y, so <A x, y> = <x, grad>; the larger relative
+    gap of the two directions."""
+    dev = plan.device
+    gen = torch.Generator().manual_seed(seed)
+    errs = []
+    a = sht.random_alm(gen, plan.l_max, plan.m_max, plan.K,
+                       dtype=torch.float32, device=dev).requires_grad_(True)
+    t = torch.randn(plan._maps_shape, generator=gen).to(dev)
+    lhs = (plan.alm2map(a) * t).sum()
+    (g,) = torch.autograd.grad(lhs, a)
+    a = a.detach()
+    errs.append((lhs.item(), float((a.real * g.real + a.imag * g.imag).sum())))
+    maps = torch.randn(plan._maps_shape, generator=gen).to(dev)
+    maps.requires_grad_(True)
+    b = sht.random_alm(gen, plan.l_max, plan.m_max, plan.K,
+                       dtype=torch.float32, device=dev)
+    out = plan.map2alm(maps)
+    lhs = (out.real * b.real + out.imag * b.imag).sum()
+    (g,) = torch.autograd.grad(lhs, maps)
+    errs.append((lhs.item(), float((maps.detach() * g).sum())))
+    return max(abs(p - q) / max(abs(p), abs(q), 1e-30) for p, q in errs)
+
+
+def launched_exactly(what: str, counts: dict, wanted: dict) -> None:
+    """Every kernel launched exactly as often as ``wanted`` says, and no
+    other kernel at all."""
+    got = {k: c for k, c in counts.items() if c}
+    log(f"  launches in {what}: {got}")
+    if got != wanted:
+        raise AssertionError(f"{what}: launched {got}, expected {wanted}")
+
+
+def check_gradients(dev) -> None:
+    """The dot identity through autograd on every layout at l_max 256, then
+    one full-width gradient step per direction on the default plan at
+    l_max 2048, K 8: the backward of alm2map must launch the fused
+    analysis and anal_reduce once each, that of map2alm the fused
+    synthesis once, and nothing else."""
+    for mode, K in (("cuda_vpu", 1), ("cuda_mxu", 8)):
+        for layout in ("plain", "packed", "fused"):
+            plan = repro_torch.make_plan("gl", CHECK_L_MAX, K=K,
+                                         dtype="float32", mode=mode,
+                                         layout=layout)
+            err = dot_identity_err(plan, 11)
+            log(f"  {mode} [{layout}] l_max {CHECK_L_MAX} K {K}: <A x, y> vs "
+                f"<x, A^T y> through autograd, rel. gap {err:.3e} (limit "
+                f"{DOT_TOL:g})")
+            if not err < DOT_TOL:
+                raise AssertionError(f"{mode} [{layout}]: dot identity {err}")
+    l_max, K = GRAD_SHAPE
+    plan = repro_torch.make_plan("gl", l_max, K=K, dtype="float32")
+    if plan.backends["synth"] != "cuda_mxu" or plan.layouts["synth"] != \
+            "fused":
+        raise AssertionError(f"default plan at {l_max}/K{K}: "
+                             f"{plan.backends} {plan.layouts}")
+    gen = torch.Generator().manual_seed(13)
+    a0 = sht.random_alm(gen, l_max, l_max, K, dtype=torch.float32, device=dev)
+    d = torch.randn(plan._maps_shape, generator=gen).to(dev)
+    b = sht.random_alm(gen, l_max, l_max, K, dtype=torch.float32, device=dev)
+
+    def synth_step():
+        a = a0.clone().requires_grad_(True)
+        loss = (plan.alm2map(a) - d).pow(2).sum()
+        loss.backward()
+        return a.grad
+
+    def anal_step():
+        m = d.clone().requires_grad_(True)
+        loss = (plan.map2alm(m) - b).abs().pow(2).sum()
+        loss.backward()
+        return m.grad
+
+    synth_step()                                   # warm-up, plan tables
+    anal_step()
+    fused = {"synth_fused_mxu": 1}
+    anal = {"anal_fused_mxu": 1, "anal_reduce": 1}
+    for what, step, fwd_k, bwd_k in (
+            ("sum |alm2map(a) - d|^2", synth_step, fused, anal),
+            ("sum |map2alm(m) - b|^2", anal_step, anal, fused)):
+        synth = step is synth_step
+        leaf = (a0 if synth else d).clone().requires_grad_(True)
+        reset_launches()
+        loss = ((plan.alm2map(leaf) - d).pow(2).sum() if synth
+                else (plan.map2alm(leaf) - b).abs().pow(2).sum())
+        torch.cuda.synchronize()
+        launched_exactly(f"the forward of {what}", read_launches(), fwd_k)
+        reset_launches()
+        loss.backward()
+        torch.cuda.synchronize()
+        launched_exactly(f"the backward of {what}", read_launches(), bwd_k)
+        grad = torch.view_as_real(leaf.grad) if synth else leaf.grad
+        if tuple(leaf.grad.shape) != tuple(leaf.shape) or \
+                not bool(torch.isfinite(grad).all()):
+            raise AssertionError(f"{what}: non-finite or misshapen gradient")
+        del loss, grad, leaf
+        ms = host_ms(step)
+        with torch.no_grad():
+            fwd_ms = host_ms(lambda: plan.alm2map(a0) if synth
+                             else plan.map2alm(d))
+        log(f"  {what}, l_max {l_max} K {K} [fused, cuda_mxu]: forward + "
+            f"backward {ms:.2f} ms (forward alone {fwd_ms:.2f} ms)")
 
 
 def main() -> int:
@@ -552,6 +899,7 @@ def main() -> int:
         f"{KERNEL_TOL:g}")
     check_kernels(dev)
     check_fused_kernels(dev)
+    check_packed_kernels(dev)
 
     log("phase 3: main paths at full width; each kernel against its plain "
         "version at the shapes the path gave it")
@@ -569,8 +917,8 @@ def main() -> int:
         if missing or stray:
             raise AssertionError(f"{mode} [{layout}] path: never launched "
                                  f"{missing}, launched outside it {stray}")
-        timed = (time_fused_kernels if layout == "fused" else time_kernels)(
-            mode, l_max, K, run)
+        timed = {"fused": time_fused_kernels, "plain": time_kernels,
+                 "packed": time_packed_kernels}[layout](mode, l_max, K, run)
         for name, r in timed.items():
             bms, by = r["bound"]
             log(f"  {name:15s} {r['shape']}: {r['ms']:.3f} ms, bound "
@@ -592,6 +940,9 @@ def main() -> int:
 
     log("phase 4: float64 anchor")
     f64_anchor(dev)
+
+    log("phase 5: gradients on the card")
+    check_gradients(dev)
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -12,14 +12,18 @@ resolution and contribute nothing.
 
 This is the oracle behind the ``torch`` plan backend (float64, or float32
 with 64 scale bits).  The float32 kernels' own schedule lives in
-``repro_torch.kernels.ref``.  Spin (Wigner-d) rows wait for ROADMAP.md Open
-items section 1, item 7.
+``repro_torch.kernels.ref``.  The four stages are differentiable through
+their adjoints (``core.autodiff``): the backward of synthesis is analysis
+with unit weights, that of analysis with weights w is w times synthesis.
+Spin (Wigner-d) rows wait for ROADMAP.md Open items section 1, item 7.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from repro_torch.core.autodiff import linear_pair
 
 __all__ = [
     "scale_bits_for", "log_mu", "pmm_scaled", "recurrence_step",
@@ -136,13 +140,8 @@ def _zeros_carry(M, R, dtype, device):
             torch.zeros(M, R, dtype=torch.int32, device=device))
 
 
-def delta_from_alm(a_re, a_im, m_vals, grid_x, grid_sin, log_mu_all, *,
-                   l_max: int):
-    """Synthesis Legendre stage: Delta_m(r) = sum_l a_lm P_lm(cos theta_r).
-
-    a_re/a_im: (M, l_max+1, K) real tensors (rows l < m zero).  Returns
-    (d_re, d_im), each (M, R, K), in the dtype of ``a_re``.
-    """
+def _delta_impl(a_re, a_im, m_vals, grid_x, grid_sin, log_mu_all, *,
+                l_max: int):
     dtype, device = a_re.dtype, a_re.device
     m, x, pmm, pms, sb = _prep(m_vals, grid_x, grid_sin, log_mu_all, dtype,
                                device)
@@ -158,18 +157,11 @@ def delta_from_alm(a_re, a_im, m_vals, grid_x, grid_sin, log_mu_all, *,
     return d_re, d_im
 
 
-def alm_from_delta(d_re, d_im, m_vals, grid_x, grid_sin, weights, log_mu_all,
-                   *, l_max: int):
-    """Analysis Legendre stage: a_lm = sum_r w_r Delta_m(r) P_lm(cos theta_r).
-
-    d_re/d_im: (M, R, K).  Returns (a_re, a_im), each (M, l_max+1, K).
-    """
-    dtype, device = d_re.dtype, d_re.device
+def _alm_impl(dw_re, dw_im, m_vals, grid_x, grid_sin, log_mu_all, *,
+              l_max: int):
+    dtype, device = dw_re.dtype, dw_re.device
     m, x, pmm, pms, sb = _prep(m_vals, grid_x, grid_sin, log_mu_all, dtype,
                                device)
-    w = torch.as_tensor(np.asarray(weights), dtype=dtype, device=device)
-    dw_re = d_re * w[None, :, None]
-    dw_im = d_im * w[None, :, None]
     pp, pc, sc = _zeros_carry(m.shape[0], x.shape[1], dtype, device)
     rows_re, rows_im = [], []
     for l in range(l_max + 1):
@@ -191,9 +183,8 @@ def _parity_even(l: int, m):
     return ((l + m.to(torch.int64)) % 2 == 0)[..., None]
 
 
-def delta_from_alm_folded(a_re, a_im, m_vals, north_x, north_sin, log_mu_all,
-                          *, l_max: int):
-    """Folded synthesis: (e_re, e_im, o_re, o_im), each (M, R_north, K)."""
+def _delta_folded_impl(a_re, a_im, m_vals, north_x, north_sin, log_mu_all,
+                       *, l_max: int):
     dtype, device = a_re.dtype, a_re.device
     m, x, pmm, pms, sb = _prep(m_vals, north_x, north_sin, log_mu_all, dtype,
                                device)
@@ -214,11 +205,8 @@ def delta_from_alm_folded(a_re, a_im, m_vals, north_x, north_sin, log_mu_all,
     return tuple(acc)
 
 
-def alm_from_delta_folded(s_e_re, s_e_im, s_o_re, s_o_im, m_vals, north_x,
-                          north_sin, log_mu_all, *, l_max: int):
-    """Folded analysis from the pre-folded weighted ring-pair sums
-    (sum_e = north + mirror, sum_o = north - mirror), each (M, R_north, K).
-    Returns (a_re, a_im), each (M, l_max+1, K)."""
+def _alm_folded_impl(s_e_re, s_e_im, s_o_re, s_o_im, m_vals, north_x,
+                     north_sin, log_mu_all, *, l_max: int):
     dtype, device = s_e_re.dtype, s_e_re.device
     m, x, pmm, pms, sb = _prep(m_vals, north_x, north_sin, log_mu_all, dtype,
                                device)
@@ -233,3 +221,92 @@ def alm_from_delta_folded(s_e_re, s_e_im, s_o_re, s_o_im, m_vals, north_x,
         rows_re.append(torch.einsum("mr,mrk->mk", val, sre))
         rows_im.append(torch.einsum("mr,mrk->mk", val, sim))
     return torch.stack(rows_re, dim=1), torch.stack(rows_im, dim=1)
+
+
+# ---------------------------------------------------------------------------
+# the public stages: linear pairs whose backward is the other direction
+# ---------------------------------------------------------------------------
+
+
+def _weights(weights, dtype, device):
+    if isinstance(weights, torch.Tensor):
+        return weights.to(dtype=dtype, device=device)
+    return torch.as_tensor(np.asarray(weights), dtype=dtype, device=device)
+
+
+def delta_from_alm(a_re, a_im, m_vals, grid_x, grid_sin, log_mu_all, *,
+                   l_max: int):
+    """Synthesis Legendre stage: Delta_m(r) = sum_l a_lm P_lm(cos theta_r).
+
+    a_re/a_im: (M, l_max+1, K) real tensors (rows l < m zero).  Returns
+    (d_re, d_im), each (M, R, K), in the dtype of ``a_re``.
+    Differentiable: the backward is the analysis with unit weights.
+    """
+    geo = (m_vals, grid_x, grid_sin, log_mu_all)
+
+    def fwd(_, ops):
+        return _delta_impl(*ops, *geo, l_max=l_max)
+
+    def bwd(_, cts):
+        return _alm_impl(*cts, *geo, l_max=l_max)
+
+    return linear_pair(fwd, bwd, {"grid_x": grid_x, "grid_sin": grid_sin},
+                       (a_re, a_im))
+
+
+def alm_from_delta(d_re, d_im, m_vals, grid_x, grid_sin, weights, log_mu_all,
+                   *, l_max: int):
+    """Analysis Legendre stage: a_lm = sum_r w_r Delta_m(r) P_lm(cos theta_r).
+
+    d_re/d_im: (M, R, K).  Returns (a_re, a_im), each (M, l_max+1, K).
+    Differentiable: the backward is the weights times the synthesis of the
+    cotangent.
+    """
+    geo = (m_vals, grid_x, grid_sin, log_mu_all)
+    w = _weights(weights, d_re.dtype, d_re.device)[None, :, None]
+
+    def fwd(_, ops):
+        return _alm_impl(ops[0] * w, ops[1] * w, *geo, l_max=l_max)
+
+    def bwd(_, cts):
+        g_re, g_im = _delta_impl(*cts, *geo, l_max=l_max)
+        return g_re * w, g_im * w
+
+    return linear_pair(fwd, bwd, {"grid_x": grid_x, "grid_sin": grid_sin,
+                                  "weights": weights}, (d_re, d_im))
+
+
+def delta_from_alm_folded(a_re, a_im, m_vals, north_x, north_sin, log_mu_all,
+                          *, l_max: int):
+    """Folded synthesis: (e_re, e_im, o_re, o_im), each (M, R_north, K).
+    Differentiable: the backward is the folded analysis of the even/odd
+    cotangents (the parity split is its own transpose)."""
+    geo = (m_vals, north_x, north_sin, log_mu_all)
+
+    def fwd(_, ops):
+        return _delta_folded_impl(*ops, *geo, l_max=l_max)
+
+    def bwd(_, cts):
+        return _alm_folded_impl(*cts, *geo, l_max=l_max)
+
+    return linear_pair(fwd, bwd, {"north_x": north_x,
+                                  "north_sin": north_sin}, (a_re, a_im))
+
+
+def alm_from_delta_folded(s_e_re, s_e_im, s_o_re, s_o_im, m_vals, north_x,
+                          north_sin, log_mu_all, *, l_max: int):
+    """Folded analysis from the pre-folded weighted ring-pair sums
+    (sum_e = north + mirror, sum_o = north - mirror), each (M, R_north, K).
+    Returns (a_re, a_im), each (M, l_max+1, K).  Differentiable: the
+    backward is the folded synthesis of the cotangent."""
+    geo = (m_vals, north_x, north_sin, log_mu_all)
+
+    def fwd(_, ops):
+        return _alm_folded_impl(*ops, *geo, l_max=l_max)
+
+    def bwd(_, cts):
+        return _delta_folded_impl(*cts, *geo, l_max=l_max)
+
+    return linear_pair(fwd, bwd, {"north_x": north_x,
+                                  "north_sin": north_sin},
+                       (s_e_re, s_e_im, s_o_re, s_o_im))

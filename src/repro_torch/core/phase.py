@@ -5,8 +5,11 @@ stage produces (synthesis) or consumes (analysis) per-ring Fourier
 coefficients Delta_m(r); this stage turns them into ring samples with one
 batched real FFT over all rings (paper eqs. 11 and 14), alias-folding
 every m into the rfft half-spectrum.  Rows with m < 0 are padding and
-contribute nothing.  The ring-bucket engine for ragged grids waits for
-ROADMAP.md Open items section 1, item 8.
+contribute nothing.  Both directions are differentiable through their
+adjoints (``core.autodiff``); the quadrature weights belong to the
+analysis and multiply outside its linear pair, and ``fac_m`` (1 for m = 0,
+else 2) accounts for the implicit negative-m half.  The ring-bucket
+engine for ragged grids waits for ROADMAP.md Open items section 1, item 8.
 """
 
 from __future__ import annotations
@@ -14,6 +17,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.core.autodiff import linear_pair
 from repro_torch.core.grids import RingGrid
 
 __all__ = ["phase_factors", "uniform_bin_maps", "uniform_rotation_tables",
@@ -101,17 +105,13 @@ def uniform_rotation_tables(m_vals, phi0, n, direction):
     return np.where((m >= 0)[:, None, None], t, 0.0)
 
 
-def uniform_synth(delta: torch.Tensor, m_vals, n: int, phi0) -> torch.Tensor:
-    """Synthesis phase stage: delta (M, R, K) complex -> maps (R, n, K) real.
-
-    Bins past n/2 wrap to the conjugate half; the Nyquist bin doubles its
-    real part; rows landing on one bin are summed (``index_add_``).
-    """
-    cdt = delta.dtype
-    rdt = torch.float64 if cdt == torch.complex128 else torch.float32
-    dev = delta.device
-    m = np.asarray(m_vals)
-    dp = delta * phase_factors(m, phi0, +1.0, rdt, dev)[..., None]
+def _uniform_synth_body(d_re, d_im, m, n, phi0):
+    """Weight-free synthesis body: Delta (re, im) (M, R, K) -> maps (R, n,
+    K) real."""
+    rdt, dev = d_re.dtype, d_re.device
+    cdt = _complex_dtype(rdt)
+    dp = torch.complex(d_re, d_im) * phase_factors(m, phi0, +1.0, rdt,
+                                                   dev)[..., None]
     bins, hi, nyq = uniform_bin_maps(m, n)
     vals = torch.where(torch.as_tensor(hi, device=dev)[:, None, None],
                        dp.conj(), dp)
@@ -124,12 +124,11 @@ def uniform_synth(delta: torch.Tensor, m_vals, n: int, phi0) -> torch.Tensor:
     return torch.fft.irfft(H, n=n, dim=1) * n
 
 
-def uniform_anal(maps: torch.Tensor, m_vals, n: int, phi0,
-                 weights) -> torch.Tensor:
-    """Analysis phase stage: maps (R, n, K) real -> weighted Delta (M, R, K)
-    complex, rows following ``m_vals``, quadrature ``weights`` per ring."""
+def _uniform_anal_core(maps, m, n, phi0):
+    """Weight-free analysis core: maps (R, n, K) real -> (A_re, A_im), each
+    (M, R, K): the e^{-i m phi} projection without the quadrature
+    weights."""
     rdt, dev = maps.dtype, maps.device
-    m = np.asarray(m_vals)
     F = torch.fft.rfft(maps, dim=1)                    # (R, n//2+1, K)
     bins, hi, _ = uniform_bin_maps(m, n)
     Fm = F[:, torch.as_tensor(bins, device=dev), :]    # (R, M, K)
@@ -137,8 +136,50 @@ def uniform_anal(maps: torch.Tensor, m_vals, n: int, phi0,
                      Fm.conj(), Fm)
     Fm = Fm.movedim(1, 0)                              # (M, R, K)
     A = Fm * phase_factors(m, phi0, -1.0, rdt, dev)[..., None]
+    return A.real, A.imag
+
+
+def uniform_synth(delta: torch.Tensor, m_vals, n: int, phi0) -> torch.Tensor:
+    """Synthesis phase stage: delta (M, R, K) complex -> maps (R, n, K) real.
+
+    Bins past n/2 wrap to the conjugate half; the Nyquist bin doubles its
+    real part; rows landing on one bin are summed (``index_add_``).
+    Differentiable: the backward is fac_m times the weight-free analysis
+    of the map cotangent.
+    """
+    m = np.asarray(m_vals)
+    rdt = torch.float64 if delta.dtype == torch.complex128 else torch.float32
+    fac = torch.as_tensor(_fac_rows(m, rdt), device=delta.device)
+
+    def fwd(_, ops):
+        return _uniform_synth_body(ops[0], ops[1], m, n, phi0)
+
+    def bwd(_, t):
+        a_re, a_im = _uniform_anal_core(t, m, n, phi0)
+        return fac * a_re, fac * a_im
+
+    return linear_pair(fwd, bwd, {"phi0": phi0}, (delta.real, delta.imag))
+
+
+def uniform_anal(maps: torch.Tensor, m_vals, n: int, phi0,
+                 weights) -> torch.Tensor:
+    """Analysis phase stage: maps (R, n, K) real -> weighted Delta (M, R, K)
+    complex, rows following ``m_vals``, quadrature ``weights`` per ring.
+    Differentiable: the weight-free core's backward is the synthesis of the
+    cotangent / fac_m; the weights multiply outside it."""
+    rdt, dev = maps.dtype, maps.device
+    m = np.asarray(m_vals)
+    fac = torch.as_tensor(_fac_rows(m, rdt), device=dev)
+
+    def fwd(_, mp):
+        return _uniform_anal_core(mp, m, n, phi0)
+
+    def bwd(_, cts):
+        return _uniform_synth_body(cts[0] / fac, cts[1] / fac, m, n, phi0)
+
+    a_re, a_im = linear_pair(fwd, bwd, {"phi0": phi0}, maps)
     w = torch.as_tensor(np.asarray(weights), dtype=rdt, device=dev)
-    return A * w[None, :, None]
+    return torch.complex(a_re, a_im) * w[None, :, None]
 
 
 class PhaseStage:

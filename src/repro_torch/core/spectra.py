@@ -1,11 +1,12 @@
-"""Harmonic-domain error metric (counterpart of ``repro.core.spectra``)."""
+"""Harmonic-domain error metric and power spectrum (counterpart of
+``repro.core.spectra``)."""
 
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-__all__ = ["d_err"]
+__all__ = ["d_err", "cl_from_alm"]
 
 
 def _host(a) -> np.ndarray:
@@ -19,3 +20,13 @@ def d_err(a_init, a_out) -> float:
     num = np.sum(np.abs(a_init - a_out) ** 2)
     den = np.sum(np.abs(a_init) ** 2)
     return float(np.sqrt(num / den))
+
+
+def cl_from_alm(alm: torch.Tensor) -> torch.Tensor:
+    """Pseudo-C_l estimator from packed (M, L, K) alm (real field, m >= 0):
+    C_l = (|a_l0|^2 + 2 sum_{m >= 1} |a_lm|^2) / (2 l + 1), shape (L, K).
+    Differentiable (plain torch operations)."""
+    p = alm.real ** 2 + alm.imag ** 2                       # (M, L, K)
+    tot = p[0] + 2.0 * p[1:].sum(dim=0)                     # (L, K)
+    l = torch.arange(alm.shape[1], dtype=tot.dtype, device=tot.device)
+    return tot / (2.0 * l + 1.0)[:, None]

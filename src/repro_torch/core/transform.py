@@ -24,10 +24,18 @@ Layouts of the kernel backends (``plan.layouts``): ``fused``, the default
 where the plan is eligible (``Plan._fusion_eligibility``), runs the fused
 Legendre+phase kernels on the packed slot layout (``kernels.fused``), as
 the reference's planner does at the sht_cmb shapes; ``plain`` runs the
-staged kernels (``kernels.legendre_cuda``) and the phase stage apart.
-Plans run on the CUDA device unless ``device="cpu"`` is passed.  What the
-port does not have yet raises a ``ValueError`` that names the ROADMAP.md
-item it waits on; nothing is substituted silently.
+staged kernels (``kernels.legendre_cuda``) and the phase stage apart;
+``packed`` runs the packed staged kernels (two m rows per slot,
+``kernels.fused_cuda``'s ``*_packed_*``) and the phase stage apart.
+Plans run on the CUDA device unless ``device="cpu"`` is passed.
+
+``alm2map`` and ``map2alm`` are differentiable on every backend and
+layout (``plan.grad_ready``): each layer carries an adjoint pair
+(``core.autodiff``), so a backward runs the opposite-direction transform
+of the same layer, kernels included.  First order only.
+
+What the port does not have yet raises a ``ValueError`` that names the
+ROADMAP.md item it waits on; nothing is substituted silently.
 """
 
 from __future__ import annotations
@@ -54,8 +62,7 @@ _CDTYPES = {"float64": torch.complex128, "float32": torch.complex64}
 #: what the reference offers and the port does not yet, with the ROADMAP.md
 #: Open items section 1 item each waits on
 _WAITING = {
-    "mode auto": 9, "mode model": 9, "mode dist": 11,
-    "layout packed": 5, "spin": 7,
+    "mode auto": 9, "mode model": 9, "mode dist": 11, "spin": 7,
 }
 
 #: make_plan memoisation: signature key -> Plan
@@ -131,8 +138,9 @@ class Plan:
                         dtype=self.dtype, fold=self.fold)
         self._m_vals = np.arange(self.m_max + 1)
         self._seeds_cache: Optional[tuple] = None
-        #: what the fused kernels reuse across calls: packed seeds, rotation
-        #: tables and the pack/unpack index tensors (``kernels.fused``)
+        #: what the slot kernels of the fused and packed layouts reuse
+        #: across calls: the packed layout, seeds, rotation tables and the
+        #: pack/unpack index tensors (``kernels.fused``, ``kernels.ops``)
         self._fused_store: dict = {}
         self._fns: dict = {}
         self.backends: dict = {}
@@ -202,9 +210,9 @@ class Plan:
                     raise ValueError(f"fused layout unavailable: {reason}")
                 fn = (self._make_fused_synth if direction == "synth"
                       else self._make_fused_anal)(backend[5:])
-            elif layout in (None, "plain"):
+            elif layout in ("plain", "packed"):
                 fn = (self._make_kernel_synth if direction == "synth"
-                      else self._make_kernel_anal)(backend[5:])
+                      else self._make_kernel_anal)(backend[5:], layout)
             else:
                 raise ValueError(f"unknown layout {layout!r}")
             self._fns[key] = fn
@@ -212,7 +220,8 @@ class Plan:
 
     def _synth_fn(self, backend: str, layout: Optional[str] = None):
         """Synthesis callable alm -> maps for ``backend`` (cached);
-        ``layout`` overrides the plan's (``"plain"`` | ``"fused"``)."""
+        ``layout`` overrides the plan's (``"plain"`` | ``"packed"`` |
+        ``"fused"``)."""
         return self._fn("synth", backend, layout)
 
     def _anal_fn(self, backend: str, layout: Optional[str] = None):
@@ -220,7 +229,7 @@ class Plan:
         ``layout`` as in :meth:`_synth_fn`."""
         return self._fn("anal", backend, layout)
 
-    def _make_kernel_synth(self, variant: str):
+    def _make_kernel_synth(self, variant: str, layout: str):
         from repro_torch.kernels import ops as kops
         K, nh = self.K, (self.grid.n_rings + 1) // 2
         ns = nh - 1 if self.grid.n_rings % 2 == 1 else nh
@@ -230,7 +239,8 @@ class Plan:
         def fn(alm):
             a32 = torch.cat([alm.real, alm.imag], dim=-1).to(torch.float32)
             out = kops.synth(a32, m_t, x32, pmm, pms, l_max=self.l_max,
-                             fold=self.fold, variant=variant)
+                             fold=self.fold, variant=variant, layout=layout,
+                             store=self._fused_store)
             if self.fold:
                 e, o = out[:, 0], out[:, 1]              # (M, nh, 2K)
                 north = e + o
@@ -243,7 +253,7 @@ class Plan:
 
         return fn
 
-    def _make_kernel_anal(self, variant: str):
+    def _make_kernel_anal(self, variant: str, layout: str):
         from repro_torch.kernels import ops as kops
         K, R = self.K, self.grid.n_rings
         nh = (R + 1) // 2
@@ -263,7 +273,8 @@ class Plan:
             else:
                 dwk = dw[:, None]                        # (M, 1, R, 2K)
             out = kops.anal(dwk, m_t, x32, pmm, pms, l_max=self.l_max,
-                            fold=self.fold, variant=variant)
+                            fold=self.fold, variant=variant, layout=layout,
+                            store=self._fused_store)
             alm = torch.complex(out[..., :K], out[..., K:]).to(cdt)
             return torch.where(mask, alm, torch.zeros((), dtype=cdt,
                                                       device=alm.device))
@@ -280,12 +291,12 @@ class Plan:
         return _fusion_eligibility(self.grid, self.spin)
 
     def _fused_layout(self):
-        """The packed slot layout shared by both fused directions (numpy,
-        memoised by ``kernels.pack.build_layout``)."""
-        from repro_torch.kernels import fused as kfused
-        from repro_torch.kernels import pack as kpack
-        return kpack.build_layout(self._m_vals, self.l_max,
-                                  lp_size=kfused.FUSED_LP_SIZE)
+        """The packed slot layout shared by the fused and packed directions:
+        ``kernels.ops._resolve_layout``'s, kept in the plan's store under
+        ``"layout"``."""
+        from repro_torch.kernels import ops as kops
+        return kops._resolve_layout(self._m_vals, "packed", self.l_max,
+                                    self._fused_store)
 
     def _fused_parts(self, variant: str):
         """(seeds, keyword block) of the fused kernel chains: the uniform
@@ -353,6 +364,15 @@ class Plan:
             alm = alm + anal(maps - self.alm2map(alm))
         return alm
 
+    @property
+    def grad_ready(self) -> dict:
+        """Per-direction differentiability of the chosen paths:
+        ``{"synth": bool, "anal": bool}``, True when autograd flows through
+        :meth:`alm2map` / :meth:`map2alm` by the adjoint rules (every
+        backend and layout of the port).  First order only."""
+        return {d: self.backends.get(d) in BACKENDS
+                for d in ("synth", "anal")}
+
     def memory_footprint(self) -> dict:
         """Estimated working-set bytes per buffer class."""
         g = self.grid
@@ -373,6 +393,7 @@ class Plan:
     def describe(self) -> dict:
         """Structured report: signature, chosen kernels, layouts, fusion,
         memory footprint and cache counters."""
+        from repro_torch.kernels import pack as kpack
         from repro_torch.kernels.fused import FUSED_LP_SIZE
         fusion_ok, fusion_reason = self._fusion_eligibility()
         layouts = dict(self.layouts)
@@ -388,6 +409,9 @@ class Plan:
             "device": str(self.device),
             "mode": self.mode,
             "backends": dict(self.backends),
+            "differentiable": {**self.grad_ready,
+                               "rule": "adjoint (torch.autograd.Function)",
+                               "higher_order": False},
             "layouts": layouts,
             "fusion": {
                 "eligible": fusion_ok, "reason": fusion_reason,
@@ -401,6 +425,10 @@ class Plan:
             },
             "candidates": list(self.candidates),
             "skipped": dict(self.skipped),
+            # the packed-vs-plain grid accounting of the Legendre stage
+            "legendre": {"layouts": layouts,
+                         "panels": kpack.panel_counts(self._m_vals,
+                                                      self.l_max)},
             "phase": self._sht.phase.describe(),
             "memory": self.memory_footprint(),
             "cache": {"events": dict(self.cache_events),
@@ -495,8 +523,10 @@ def make_plan(grid: Union[str, RingGrid] = "gl", l_max: Optional[int] = None,
     fold : the equator fold (symmetric grids only).
     layout : the Legendre layout of the ``cuda_*`` backends: ``None`` (the
         default) means ``"fused"`` where the plan is eligible, else
-        ``"plain"``; ``"packed"`` raises (not ported yet).  The ``torch``
-        backend takes none.  Both spellings of the default give one plan.
+        ``"plain"``; ``"plain"`` and ``"packed"`` run the staged kernels
+        on the rectangular and the packed slot grid, then the phase stage.
+        The ``torch`` backend takes none.  Both spellings of the default
+        give one plan.
     device : ``None`` (the CUDA device, which must be visible), ``"cuda"``,
         ``"cuda:N"`` or ``"cpu"``.
 
@@ -507,9 +537,7 @@ def make_plan(grid: Union[str, RingGrid] = "gl", l_max: Optional[int] = None,
     if mode is not None and mode not in BACKENDS:
         raise ValueError(f"unknown mode {mode!r}: expected None or a backend "
                          f"name {BACKENDS}")
-    if f"layout {layout}" in _WAITING:
-        raise _not_ported(f"layout {layout}")
-    if layout not in (None, "plain", "fused"):
+    if layout not in (None, "plain", "packed", "fused"):
         raise ValueError(f"unknown layout {layout!r}")
     if spin != 0:
         raise _not_ported("spin")

@@ -1,5 +1,6 @@
-// Fused Legendre+phase kernels of the spherical harmonic transforms, for
-// Hopper, on the packed slot layout (repro_torch/kernels/pack.py).
+// Slot kernels of the spherical harmonic transforms, for Hopper, on the
+// packed slot layout (repro_torch/kernels/pack.py): the fused Legendre+phase
+// kernels and the packed staged Legendre kernels, one template each.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC (no --use_fast_math); bound through the plain C
@@ -22,6 +23,13 @@
 // planes and writes north = even + odd, south = even - odd; analysis takes
 // north and south rows and contracts even = N + S, odd = N - S.  The
 // rotation and the combine are separately rounded, as in the plain version.
+//
+// The packed staged kernels are the same templates with COMBINE = false and
+// no tables: the even and odd planes stay apart (Q = 2 x P planes per slot,
+// plane q = segment x P + parity) and nothing is rotated, so the host's
+// phase stage runs after (synthesis) or before (analysis) them.  With the
+// fold off a packed and a fused kernel run the same code and give the same
+// bits.
 //
 // Kernels (TPU kernel each replaces; what bounds it on the H100; design):
 //
@@ -54,12 +62,29 @@
 //                    P panel of each 128-ring tile is contracted against it
 //                    with register tiles and the ring groups are summed in a
 //                    fixed order into the chunk's partial rows.
+//   synth_packed_vpu replaces synth_vpu_packed,
+//                    src/repro/kernels/legendre_pallas.py:591: synth_fused_vpu
+//                    without combine or rotation, (n_slots, Q, 2K, R).
+//   synth_packed_mxu replaces synth_mxu_packed, legendre_pallas.py:698:
+//                    synth_fused_mxu without combine or rotation,
+//                    (n_slots, Q, R, 2K).
+//   anal_packed_vpu  replaces anal_vpu_packed, legendre_pallas.py:814:
+//                    anal_fused_vpu on the parity planes as given.
+//   anal_packed_mxu  replaces anal_mxu_packed, legendre_pallas.py:937:
+//                    anal_fused_mxu on the parity planes as given.
+//                    All four are float32 operations bound as their fused
+//                    twins: the P_lm triples and the per-step code are the
+//                    same, and the packed layout's point on this card, as on
+//                    the TPU, is that every slot walks a near-constant
+//                    2 l_max - m_max + 2 steps, so no block idles on the
+//                    triangle's short rows.
 //
 // The TPU analysis kernels add into one output block across ring blocks in
-// sequential grid order (fused.py:477, :600); CUDA blocks run in no order,
-// so both analysis kernels write per-ring-chunk partials (n_slots, n_chunks,
-// S, 2K), dead positions zero, and the chunk-order second pass anal_reduce
-// (legendre.cu) sums them: no atomics, identical bits on every run.
+// sequential grid order (fused.py:477, :600; legendre_pallas.py:844, :955);
+// CUDA blocks run in no order, so the analysis kernels write per-ring-chunk
+// partials (n_slots, n_chunks, S, 2K), dead positions zero, and the
+// chunk-order second pass anal_reduce (legendre.cu) sums them: no atomics,
+// identical bits on every run.
 
 #include "recurrence.cuh"
 
@@ -135,7 +160,7 @@ __device__ __forceinline__ void zero_tail(float* __restrict__ part,
 // synth_fused_vpu: grid (ceil(R / 128), n_slots, ceil(K / KM)), block 128.
 // out (n_slots, 2, P, 2K, R).
 // ---------------------------------------------------------------------------
-template <int KM, bool FOLD>
+template <int KM, bool FOLD, bool COMBINE>
 __global__ void __launch_bounds__(kTile)
 synth_fused_vpu_kernel(const float* __restrict__ a_pk,
                        const int* __restrict__ m0s,
@@ -198,7 +223,7 @@ synth_fused_vpu_kernel(const float* __restrict__ a_pk,
       }
     }
     if (!live) continue;
-    if (FOLD) {
+    if (FOLD && COMBINE) {
 #pragma unroll
       for (int c = 0; c < CC; ++c) {
         const float e = acc[0][c], o = acc[P - 1][c];
@@ -227,7 +252,7 @@ synth_fused_vpu_kernel(const float* __restrict__ a_pk,
 // sums; the epilogue stages them in shared memory and rotates with one
 // thread per ring.  out (n_slots, 2, P, R, 2K).
 // ---------------------------------------------------------------------------
-template <int KM, bool FOLD>
+template <int KM, bool FOLD, bool COMBINE>
 __global__ void __launch_bounds__(kTile)
 synth_fused_mxu_kernel(const float* __restrict__ a_pk,
                        const int* __restrict__ m0s,
@@ -327,7 +352,7 @@ synth_fused_mxu_kernel(const float* __restrict__ a_pk,
         re[p] = stage_s[p][t][k];
         im[p] = stage_s[p][t][KM + k];
       }
-      if (FOLD) {
+      if (FOLD && COMBINE) {
         const float er = re[0], ei = im[0];
         re[0] = er + re[P - 1];                    // north
         im[0] = ei + im[P - 1];
@@ -353,7 +378,7 @@ synth_fused_mxu_kernel(const float* __restrict__ a_pk,
 // chunk0 + k * 128 + t, k < 8.  f_pk (n_slots, 2, P, 2K, R).
 // grid (n_chunks, n_slots, ceil(K / KM)), block 128.
 // ---------------------------------------------------------------------------
-template <int KM, bool FOLD>
+template <int KM, bool FOLD, bool COMBINE>
 __global__ void __launch_bounds__(kTile)
 anal_fused_vpu_kernel(const float* __restrict__ f_pk,
                       const int* __restrict__ m0s,
@@ -415,14 +440,17 @@ anal_fused_vpu_kernel(const float* __restrict__ f_pk,
       }
 #pragma unroll
       for (int c = 0; c < KM; ++c) {
-        if (FOLD) {
+        if (FOLD && COMBINE) {
           d[k][0][c] = re[0][c] + re[P - 1][c];     // even = N + S
           d[k][0][KM + c] = im[0][c] + im[P - 1][c];
           d[k][P - 1][c] = re[0][c] - re[P - 1][c]; // odd = N - S
           d[k][P - 1][KM + c] = im[0][c] - im[P - 1][c];
-        } else {
-          d[k][0][c] = re[0][c];
-          d[k][0][KM + c] = im[0][c];
+        } else {                                   // planes as given
+#pragma unroll
+          for (int p = 0; p < P; ++p) {
+            d[k][p][c] = re[p][c];
+            d[k][p][KM + c] = im[p][c];
+          }
         }
       }
     }
@@ -510,7 +538,7 @@ struct AnalFusedMxuShape {
       (dw_floats + panel_floats + red_floats + 2 * kLT) * sizeof(float);
 };
 
-template <int KM, bool FOLD>
+template <int KM, bool FOLD, bool COMBINE>
 __global__ void __launch_bounds__(kTile)
 anal_fused_mxu_kernel(const float* __restrict__ f_pk,
                       const int* __restrict__ m0s,
@@ -570,15 +598,19 @@ anal_fused_mxu_kernel(const float* __restrict__ f_pk,
             rotate(tab, tab_row(si, seg, p, P, R, r), R, &re[p], &im[p]);
         }
         float* d0 = dw_s + static_cast<size_t>(rr) * CC;
-        if (FOLD) {
+        if (FOLD && COMBINE) {
           float* d1 = d0 + static_cast<size_t>(Sh::kChunk) * CC;
           d0[c] = re[0] + re[P - 1];               // even = N + S
           d0[KM + c] = im[0] + im[P - 1];
           d1[c] = re[0] - re[P - 1];               // odd = N - S
           d1[KM + c] = im[0] - im[P - 1];
-        } else {
-          d0[c] = re[0];
-          d0[KM + c] = im[0];
+        } else {                                   // planes as given
+#pragma unroll
+          for (int p = 0; p < P; ++p) {
+            float* dp = d0 + static_cast<size_t>(p) * Sh::kChunk * CC;
+            dp[c] = re[p];
+            dp[KM + c] = im[p];
+          }
         }
       }
     }
@@ -669,74 +701,113 @@ struct FusedArgs {
   cudaStream_t stream;
 };
 
-// The map-chunk template for km (a power of two up to kMax) and the fold.
-template <template <int, bool> class Launch, int kMax>
-int dispatch_maps(int km, int fold, const FusedArgs& g) {
+// The map-chunk template for km (a power of two up to kMax), the fold, and
+// the fused combine.  Without the fold the combine does nothing, so the
+// packed kernels then run the fused instantiation itself.
+template <template <int, bool, bool> class Launch, int KM>
+int dispatch_fold(int fold, int combine, const FusedArgs& g) {
+  if (!fold) return Launch<KM, false, true>::run(g);
+  return combine ? Launch<KM, true, true>::run(g)
+                 : Launch<KM, true, false>::run(g);
+}
+
+template <template <int, bool, bool> class Launch, int kMax>
+int dispatch_maps(int km, int fold, int combine, const FusedArgs& g) {
   switch (km) {
-    case 1: return fold ? Launch<1, true>::run(g) : Launch<1, false>::run(g);
-    case 2: return fold ? Launch<2, true>::run(g) : Launch<2, false>::run(g);
+    case 1: return dispatch_fold<Launch, 1>(fold, combine, g);
+    case 2: return dispatch_fold<Launch, 2>(fold, combine, g);
     case 4:
       if constexpr (kMax >= 4)
-        return fold ? Launch<4, true>::run(g) : Launch<4, false>::run(g);
+        return dispatch_fold<Launch, 4>(fold, combine, g);
       break;
     case 8:
       if constexpr (kMax >= 8)
-        return fold ? Launch<8, true>::run(g) : Launch<8, false>::run(g);
+        return dispatch_fold<Launch, 8>(fold, combine, g);
       break;
     default: break;
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-template <int KM, bool FOLD>
+template <int KM, bool FOLD, bool COMBINE>
 struct LaunchSynthVpu {
   static int run(const FusedArgs& g) {
     dim3 grid((g.R + kTile - 1) / kTile, g.n_slots, (g.K + KM - 1) / KM);
-    synth_fused_vpu_kernel<KM, FOLD><<<grid, kTile, 0, g.stream>>>(
+    synth_fused_vpu_kernel<KM, FOLD, COMBINE><<<grid, kTile, 0, g.stream>>>(
         g.in, g.m0s, g.m1s, g.seeds, g.x, g.pmm, g.pms, g.tab, g.out, g.S,
         g.K, g.R, g.l_max);
     return static_cast<int>(cudaGetLastError());
   }
 };
 
-template <int KM, bool FOLD>
+template <int KM, bool FOLD, bool COMBINE>
 struct LaunchSynthMxu {
   static int run(const FusedArgs& g) {
     dim3 grid((g.R + kTile - 1) / kTile, g.n_slots, (g.K + KM - 1) / KM);
-    synth_fused_mxu_kernel<KM, FOLD><<<grid, kTile, 0, g.stream>>>(
+    synth_fused_mxu_kernel<KM, FOLD, COMBINE><<<grid, kTile, 0, g.stream>>>(
         g.in, g.m0s, g.m1s, g.seeds, g.x, g.pmm, g.pms, g.tab, g.out, g.S,
         g.K, g.R, g.l_max);
     return static_cast<int>(cudaGetLastError());
   }
 };
 
-template <int KM, bool FOLD>
+template <int KM, bool FOLD, bool COMBINE>
 struct LaunchAnalVpu {
   static int run(const FusedArgs& g) {
     dim3 grid(g.n_chunks, g.n_slots, (g.K + KM - 1) / KM);
-    anal_fused_vpu_kernel<KM, FOLD><<<grid, kTile, 0, g.stream>>>(
+    anal_fused_vpu_kernel<KM, FOLD, COMBINE><<<grid, kTile, 0, g.stream>>>(
         g.in, g.m0s, g.m1s, g.seeds, g.x, g.pmm, g.pms, g.tab, g.out, g.S,
         g.K, g.R, g.l_max);
     return static_cast<int>(cudaGetLastError());
   }
 };
 
-template <int KM, bool FOLD>
+template <int KM, bool FOLD, bool COMBINE>
 struct LaunchAnalMxu {
   static int run(const FusedArgs& g) {
     using Sh = AnalFusedMxuShape<KM, FOLD>;
     cudaError_t err = cudaFuncSetAttribute(
-        anal_fused_mxu_kernel<KM, FOLD>,
+        anal_fused_mxu_kernel<KM, FOLD, COMBINE>,
         cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(Sh::smem_bytes));
     if (err != cudaSuccess) return static_cast<int>(err);
     dim3 grid(g.n_chunks, g.n_slots, (g.K + KM - 1) / KM);
-    anal_fused_mxu_kernel<KM, FOLD><<<grid, kTile, Sh::smem_bytes, g.stream>>>(
-        g.in, g.m0s, g.m1s, g.seeds, g.x, g.pmm, g.pms, g.tab, g.out, g.S,
-        g.K, g.R, g.l_max);
+    anal_fused_mxu_kernel<KM, FOLD, COMBINE>
+        <<<grid, kTile, Sh::smem_bytes, g.stream>>>(
+            g.in, g.m0s, g.m1s, g.seeds, g.x, g.pmm, g.pms, g.tab, g.out,
+            g.S, g.K, g.R, g.l_max);
     return static_cast<int>(cudaGetLastError());
   }
 };
+
+// One synthesis launch; combine = 0 is a packed kernel (no tables).
+template <template <int, bool, bool> class Launch>
+int synth_entry(const float* a_pk, const int* m0, const int* m1,
+                const int* seed, const float* x, const float* pmm,
+                const int* pms, const float* tab, float* out, int n_slots,
+                int S, int K, int R, int l_max, int fold, int combine,
+                void* stream) {
+  if (!combine && tab != nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  FusedArgs g{a_pk, m0, m1, seed, x, pmm, pms, tab, out, n_slots, S, K, R,
+              l_max, 0, static_cast<cudaStream_t>(stream)};
+  return dispatch_maps<Launch, 8>(chunk_for(K, 8, 1), fold, combine, g);
+}
+
+// One analysis partials launch; kMax caps the map chunk, tiles sizes the
+// ring chunk the caller's buffer must match.
+template <template <int, bool, bool> class Launch, int kMax, int tiles>
+int anal_entry(const float* f_pk, const int* m0, const int* m1,
+               const int* seed, const float* x, const float* pmm,
+               const int* pms, const float* tab, float* part, int n_slots,
+               int S, int K, int R, int l_max, int n_chunks, int fold,
+               int combine, void* stream) {
+  if (n_chunks != chunks_of(R, tiles) || (!combine && tab != nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  FusedArgs g{f_pk, m0, m1, seed, x, pmm, pms, tab, part, n_slots, S, K, R,
+              l_max, n_chunks, static_cast<cudaStream_t>(stream)};
+  return dispatch_maps<Launch, kMax>(chunk_for(K, kMax, 1), fold, combine, g);
+}
 
 }  // namespace
 
@@ -751,18 +822,18 @@ int fused_synth_vpu(const float* a_pk, const int* m0, const int* m1,
                     const int* seed, const float* x, const float* pmm,
                     const int* pms, const float* tab, float* out, int n_slots,
                     int S, int K, int R, int l_max, int fold, void* stream) {
-  FusedArgs g{a_pk, m0, m1, seed, x, pmm, pms, tab, out, n_slots, S, K, R,
-              l_max, 0, static_cast<cudaStream_t>(stream)};
-  return dispatch_maps<LaunchSynthVpu, 8>(chunk_for(K, 8, 1), fold, g);
+  return synth_entry<LaunchSynthVpu>(a_pk, m0, m1, seed, x, pmm, pms, tab,
+                                     out, n_slots, S, K, R, l_max, fold, 1,
+                                     stream);
 }
 
 int fused_synth_mxu(const float* a_pk, const int* m0, const int* m1,
                     const int* seed, const float* x, const float* pmm,
                     const int* pms, const float* tab, float* out, int n_slots,
                     int S, int K, int R, int l_max, int fold, void* stream) {
-  FusedArgs g{a_pk, m0, m1, seed, x, pmm, pms, tab, out, n_slots, S, K, R,
-              l_max, 0, static_cast<cudaStream_t>(stream)};
-  return dispatch_maps<LaunchSynthMxu, 8>(chunk_for(K, 8, 1), fold, g);
+  return synth_entry<LaunchSynthMxu>(a_pk, m0, m1, seed, x, pmm, pms, tab,
+                                     out, n_slots, S, K, R, l_max, fold, 1,
+                                     stream);
 }
 
 int fused_anal_vpu(const float* f_pk, const int* m0, const int* m1,
@@ -770,11 +841,9 @@ int fused_anal_vpu(const float* f_pk, const int* m0, const int* m1,
                    const int* pms, const float* tab, float* part, int n_slots,
                    int S, int K, int R, int l_max, int n_chunks, int fold,
                    void* stream) {
-  if (n_chunks != chunks_of(R, kVpuAnalTiles))
-    return static_cast<int>(cudaErrorInvalidValue);
-  FusedArgs g{f_pk, m0, m1, seed, x, pmm, pms, tab, part, n_slots, S, K, R,
-              l_max, n_chunks, static_cast<cudaStream_t>(stream)};
-  return dispatch_maps<LaunchAnalVpu, 2>(chunk_for(K, 2, 1), fold, g);
+  return anal_entry<LaunchAnalVpu, 2, kVpuAnalTiles>(
+      f_pk, m0, m1, seed, x, pmm, pms, tab, part, n_slots, S, K, R, l_max,
+      n_chunks, fold, 1, stream);
 }
 
 int fused_anal_mxu(const float* f_pk, const int* m0, const int* m1,
@@ -782,11 +851,46 @@ int fused_anal_mxu(const float* f_pk, const int* m0, const int* m1,
                    const int* pms, const float* tab, float* part, int n_slots,
                    int S, int K, int R, int l_max, int n_chunks, int fold,
                    void* stream) {
-  if (n_chunks != chunks_of(R, kMxuAnalTiles))
-    return static_cast<int>(cudaErrorInvalidValue);
-  FusedArgs g{f_pk, m0, m1, seed, x, pmm, pms, tab, part, n_slots, S, K, R,
-              l_max, n_chunks, static_cast<cudaStream_t>(stream)};
-  return dispatch_maps<LaunchAnalMxu, 8>(chunk_for(K, 8, 1), fold, g);
+  return anal_entry<LaunchAnalMxu, 8, kMxuAnalTiles>(
+      f_pk, m0, m1, seed, x, pmm, pms, tab, part, n_slots, S, K, R, l_max,
+      n_chunks, fold, 1, stream);
+}
+
+// The packed staged kernels: no tables, planes kept apart.
+int packed_synth_vpu(const float* a_pk, const int* m0, const int* m1,
+                     const int* seed, const float* x, const float* pmm,
+                     const int* pms, float* out, int n_slots, int S, int K,
+                     int R, int l_max, int fold, void* stream) {
+  return synth_entry<LaunchSynthVpu>(a_pk, m0, m1, seed, x, pmm, pms, nullptr,
+                                     out, n_slots, S, K, R, l_max, fold, 0,
+                                     stream);
+}
+
+int packed_synth_mxu(const float* a_pk, const int* m0, const int* m1,
+                     const int* seed, const float* x, const float* pmm,
+                     const int* pms, float* out, int n_slots, int S, int K,
+                     int R, int l_max, int fold, void* stream) {
+  return synth_entry<LaunchSynthMxu>(a_pk, m0, m1, seed, x, pmm, pms, nullptr,
+                                     out, n_slots, S, K, R, l_max, fold, 0,
+                                     stream);
+}
+
+int packed_anal_vpu(const float* dw_pk, const int* m0, const int* m1,
+                    const int* seed, const float* x, const float* pmm,
+                    const int* pms, float* part, int n_slots, int S, int K,
+                    int R, int l_max, int n_chunks, int fold, void* stream) {
+  return anal_entry<LaunchAnalVpu, 2, kVpuAnalTiles>(
+      dw_pk, m0, m1, seed, x, pmm, pms, nullptr, part, n_slots, S, K, R,
+      l_max, n_chunks, fold, 0, stream);
+}
+
+int packed_anal_mxu(const float* dw_pk, const int* m0, const int* m1,
+                    const int* seed, const float* x, const float* pmm,
+                    const int* pms, float* part, int n_slots, int S, int K,
+                    int R, int l_max, int n_chunks, int fold, void* stream) {
+  return anal_entry<LaunchAnalMxu, 8, kMxuAnalTiles>(
+      dw_pk, m0, m1, seed, x, pmm, pms, nullptr, part, n_slots, S, K, R,
+      l_max, n_chunks, fold, 0, stream);
 }
 
 }  // extern "C"

@@ -19,9 +19,12 @@ kernel and the phase stage; the fused kernels keep it on chip:
 
 On a CPU tensor the kernels' plain versions (``kernels.ref``) run, on a
 CUDA tensor the CUDA kernels (``kernels.fused_cuda``).  ``fused_synth`` and
-``fused_anal`` are forward only; what is not ported yet raises, naming the
-ROADMAP.md item it waits on: the backward (item 4), the spin-2 row set
-(item 7), ring buckets (item 8) and the bfloat16 contraction (item 6).
+``fused_anal`` are differentiable through their adjoints, the chains of
+the other direction (``core.autodiff.linear_pair``): the transpose of the
+synthesis chain is fac_m times the analysis chain, and the reverse, as in
+the reference.  What is not ported yet raises, naming the ROADMAP.md item
+it waits on: the spin-2 row set (item 7), ring buckets (item 8) and the
+bfloat16 contraction (item 6).
 """
 
 from __future__ import annotations
@@ -30,17 +33,18 @@ import numpy as np
 import torch
 
 from repro_torch.core import phase
+from repro_torch.core.autodiff import linear_pair
 from repro_torch.kernels import ops as kops
-from repro_torch.kernels import pack as kpack
 from repro_torch.kernels import ref as kref
 
 __all__ = ["fused_synth", "fused_anal", "FUSED_LP_SIZE"]
 
 #: the packed layout's panel length: the reference planner's choice at both
-#: sht_cmb shapes.  The CUDA kernels walk each segment in 32-l tiles, so on
-#: the GPU it only rounds the stream length S up; a second value waits for
-#: a measured choice (ROADMAP.md Open items section 1, item 9).
-FUSED_LP_SIZE = 128
+#: sht_cmb shapes, shared with the packed staged layout.  The CUDA kernels
+#: walk each segment in 32-l tiles, so on the GPU it only rounds the stream
+#: length S up; a second value waits for a measured choice (ROADMAP.md Open
+#: items section 1, item 9).
+FUSED_LP_SIZE = kops.PACK_LP_SIZE
 
 
 def _waits(what: str, item: int) -> ValueError:
@@ -88,28 +92,6 @@ def _pack_tables(tabs, lo, device, store=None):
     return kops._pack_rows(t, lo, cache=store).contiguous()
 
 
-def _prep(lo, x, pmm, pms, store=None):
-    """Per-slot packing shared by both directions: the five slot maps, x,
-    and the per-segment seeds (n_slots, 2, R), on x's device."""
-    dev = x.device
-
-    def rows(v):
-        return kops._pack_rows(torch.as_tensor(v, device=dev), lo,
-                               cache=store).contiguous()
-
-    return (kops._pack_maps(lo, dev), x.to(torch.float32).contiguous(),
-            rows(pmm), rows(pms))
-
-
-def _stored(store, key, build):
-    """``build()``, kept in the caller's ``store`` dict when one is given."""
-    if store is None:
-        return build()
-    if key not in store:
-        store[key] = build()
-    return store[key]
-
-
 def _tables(store, direction, m_vals, lo, device, *, n, phi0, fold_rings,
             n_half):
     """Packed rotation tables for ``direction``, or None where they are the
@@ -121,7 +103,7 @@ def _tables(store, direction, m_vals, lo, device, *, n, phi0, fold_rings,
         if _tables_identity(tabs):
             return None
         return _pack_tables(tabs, lo, device, store)
-    return _stored(store, ("tables", direction), build)
+    return kops._stored(store, ("tables", direction), build)
 
 
 def _kernel_synth(a, tab_pk, prep, *, l_max, var, lo, fold, store):
@@ -167,7 +149,7 @@ def _kernel_anal(fp, tab_pk, prep, *, l_max, var, lo, store):
 def _synth_chain(a, m_vals, x, pmm, pms, *, l_max, var, lo, n, phi0,
                  fold_rings, store):
     """Weight-free fused synthesis: a (M, L1, 2K) f32 -> maps (R, n, K)."""
-    prep = _stored(store, "prep", lambda: _prep(lo, x, pmm, pms, store))
+    prep = kops._prep(lo, x, pmm, pms, store)
     nh = prep[1].shape[0]
     tab = _tables(store, "synth", m_vals, lo, a.device, n=n, phi0=phi0,
                   fold_rings=fold_rings, n_half=nh)
@@ -212,7 +194,7 @@ def _anal_chain(maps_w, m_vals, x, pmm, pms, *, l_max, var, lo, n, phi0,
                 fold_rings, store):
     """Weight-free fused analysis core: ring-weighted maps (R, n, K) f32
     -> a (M, l_max + 1, 2K) f32."""
-    prep = _stored(store, "prep", lambda: _prep(lo, x, pmm, pms, store))
+    prep = kops._prep(lo, x, pmm, pms, store)
     nh = prep[1].shape[0]
     fp = _anal_rows(maps_w, m_vals, n=n, fold_rings=fold_rings, n_half=nh)
     tab = _tables(store, "anal", m_vals, lo, maps_w.device, n=n, phi0=phi0,
@@ -221,27 +203,21 @@ def _anal_chain(maps_w, m_vals, x, pmm, pms, *, l_max, var, lo, n, phi0,
                         store=store)
 
 
-class _ForwardOnly(torch.autograd.Function):
-    """Runs ``fn`` on its input; a backward through it raises."""
-
-    @staticmethod
-    def forward(ctx, inp, fn):
-        return fn(inp)
-
-    @staticmethod
-    def backward(ctx, grad):
-        raise _waits("the backward of the fused transforms (autograd)", 4)
-
-
 def _resolve(m_vals, l_max, lo, mp_vals, bf16):
     if mp_vals is not None:
         raise _waits("the fused spin-2 row set (mp_vals)", 7)
     if bf16:
         raise _waits("the bfloat16 fused contraction (bf16=True)", 6)
     if lo is None:
-        lo = kpack.build_layout(np.asarray(m_vals), l_max,
-                                lp_size=FUSED_LP_SIZE)
+        lo = kops._resolve_layout(np.asarray(m_vals), "packed", l_max)
     return lo
+
+
+def _fac(m_vals, device):
+    """(M, 1, 1) f32 spectral factors, 1 for m == 0 else 2
+    (``core.phase._fac_rows``)."""
+    return torch.as_tensor(phase._fac_rows(m_vals, torch.float32),
+                           device=device)
 
 
 def fused_synth(a, m_vals, x, pmm, pms, *, l_max, n, phi0, variant="vpu",
@@ -256,16 +232,21 @@ def fused_synth(a, m_vals, x, pmm, pms, *, l_max, n, phi0, variant="vpu",
     north/south combine runs in the kernel.  ``store``: a dict the caller
     keeps, for one layout and device, to reuse the packed seeds, rotation
     tables and pack/unpack index tensors across calls (a plan passes its
-    own).  Forward only.
+    own).  Differentiable: the backward is fac_m times the fused analysis
+    chain of the cotangent.
     """
     lo = _resolve(m_vals, l_max, lo, mp_vals, bf16)
+    kw = dict(l_max=l_max, var=variant, lo=lo, n=n, phi0=phi0,
+              fold_rings=fold_rings, store=store)
+    fac = _fac(m_vals, a.device)
 
-    def fwd(a_):
-        return _synth_chain(a_, m_vals, x, pmm, pms, l_max=l_max,
-                            var=variant, lo=lo, n=n, phi0=phi0,
-                            fold_rings=fold_rings, store=store)
+    def fwd(_, a_):
+        return _synth_chain(a_, m_vals, x, pmm, pms, **kw)
 
-    return _ForwardOnly.apply(a, fwd)
+    def bwd(_, t):
+        return fac * _anal_chain(t.contiguous(), m_vals, x, pmm, pms, **kw)
+
+    return linear_pair(fwd, bwd, {"x": x, "pmm": pmm, "pms": pms}, a)
 
 
 def fused_anal(maps, weights, m_vals, x, pmm, pms, *, l_max, n, phi0,
@@ -275,17 +256,23 @@ def fused_anal(maps, weights, m_vals, x, pmm, pms, *, l_max, n, phi0,
     2K) f32, on the maps' device.
 
     The ring quadrature ``weights`` are applied to the maps outside the
-    kernel chain (they commute with the phi-axis FFT).  Other arguments as
-    :func:`fused_synth`.  Forward only.
+    kernel chain (they commute with the phi-axis FFT), so the chain's
+    adjoint is the weight-free fused synthesis of the cotangent / fac_m.
+    Other arguments as :func:`fused_synth`.
     """
     lo = _resolve(m_vals, l_max, lo, mp_vals, bf16)
     maps = torch.as_tensor(maps)
     w = torch.as_tensor(np.asarray(weights), dtype=torch.float32,
                         device=maps.device)
+    kw = dict(l_max=l_max, var=variant, lo=lo, n=n, phi0=phi0,
+              fold_rings=fold_rings, store=store)
+    fac = _fac(m_vals, maps.device)
 
-    def fwd(mw):
-        return _anal_chain(mw, m_vals, x, pmm, pms, l_max=l_max, var=variant,
-                           lo=lo, n=n, phi0=phi0, fold_rings=fold_rings,
-                           store=store)
+    def fwd(_, mw):
+        return _anal_chain(mw, m_vals, x, pmm, pms, **kw)
 
-    return _ForwardOnly.apply(maps.to(torch.float32) * w[:, None, None], fwd)
+    def bwd(_, g):
+        return _synth_chain(g / fac, m_vals, x, pmm, pms, **kw)
+
+    return linear_pair(fwd, bwd, {"x": x, "pmm": pmm, "pms": pms},
+                       maps.to(torch.float32) * w[:, None, None])

@@ -1,23 +1,31 @@
-"""Python wrappers of the fused CUDA kernels (``csrc/fused.cu``).
+"""Python wrappers of the slot kernels (``csrc/fused.cu``): the fused
+Legendre+phase kernels and the packed staged Legendre kernels.
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its
 output and scratch with ``torch.empty``, launches on the current CUDA
 stream, raises if the launch reports an error, and adds one to its entry of
 :data:`launches` per kernel launch.  They take CUDA tensors only: the plain
 versions for CPU tensors are ``kernels.ref.synth_fused_ref`` /
-``anal_fused_ref``, and ``kernels.fused`` chooses between the two.
+``anal_fused_ref`` / ``synth_packed_ref`` / ``anal_packed_ref``, and
+``kernels.fused`` and ``kernels.ops`` choose between the two.
 
 Operands, on a ``kernels.pack`` slot layout (n_slots slots, stream length
-S, P = 2 planes with the equator fold, else 1):
+S, P = 2 planes with the equator fold, else 1, Q = 2 x P):
   maps   the five per-slot i32 (n_slots,) maps of ``ops._pack_maps``
          (m0, m1, mp0, mp1, seed); mp0/mp1 belong to the spin branch and
          are not read;
   x (R,) f32; pmm_pk / pms_pk (n_slots, 2, R) f32 / i32 segment seeds;
   tab_pk (n_slots, 2, P, 4, R) f32 rotation tables, or None (identity).
-  synth_fused_vpu: a_pk (n_slots, S, 2K) -> (n_slots, 2, P, 2K, R);
-  synth_fused_mxu: a_pk (n_slots, S, 2K) -> (n_slots, 2, P, R, 2K);
-  anal_fused_vpu:  f_pk (n_slots, 2, P, 2K, R) -> (n_slots, S, 2K);
-  anal_fused_mxu:  f_pk (n_slots, 2, P, R, 2K) -> (n_slots, S, 2K).
+  synth_fused_vpu:  a_pk (n_slots, S, 2K) -> (n_slots, 2, P, 2K, R);
+  synth_fused_mxu:  a_pk (n_slots, S, 2K) -> (n_slots, 2, P, R, 2K);
+  anal_fused_vpu:   f_pk (n_slots, 2, P, 2K, R) -> (n_slots, S, 2K);
+  anal_fused_mxu:   f_pk (n_slots, 2, P, R, 2K) -> (n_slots, S, 2K);
+  synth_packed_vpu: a_pk (n_slots, S, 2K) -> (n_slots, Q, 2K, R);
+  synth_packed_mxu: a_pk (n_slots, S, 2K) -> (n_slots, Q, R, 2K);
+  anal_packed_vpu:  dw_pk (n_slots, Q, 2K, R) -> (n_slots, S, 2K);
+  anal_packed_mxu:  dw_pk (n_slots, Q, R, 2K) -> (n_slots, S, 2K).
+The fused planes are north/south (combined in the kernel), the packed ones
+even/odd (l+m), plane q = segment x P + parity, and take no tables.
 Analysis writes per-ring-chunk partials and sums them in chunk order with
 ``legendre_cuda.anal_reduce``.
 """
@@ -34,12 +42,14 @@ from repro_torch.kernels import legendre_cuda as lc
 from repro_torch.kernels.ops import _pad_to
 
 __all__ = ["synth_fused_vpu", "synth_fused_mxu", "anal_fused_vpu",
-           "anal_fused_mxu", "anal_fused_partials", "launches",
-           "reset_launches"]
+           "anal_fused_mxu", "anal_fused_partials", "synth_packed_vpu",
+           "synth_packed_mxu", "anal_packed_vpu", "anal_packed_mxu",
+           "anal_packed_partials", "launches", "reset_launches"]
 
 #: kernel name -> launches since the last :func:`reset_launches`
 launches = {"synth_fused_vpu": 0, "synth_fused_mxu": 0, "anal_fused_vpu": 0,
-            "anal_fused_mxu": 0}
+            "anal_fused_mxu": 0, "synth_packed_vpu": 0, "synth_packed_mxu": 0,
+            "anal_packed_vpu": 0, "anal_packed_mxu": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -48,6 +58,10 @@ _SIGNATURES = {
     "fused_synth_mxu": [_P] * 9 + [_I] * 6 + [_P],
     "fused_anal_vpu": [_P] * 9 + [_I] * 7 + [_P],
     "fused_anal_mxu": [_P] * 9 + [_I] * 7 + [_P],
+    "packed_synth_vpu": [_P] * 8 + [_I] * 6 + [_P],
+    "packed_synth_mxu": [_P] * 8 + [_I] * 6 + [_P],
+    "packed_anal_vpu": [_P] * 8 + [_I] * 7 + [_P],
+    "packed_anal_mxu": [_P] * 8 + [_I] * 7 + [_P],
 }
 
 
@@ -67,7 +81,8 @@ def _lib() -> ctypes.CDLL:
 
 
 def _operands(maps, x, pmm_pk, pms_pk, tab_pk, n_slots, P, device):
-    """Check the shared operands; returns (m0, m1, seed, tab pointer)."""
+    """Check the shared operands; returns the pointers of (m0, m1, seed, x,
+    pmm_pk, pms_pk) and the table's (0 for None)."""
     m0, m1, _, _, seed = maps
     R = x.shape[0]
     for name, t in (("m0", m0), ("m1", m1), ("seed", seed)):
@@ -77,31 +92,36 @@ def _operands(maps, x, pmm_pk, pms_pk, tab_pk, n_slots, P, device):
     lc._check("pms_pk", pms_pk, torch.int32, (n_slots, 2, R))
     if tab_pk is not None:
         lc._check("tab_pk", tab_pk, torch.float32, (n_slots, 2, P, 4, R))
-    for t in (m0, m1, seed, x, pmm_pk, pms_pk,
-              *([] if tab_pk is None else [tab_pk])):
+    ts = (m0, m1, seed, x, pmm_pk, pms_pk)
+    for t in ts + (() if tab_pk is None else (tab_pk,)):
         if t.device != device:
             raise ValueError(f"operands on {t.device} and {device}")
-    return m0, m1, seed, (0 if tab_pk is None else tab_pk.data_ptr())
+    return [t.data_ptr() for t in ts], \
+        (0 if tab_pk is None else tab_pk.data_ptr())
 
 
 def _synth(kernel, a_pk, maps, x, pmm_pk, pms_pk, tab_pk, *, l_max, fold):
+    """Launch synthesis ``kernel`` (``synth_{fused,packed}_{vpu,mxu}``); the
+    packed ones take no table and return their planes as (n_slots, Q,
+    ...)."""
     n_slots, S, K2 = a_pk.shape
     R, P = x.shape[0], (2 if fold else 1)
+    _, kind, var = kernel.split("_")
     lc._check("a_pk", a_pk, torch.float32, (n_slots, S, K2))
-    m0, m1, seed, tab = _operands(maps, x, pmm_pk, pms_pk, tab_pk, n_slots,
-                                  P, a_pk.device)
-    shape = ((n_slots, 2, P, K2, R) if kernel.endswith("vpu")
+    ptrs, tab = _operands(maps, x, pmm_pk, pms_pk, tab_pk, n_slots, P,
+                          a_pk.device)
+    shape = ((n_slots, 2, P, K2, R) if var == "vpu"
              else (n_slots, 2, P, R, K2))
     out = torch.empty(shape, dtype=torch.float32, device=a_pk.device)
-    fn = getattr(_lib(), "fused_" + kernel.replace("_fused", ""))
+    fn = getattr(_lib(), f"{kind}_synth_{var}")
+    tab = [tab] if kind == "fused" else []
     with torch.cuda.device(a_pk.device):
-        err = fn(a_pk.data_ptr(), m0.data_ptr(), m1.data_ptr(),
-                 seed.data_ptr(), x.data_ptr(), pmm_pk.data_ptr(),
-                 pms_pk.data_ptr(), tab, out.data_ptr(), n_slots, S, K2 // 2,
-                 R, l_max, int(fold), lc._stream())
+        err = fn(a_pk.data_ptr(), *ptrs, *tab, out.data_ptr(), n_slots, S,
+                 K2 // 2, R, l_max, int(fold), lc._stream())
     lc._raise_on(err, kernel)
     launches[kernel] += 1
-    return out
+    return out if kind == "fused" else out.reshape(n_slots, 2 * P,
+                                                   *shape[3:])
 
 
 def synth_fused_vpu(a_pk, maps, x, pmm_pk, pms_pk, tab_pk=None, *,
@@ -118,34 +138,67 @@ def synth_fused_mxu(a_pk, maps, x, pmm_pk, pms_pk, tab_pk=None, *,
                   l_max=l_max, fold=fold)
 
 
-def anal_fused_partials(variant: str, f_pk, maps, x, pmm_pk, pms_pk,
-                        tab_pk=None, *, l_max: int, s_len: int):
-    """First pass of ``anal_fused_<variant>``: per-ring-chunk partial sums
+def synth_packed_vpu(a_pk, maps, x, pmm_pk, pms_pk, *, l_max: int,
+                     fold: bool = False):
+    """Packed synthesis, one ring per thread: the fused vpu kernel without
+    the fold combine and the rotation."""
+    return _synth("synth_packed_vpu", a_pk, maps, x, pmm_pk, pms_pk, None,
+                  l_max=l_max, fold=fold)
+
+
+def synth_packed_mxu(a_pk, maps, x, pmm_pk, pms_pk, *, l_max: int,
+                     fold: bool = False):
+    """Packed synthesis as (l x ring) P panels: the fused mxu kernel without
+    the fold combine and the rotation."""
+    return _synth("synth_packed_mxu", a_pk, maps, x, pmm_pk, pms_pk, None,
+                  l_max=l_max, fold=fold)
+
+
+def _partials(kernel, f, maps, x, pmm_pk, pms_pk, tab_pk, *, l_max, s_len):
+    """Launch analysis ``kernel`` (``anal_{fused,packed}_{vpu,mxu}``) on its
+    per-slot rows ``f`` (n_slots, 2 x P, ...): per-ring-chunk partial sums
     (n_slots, n_chunks, S, 2K), dead stream positions zero."""
-    kernel = f"anal_fused_{variant}"
-    if variant == "vpu":
-        n_slots, _, P, K2, R = f_pk.shape
+    _, kind, var = kernel.split("_")
+    rows = f.reshape(f.shape[0], -1, *f.shape[-2:])
+    if var == "vpu":
+        n_slots, Q, K2, R = rows.shape
     else:
-        n_slots, _, P, R, K2 = f_pk.shape
-    lc._check("f_pk", f_pk, torch.float32, f_pk.shape)
-    if R != x.shape[0] or P not in (1, 2):
-        raise ValueError(f"f_pk {tuple(f_pk.shape)} does not fit x "
+        n_slots, Q, R, K2 = rows.shape
+    lc._check("rows", f, torch.float32, f.shape)
+    if R != x.shape[0] or Q not in (2, 4):
+        raise ValueError(f"rows {tuple(f.shape)} do not fit x "
                          f"({x.shape[0]} rings) and 1 or 2 planes")
-    m0, m1, seed, tab = _operands(maps, x, pmm_pk, pms_pk, tab_pk, n_slots,
-                                  P, f_pk.device)
-    chunk = lc.ANAL_CHUNK[variant]
+    P = Q // 2
+    ptrs, tab = _operands(maps, x, pmm_pk, pms_pk, tab_pk, n_slots, P,
+                          f.device)
+    chunk = lc.ANAL_CHUNK[var]
     n_chunks = _pad_to(R, chunk) // chunk
     part = torch.empty((n_slots, n_chunks, s_len, K2), dtype=torch.float32,
-                       device=f_pk.device)
-    fn = getattr(_lib(), f"fused_anal_{variant}")
-    with torch.cuda.device(f_pk.device):
-        err = fn(f_pk.data_ptr(), m0.data_ptr(), m1.data_ptr(),
-                 seed.data_ptr(), x.data_ptr(), pmm_pk.data_ptr(),
-                 pms_pk.data_ptr(), tab, part.data_ptr(), n_slots, s_len,
+                       device=f.device)
+    fn = getattr(_lib(), f"{kind}_anal_{var}")
+    tab = [tab] if kind == "fused" else []
+    with torch.cuda.device(f.device):
+        err = fn(f.data_ptr(), *ptrs, *tab, part.data_ptr(), n_slots, s_len,
                  K2 // 2, R, l_max, n_chunks, int(P == 2), lc._stream())
     lc._raise_on(err, kernel)
     launches[kernel] += 1
     return part
+
+
+def anal_fused_partials(variant: str, f_pk, maps, x, pmm_pk, pms_pk,
+                        tab_pk=None, *, l_max: int, s_len: int):
+    """First pass of ``anal_fused_<variant>``: per-ring-chunk partial sums
+    (n_slots, n_chunks, S, 2K), dead stream positions zero."""
+    return _partials(f"anal_fused_{variant}", f_pk, maps, x, pmm_pk, pms_pk,
+                     tab_pk, l_max=l_max, s_len=s_len)
+
+
+def anal_packed_partials(variant: str, dw_pk, maps, x, pmm_pk, pms_pk, *,
+                         l_max: int, s_len: int):
+    """First pass of ``anal_packed_<variant>``, as
+    :func:`anal_fused_partials`."""
+    return _partials(f"anal_packed_{variant}", dw_pk, maps, x, pmm_pk,
+                     pms_pk, None, l_max=l_max, s_len=s_len)
 
 
 def _reduce(part):
@@ -170,3 +223,19 @@ def anal_fused_mxu(f_pk, maps, x, pmm_pk, pms_pk, tab_pk=None, *,
     Delta resident in shared memory."""
     return _reduce(anal_fused_partials("mxu", f_pk, maps, x, pmm_pk, pms_pk,
                                        tab_pk, l_max=l_max, s_len=s_len))
+
+
+def anal_packed_vpu(dw_pk, maps, x, pmm_pk, pms_pk, *, l_max: int,
+                    s_len: int):
+    """Packed analysis: the fused vpu kernel on the parity planes as given,
+    unrotated."""
+    return _reduce(anal_packed_partials("vpu", dw_pk, maps, x, pmm_pk,
+                                        pms_pk, l_max=l_max, s_len=s_len))
+
+
+def anal_packed_mxu(dw_pk, maps, x, pmm_pk, pms_pk, *, l_max: int,
+                    s_len: int):
+    """Packed analysis: the fused mxu kernel on the parity planes as given,
+    unrotated."""
+    return _reduce(anal_packed_partials("mxu", dw_pk, maps, x, pmm_pk,
+                                        pms_pk, l_max=l_max, s_len=s_len))

@@ -1,24 +1,30 @@
-"""The Legendre-stage seam: variant choice, CPU / CUDA dispatch, and the
-packed-layout conversions.
+"""The Legendre-stage seam: variant and layout choice, CPU / CUDA
+dispatch, the adjoint pairs, and the packed-layout conversions.
 
-Counterpart of the plain-layout and packing parts of ``repro.kernels.ops``.  ``synth``
-and ``anal`` take the unpadded layouts (the CUDA kernels mask the ragged
-ring edge themselves, so nothing is padded to the TPU's 128-lane tiles):
+Counterpart of the staged and packing parts of ``repro.kernels.ops``.
+``synth`` and ``anal`` take the unpadded layouts (the CUDA kernels mask the
+ragged ring edge themselves, so nothing is padded to the TPU's 128-lane
+tiles):
 
   synth: a (Mp, L1, 2K) f32 -> Delta (Mp, P, R, 2K) f32;
   anal:  dw (Mp, P, R, 2K) f32 -> (Mp, l_max+1, 2K) f32.
 
-A CPU tensor runs the plain version (``kernels.ref``); a CUDA tensor
-launches the hand-written kernel (``kernels.legendre_cuda``) or raises;
-any other device raises.  The environment overrides and the measured
-autotune of the reference's ``pick_variant`` wait for ROADMAP.md Open
-items section 1, item 9.
+``layout="plain"`` runs the rectangular (row, l) grid, ``"packed"`` the
+triangular m-pair slot grid of ``kernels.pack`` (two rows per slot, so
+every slot walks a near-constant number of steps).  A CPU tensor runs the
+plain version (``kernels.ref``); a CUDA tensor launches the hand-written
+kernel (``kernels.legendre_cuda`` for plain, ``kernels.fused_cuda`` for
+packed) or raises; any other device raises.  Each direction is
+differentiable: its backward is the other direction with the same seeds,
+variant and layout (``core.autodiff.linear_pair``).  The environment
+overrides and the measured autotune of the reference's ``pick_variant`` /
+``pick_layout`` wait for ROADMAP.md Open items section 1, item 9.
 
 The packing helpers (``_pack_a``, ``_pack_rows``, ``_unpack_rows``,
 ``_unpack_alm``, ``_pack_maps``) convert between the plain (row, ...)
 world and a ``kernels.pack.PackedLayout``'s (slot, segment | stream
 position) world with ``index_select`` gathers on the operand's device.
-Each takes an optional ``cache`` dict (a plan's fused store) that keeps its
+Each takes an optional ``cache`` dict (a plan's store) that keeps its
 index tensors per (layout, device) for as long as the caller keeps it;
 without one they are built per call.
 """
@@ -28,9 +34,15 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.core.autodiff import linear_pair
+from repro_torch.kernels import pack as kpack
 from repro_torch.kernels import ref as kref
 
-__all__ = ["synth", "anal", "pick_variant"]
+__all__ = ["synth", "anal", "pick_variant", "pick_layout"]
+
+#: the panel length of the packed and fused layouts (the reference's
+#: default, ``kernels.fused.FUSED_LP_SIZE``)
+PACK_LP_SIZE = 128
 
 
 def pick_variant(K2: int, variant: str | None = None) -> str:
@@ -41,6 +53,25 @@ def pick_variant(K2: int, variant: str | None = None) -> str:
     if variant is not None:
         raise ValueError(f"unknown Legendre variant {variant!r}")
     return "mxu" if K2 >= 16 else "vpu"
+
+
+def pick_layout(layout: str) -> str:
+    """packed-vs-plain: the staged layout named, checked.  ``"fused"`` is
+    refused: the fused Legendre+phase pipeline dispatches at the plan level
+    (``make_plan(layout="fused")``), not through these staged wrappers.
+
+    The reference's ``pick_layout`` returns ``"packed"`` when no layout is
+    named; the port names one everywhere instead (:func:`synth` /
+    :func:`anal` default to ``"plain"``, and a plan runs fused where
+    eligible, else plain), so there is no unnamed staged layout here.
+    """
+    if layout in ("plain", "packed"):
+        return layout
+    if layout == "fused":
+        raise ValueError("the staged wrappers ops.synth / ops.anal cannot "
+                         "run the fused layout: it dispatches at the plan "
+                         "level (make_plan(layout='fused'))")
+    raise ValueError(f"unknown Legendre layout {layout!r}")
 
 
 def _operands(m_vals, x, pmm, pms, device):
@@ -59,45 +90,181 @@ def _route(device: torch.device) -> str:
                      "tensor")
 
 
-def synth(a, m_vals, x, pmm, pms, *, l_max: int, fold: bool = False,
-          variant: str | None = None) -> torch.Tensor:
-    """Kernel-backed synthesis: Delta_m(r) = sum_l a_lm P_lm(x_r).
+def _stored(store, key, build):
+    """``build()``, kept in the caller's ``store`` dict when one is given."""
+    if store is None:
+        return build()
+    if key not in store:
+        store[key] = build()
+    return store[key]
 
-    a (Mp, L1, 2K) f32; m_vals (Mp,) int (-1 rows are padding and give
-    zeros); x (R,) f32 cos(theta); pmm/pms (Mp, R) seeds from
-    ``ref.prepare_seeds``.  Returns (Mp, P, R, 2K) f32, P = 2 if fold.
-    """
-    route = _route(a.device)
-    var = pick_variant(a.shape[-1], variant)
-    m_t, x_t, pmm_t, pms_t = _operands(m_vals, x, pmm, pms, a.device)
-    a = a.to(torch.float32).contiguous()
-    if route == "cpu":
+
+def _host_rows(m_vals) -> np.ndarray:
+    if isinstance(m_vals, torch.Tensor):
+        return m_vals.detach().cpu().numpy()
+    return np.asarray(m_vals)
+
+
+def _resolve_layout(m_vals, layout, l_max, store=None):
+    """The packed layout object of the row set, or None for the plain
+    grid; kept in ``store`` under ``"layout"``."""
+    if pick_layout(layout) != "packed":
+        return None
+
+    def build():
+        lo = kpack.build_layout(_host_rows(m_vals), l_max,
+                                lp_size=PACK_LP_SIZE)
+        if lo is None:
+            raise ValueError("the packed layout needs at least one live row "
+                             "(m >= 0) and every row's m <= l_max")
+        return lo
+
+    return _stored(store, "layout", build)
+
+
+def _prep(lo, x, pmm, pms, store=None):
+    """Per-slot packing shared by both directions of the packed and fused
+    layouts: the five slot maps, x, and the per-segment seeds (n_slots, 2,
+    R), on x's device; kept in ``store`` under ``"prep"``."""
+    dev = x.device
+
+    def build():
+        def rows(v):
+            return _pack_rows(torch.as_tensor(v, device=dev), lo,
+                              cache=store).contiguous()
+
+        return (_pack_maps(lo, dev), x.to(torch.float32).contiguous(),
+                rows(pmm), rows(pms))
+
+    return _stored(store, "prep", build)
+
+
+def _synth_exec(a, m_t, x_t, pmm_t, pms_t, *, l_max, fold, var, lo, store):
+    """Synthesis with the layout and variant decided (``lo`` the packed
+    layout, or None for plain)."""
+    if lo is not None:
+        return _synth_packed(a, lo, x_t, pmm_t, pms_t, l_max=l_max,
+                             fold=fold, var=var, store=store)
+    if _route(a.device) == "cpu":
         return kref.synth_ref(a, m_t, x_t, pmm_t, pms_t, l_max=l_max,
                               fold=fold)
     from repro_torch.kernels import legendre_cuda
-    kernel = legendre_cuda.synth_vpu if var == "vpu" \
-        else legendre_cuda.synth_mxu
+    kernel = getattr(legendre_cuda, f"synth_{var}")
     return kernel(a, m_t, x_t, pmm_t, pms_t, l_max=l_max, fold=fold)
 
 
-def anal(dw, m_vals, x, pmm, pms, *, l_max: int, fold: bool = False,
-         variant: str | None = None) -> torch.Tensor:
-    """Kernel-backed analysis: a_lm = sum_r dw_m(r) P_lm(x_r).
-
-    dw (Mp, P, R, 2K) f32 weighted Delta (P = 2 (even, odd) if fold).
-    Returns (Mp, l_max+1, 2K) f32.
-    """
-    route = _route(dw.device)
-    var = pick_variant(dw.shape[-1], variant)
-    m_t, x_t, pmm_t, pms_t = _operands(m_vals, x, pmm, pms, dw.device)
-    dw = dw.to(torch.float32).contiguous()
-    if route == "cpu":
+def _anal_exec(dw, m_t, x_t, pmm_t, pms_t, *, l_max, fold, var, lo, store):
+    """Analysis with the layout and variant decided."""
+    if lo is not None:
+        return _anal_packed(dw, lo, x_t, pmm_t, pms_t, l_max=l_max,
+                            fold=fold, var=var, store=store)
+    if _route(dw.device) == "cpu":
         return kref.anal_ref(dw, m_t, x_t, pmm_t, pms_t, l_max=l_max,
                              fold=fold)
     from repro_torch.kernels import legendre_cuda
-    kernel = legendre_cuda.anal_vpu if var == "vpu" \
-        else legendre_cuda.anal_mxu
+    kernel = getattr(legendre_cuda, f"anal_{var}")
     return kernel(dw, m_t, x_t, pmm_t, pms_t, l_max=l_max, fold=fold)
+
+
+def _synth_packed(a, lo, x, pmm, pms, *, l_max, fold, var, store):
+    """Packed synthesis: pack a into slot streams, run the packed kernel
+    (or its plain version), unpack the (slot, segment) planes into rows."""
+    Mp, _, K2 = a.shape
+    R, P = x.shape[0], (2 if fold else 1)
+    maps, x, pmm_pk, pms_pk = _prep(lo, x, pmm, pms, store)
+    a_pk = _pack_a(a, lo, cache=store).contiguous()
+    if _route(a.device) == "cpu":
+        out = kref.synth_packed_ref(a_pk, maps, x, pmm_pk, pms_pk,
+                                    l_max=l_max, fold=fold, layout=var)
+    else:
+        from repro_torch.kernels import fused_cuda
+        kernel = getattr(fused_cuda, f"synth_packed_{var}")
+        out = kernel(a_pk, maps, x, pmm_pk, pms_pk, l_max=l_max, fold=fold)
+    if var == "vpu":
+        out = out.movedim(2, -1)                 # (n_slots, Q, R, 2K)
+    seg = out.reshape(lo.n_slots * 2, P, R, K2)
+    return _unpack_rows(seg, lo, Mp, cache=store)
+
+
+def _anal_packed(dw, lo, x, pmm, pms, *, l_max, fold, var, store):
+    """Packed analysis: gather each slot's (segment, parity) planes, run
+    the packed kernel (or its plain version), unpack the l-streams."""
+    _, P, R, K2 = dw.shape
+    maps, x, pmm_pk, pms_pk = _prep(lo, x, pmm, pms, store)
+    dw_pk = _pack_rows(dw, lo, cache=store).reshape(lo.n_slots, 2 * P, R,
+                                                     K2)
+    if var == "vpu":
+        dw_pk = dw_pk.movedim(-1, 2)             # (n_slots, Q, 2K, R)
+    dw_pk = dw_pk.contiguous()
+    if _route(dw.device) == "cpu":
+        out = kref.anal_packed_ref(dw_pk, maps, x, pmm_pk, pms_pk,
+                                   l_max=l_max, s_len=lo.S, layout=var)
+    else:
+        from repro_torch.kernels import fused_cuda
+        kernel = getattr(fused_cuda, f"anal_packed_{var}")
+        out = kernel(dw_pk, maps, x, pmm_pk, pms_pk, l_max=l_max,
+                     s_len=lo.S)
+    return _unpack_alm(out, lo, cache=store)
+
+
+def _pair(direction, op, m_vals, x, pmm, pms, *, l_max, fold, variant,
+          layout, store):
+    """One direction of the seam as a linear pair: the backward of synth is
+    anal with the same seeds, variant and layout, and the reverse."""
+    _route(op.device)
+    rows = l_max + 1 if direction == "synth" else (2 if fold else 1)
+    if op.ndim != (3 if direction == "synth" else 4) or op.shape[1] != rows:
+        what = "coefficient rows" if direction == "synth" else "planes"
+        raise ValueError(f"{direction}: expected {rows} {what} (l_max "
+                         f"{l_max}, fold {fold}), got shape "
+                         f"{tuple(op.shape)}")
+    var = pick_variant(op.shape[-1], variant)
+    lo = _resolve_layout(m_vals, layout, l_max, store)
+    m_t, x_t, pmm_t, pms_t = _operands(m_vals, x, pmm, pms, op.device)
+    kw = dict(l_max=l_max, fold=fold, var=var, lo=lo, store=store)
+    fns = {"synth": _synth_exec, "anal": _anal_exec}
+    other = "anal" if direction == "synth" else "synth"
+
+    def fwd(_, v):
+        return fns[direction](v.to(torch.float32).contiguous(), m_t, x_t,
+                              pmm_t, pms_t, **kw)
+
+    def bwd(_, g):
+        return fns[other](g.contiguous(), m_t, x_t, pmm_t, pms_t, **kw)
+
+    return linear_pair(fwd, bwd, {"m_vals": m_vals, "x": x, "pmm": pmm,
+                                  "pms": pms}, op)
+
+
+def synth(a, m_vals, x, pmm, pms, *, l_max: int, fold: bool = False,
+          variant: str | None = None, layout: str = "plain",
+          store: dict | None = None) -> torch.Tensor:
+    """Kernel-backed synthesis: Delta_m(r) = sum_l a_lm P_lm(x_r).
+
+    a (Mp, l_max+1, 2K) f32; m_vals (Mp,) int (-1 rows are padding and give
+    zeros); x (R,) f32 cos(theta); pmm/pms (Mp, R) seeds from
+    ``ref.prepare_seeds``.  ``layout``: ``"plain"`` (the default) or
+    ``"packed"``.  ``store``: a dict the caller keeps for one row set and
+    device, to reuse the packed layout, seeds and gather indices across
+    calls.  Returns
+    (Mp, P, R, 2K) f32, P = 2 if fold.  Differentiable: the backward is
+    :func:`anal` with the same seeds, variant and layout.
+    """
+    return _pair("synth", a, m_vals, x, pmm, pms, l_max=l_max, fold=fold,
+                 variant=variant, layout=layout, store=store)
+
+
+def anal(dw, m_vals, x, pmm, pms, *, l_max: int, fold: bool = False,
+         variant: str | None = None, layout: str = "plain",
+         store: dict | None = None) -> torch.Tensor:
+    """Kernel-backed analysis: a_lm = sum_r dw_m(r) P_lm(x_r).
+
+    dw (Mp, P, R, 2K) f32 weighted Delta (P = 2 (even, odd) if fold); the
+    rest as :func:`synth`.  Returns (Mp, l_max+1, 2K) f32.  Differentiable:
+    the backward is :func:`synth` with the same seeds, variant and layout.
+    """
+    return _pair("anal", dw, m_vals, x, pmm, pms, l_max=l_max, fold=fold,
+                 variant=variant, layout=layout, store=store)
 
 
 def _pad_to(n: int, mult: int) -> int:

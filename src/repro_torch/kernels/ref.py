@@ -11,13 +11,22 @@ Layouts are the unpadded ones of the ``ops`` seam:
   a  (Mp, L1, 2K) f32 -> Delta (Mp, P, R, 2K) f32, P = 2 (even, odd) if fold;
   dw (Mp, P, R, 2K) f32 -> a (Mp, l_max+1, 2K) f32.
 
-``synth_fused_ref``/``anal_fused_ref`` are the plain versions of the fused
-kernels (``repro/kernels/fused.py``), on a ``kernels.pack`` slot layout:
-  synth: a_pk (n_slots, S, 2K) -> rotated rows (n_slots, 2, n_pl, R, 2K)
-         (``layout="mxu"``) or (n_slots, 2, n_pl, 2K, R) (``"vpu"``);
-  anal:  f_pk in those two layouts -> packed rows (n_slots, S, 2K).
-n_pl = 2 (north, south) with the equator fold, else 1.  Stream positions
-past a segment's l_max, and empty segments, give exact zeros.
+``synth_packed_ref``/``anal_packed_ref`` are the plain versions of the
+packed staged kernels (``repro/kernels/legendre_pallas.py``, the
+``*_packed`` kernels), and ``synth_fused_ref``/``anal_fused_ref`` those of
+the fused kernels (``repro/kernels/fused.py``), both on a ``kernels.pack``
+slot layout:
+  packed synth: a_pk (n_slots, S, 2K) -> (n_slots, Q, R, 2K)
+                (``layout="mxu"``) or (n_slots, Q, 2K, R) (``"vpu"``),
+                Q = 2 segments x P (even, odd (l+m)) planes;
+  packed anal:  dw_pk in those two layouts -> (n_slots, S, 2K);
+  fused synth:  a_pk -> rotated rows (n_slots, 2, n_pl, R, 2K) (``"mxu"``)
+                or (n_slots, 2, n_pl, 2K, R) (``"vpu"``);
+  fused anal:   f_pk in those two layouts -> (n_slots, S, 2K).
+P = 2 with the equator fold, else 1; the fused kernels combine the two
+planes into n_pl = 2 (north, south) and rotate, the packed ones do
+neither.  Stream positions past a segment's l_max, and empty segments,
+give exact zeros.
 """
 
 from __future__ import annotations
@@ -26,7 +35,8 @@ import numpy as np
 import torch
 
 __all__ = ["prepare_seeds", "synth_ref", "anal_ref", "anal_reduce_ref",
-           "synth_fused_ref", "anal_fused_ref", "SCALE_BITS_F32"]
+           "synth_packed_ref", "anal_packed_ref", "synth_fused_ref",
+           "anal_fused_ref", "SCALE_BITS_F32"]
 
 SCALE_BITS_F32 = 64
 _BIG = float(2.0 ** (SCALE_BITS_F32 // 2))        # 2^32
@@ -157,7 +167,7 @@ def anal_reduce_ref(partials, m_vals, *, l_max: int):
 
 
 # ---------------------------------------------------------------------------
-# fused kernels (packed slot layout)
+# packed and fused kernels (slot layout)
 # ---------------------------------------------------------------------------
 
 
@@ -192,27 +202,20 @@ def _stream(maps, x, pmm_pk, pms_pk, *, l_max: int, s_len: int):
         yield g, val, seg1, ((l + m) % 2 == 1)
 
 
-def _rotate(tab, re, im):
-    """(t0 re + t1 im, t2 re + t3 im); tab (..., 4, R) against (..., R, K)."""
-    t = [tab[..., q, :, None] for q in range(4)]
-    return t[0] * re + t[1] * im, t[2] * re + t[3] * im
-
-
-def synth_fused_ref(a_pk, maps, x, pmm_pk, pms_pk, tab_pk=None, *,
-                    l_max: int, fold: bool = False, layout: str = "mxu"):
-    """Plain version of the fused synthesis kernels.
+def synth_packed_ref(a_pk, maps, x, pmm_pk, pms_pk, *, l_max: int,
+                     fold: bool = False, layout: str = "mxu"):
+    """Plain version of the packed synthesis kernels.
 
     a_pk (n_slots, S, 2K) f32 packed coefficient streams; maps the five
     per-slot i32 tensors of ``ops._pack_maps`` (m0, m1, mp0, mp1, seed;
     mp0/mp1 belong to the spin branch and are not read); x (R,) f32;
-    pmm_pk/pms_pk (n_slots, 2, R) per-segment seeds; tab_pk (n_slots, 2,
-    n_pl, 4, R) f32 rotation tables, or None for the identity.  Each
-    segment's Delta (even/odd (l+m) planes combined into north = e + o,
-    south = e - o with ``fold``) is rotated by its table and returned in
+    pmm_pk/pms_pk (n_slots, 2, R) per-segment seeds.  Each segment's Delta
+    is summed into its (l+m) parity plane with ``fold`` and returned as
+    (n_slots, Q, R, 2K), Q = 2 x P, plane q = segment x P + parity, in
     ``layout``'s order.
     """
     n_slots, S, K2 = a_pk.shape
-    R, K = x.shape[0], K2 // 2
+    R = x.shape[0]
     P = 2 if fold else 1
     acc = torch.zeros(n_slots, 2, P, R, K2, dtype=torch.float32,
                       device=a_pk.device)
@@ -224,6 +227,53 @@ def synth_fused_ref(a_pk, maps, x, pmm_pk, pms_pk, tab_pk=None, *,
             for p in range(P):
                 keep = in_seg & (odd if p else ~odd) if fold else in_seg
                 acc[:, seg, p] += torch.where(keep[..., None], contrib, zero)
+    acc = acc.reshape(n_slots, 2 * P, R, K2)
+    return acc.movedim(-1, 2).contiguous() if layout == "vpu" else acc
+
+
+def anal_packed_ref(dw_pk, maps, x, pmm_pk, pms_pk, *, l_max: int,
+                    s_len: int, layout: str = "mxu"):
+    """Plain version of the packed analysis kernels.
+
+    dw_pk (n_slots, Q, R, 2K) (``layout="mxu"``) or (n_slots, Q, 2K, R)
+    (``"vpu"``) weighted Delta per segment and (l+m) parity plane (Q = 4
+    with the equator fold, else 2); the rest as :func:`synth_packed_ref`.
+    Each stream position contracts the plane its segment and parity select
+    against the recurrence over the rings.  Returns (n_slots, s_len, 2K).
+    """
+    d_all = dw_pk.movedim(2, -1) if layout == "vpu" else dw_pk
+    n_slots, Q, R, K2 = d_all.shape
+    d_all = d_all.reshape(n_slots, 2, Q // 2, R, K2)
+    out = torch.zeros(n_slots, s_len, K2, dtype=torch.float32,
+                      device=d_all.device)
+    for g, val, seg1, odd in _stream(maps, x, pmm_pk, pms_pk, l_max=l_max,
+                                     s_len=s_len):
+        d = torch.where(seg1[:, :, None, None], d_all[:, 1], d_all[:, 0])
+        d = torch.where(odd[..., None], d[:, -1], d[:, 0])        # (s, R, 2K)
+        out[:, g] = torch.einsum("sr,src->sc", val, d)
+    return out
+
+
+def _rotate(tab, re, im):
+    """(t0 re + t1 im, t2 re + t3 im); tab (..., 4, R) against (..., R, K)."""
+    t = [tab[..., q, :, None] for q in range(4)]
+    return t[0] * re + t[1] * im, t[2] * re + t[3] * im
+
+
+def synth_fused_ref(a_pk, maps, x, pmm_pk, pms_pk, tab_pk=None, *,
+                    l_max: int, fold: bool = False, layout: str = "mxu"):
+    """Plain version of the fused synthesis kernels.
+
+    Operands as :func:`synth_packed_ref`, and tab_pk (n_slots, 2, n_pl, 4,
+    R) f32 rotation tables, or None for the identity.  Each segment's
+    Delta (the packed planes, even/odd (l+m) combined into north = e + o,
+    south = e - o with ``fold``) is rotated by its table and returned in
+    ``layout``'s order.
+    """
+    n_slots, _, K2 = a_pk.shape
+    R, K = x.shape[0], K2 // 2
+    acc = synth_packed_ref(a_pk, maps, x, pmm_pk, pms_pk, l_max=l_max,
+                           fold=fold).reshape(n_slots, 2, -1, R, K2)
     if fold:
         acc = torch.stack([acc[:, :, 0] + acc[:, :, 1],
                            acc[:, :, 0] - acc[:, :, 1]], dim=2)
@@ -252,11 +302,5 @@ def anal_fused_ref(f_pk, maps, x, pmm_pk, pms_pk, tab_pk=None, *,
     if P == 2:
         f = torch.stack([f[:, :, 0] + f[:, :, 1], f[:, :, 0] - f[:, :, 1]],
                         dim=2)
-    out = torch.zeros(n_slots, s_len, K2, dtype=torch.float32,
-                      device=f.device)
-    for g, val, seg1, odd in _stream(maps, x, pmm_pk, pms_pk, l_max=l_max,
-                                     s_len=s_len):
-        d = torch.where(seg1[:, :, None, None], f[:, 1], f[:, 0])  # (s, P, R, 2K)
-        d = torch.where(odd[..., None], d[:, -1], d[:, 0])        # (s, R, 2K)
-        out[:, g] = torch.einsum("sr,src->sc", val, d)
-    return out
+    return anal_packed_ref(f.reshape(n_slots, 2 * P, R, K2), maps, x, pmm_pk,
+                           pms_pk, l_max=l_max, s_len=s_len)

@@ -1,7 +1,8 @@
 """The CUDA kernels of the port on the card: each against its plain
 version, determinism of the analysis reduction, and the launch counters
-of a plan's main path, for the staged (``legendre_cuda``) and the fused
-(``fused_cuda``) kernels.  Skipped without a CUDA device; run on the GPU with
+of a plan's main path, for the staged (``legendre_cuda``), the fused and
+the packed (``fused_cuda``) kernels, and gradients through the plans of
+every layout.  Skipped without a CUDA device; run on the GPU with
 ``python -m pytest -m cuda tests/test_torch_cuda.py``.
 
 Tolerance 5e-5 x max|plain|: kernel and plain version compute the
@@ -118,7 +119,7 @@ def fused_operands(l_max, K, fold, dev, seed=0):
                    torch.where(keep[:, None], pms[idx], 0),
                    torch.where(keep[:, None, None], a[idx], 0))
     lo = pack.build_layout(m_vals, l_max)
-    maps, x, pmm_pk, pms_pk = fused._prep(lo, x, pmm, pms)
+    maps, x, pmm_pk, pms_pk = ops._prep(lo, x, pmm, pms)
     gen = torch.Generator().manual_seed(seed + 1)
     P, R = (2 if fold else 1), x.shape[0]
     tab = (torch.rand((lo.n_slots, 2, P, 4, R), generator=gen) * 2 - 1)
@@ -189,3 +190,103 @@ def test_fused_plan_launches_fused_kernels_only(dev, mode, K, fold):
                ("synth_vpu", "synth_mxu", "anal_vpu", "anal_mxu"))
     assert back.device.type == "cuda"
     assert spectra.d_err(alm, back) < 1e-4
+
+
+@pytest.mark.parametrize("fold", [False, True])
+@pytest.mark.parametrize("K", [1, 3, 12])
+@pytest.mark.parametrize("variant", ["vpu", "mxu"])
+def test_packed_kernels_match_plain_versions(dev, variant, K, fold):
+    """Kernels 5-8 against their plain versions; the empty segment's planes
+    and the dead stream tail exactly zero; with the fold off the packed
+    kernels equal the fused ones without tables bit for bit."""
+    l_max = 150
+    lo, maps, x, pmm_pk, pms_pk, a_pk, _, _ = fused_operands(
+        l_max, K, fold, dev, seed=K)
+    P, R = (2 if fold else 1), x.shape[0]
+    gen = torch.Generator().manual_seed(K + 7)
+    dw = (torch.rand((lo.n_slots, 2 * P, R, 2 * K), generator=gen) * 2
+          - 1).to(dev)
+    dk = dw.movedim(-1, 2).contiguous() if variant == "vpu" else dw
+    empty = torch.as_tensor(lo.slot_seed == lo.S, device=dev)
+    dead = torch.as_tensor(lo.a_row < 0, device=dev)
+    synth = getattr(fused_cuda, f"synth_packed_{variant}")
+    got_s = synth(a_pk, maps, x, pmm_pk, pms_pk, l_max=l_max, fold=fold)
+    want = kref.synth_packed_ref(a_pk, maps, x, pmm_pk, pms_pk, l_max=l_max,
+                                 fold=fold, layout=variant)
+    assert rel(got_s, want) < TOL
+    assert bool((got_s[empty, P:] == 0).all())
+    anal = getattr(fused_cuda, f"anal_packed_{variant}")
+    got_a = anal(dk, maps, x, pmm_pk, pms_pk, l_max=l_max, s_len=lo.S)
+    want = kref.anal_packed_ref(dk, maps, x, pmm_pk, pms_pk, l_max=l_max,
+                                s_len=lo.S, layout=variant)
+    assert rel(got_a, want) < TOL and bool((got_a[dead] == 0).all())
+    if not fold:
+        fs = getattr(fused_cuda, f"synth_fused_{variant}")(
+            a_pk, maps, x, pmm_pk, pms_pk, None, l_max=l_max)
+        assert torch.equal(got_s, fs.reshape(got_s.shape))
+        fa = getattr(fused_cuda, f"anal_fused_{variant}")(
+            dk.reshape(lo.n_slots, 2, 1, *dk.shape[2:]), maps, x, pmm_pk,
+            pms_pk, None, l_max=l_max, s_len=lo.S)
+        assert torch.equal(got_a, fa)
+
+
+@pytest.mark.parametrize("mode,K,fold", [("cuda_vpu", 1, False),
+                                         ("cuda_mxu", 8, True)])
+def test_packed_plan_launches_packed_kernels_only(dev, mode, K, fold):
+    var = mode[5:]
+    plan = repro_torch.make_plan("gl", 96, K=K, dtype="float32", mode=mode,
+                                 fold=fold, layout="packed")
+    gen = torch.Generator().manual_seed(0)
+    from repro_torch.core import sht
+    alm = sht.random_alm(gen, 96, 96, K, dtype=torch.float32, device=dev)
+    lc.reset_launches()
+    fused_cuda.reset_launches()
+    back = plan.map2alm(plan.alm2map(alm))
+    torch.cuda.synchronize()
+    launched = {k: c for k, c in {**lc.launches, **fused_cuda.launches}
+                .items() if c}
+    assert launched == {f"synth_packed_{var}": 1, f"anal_packed_{var}": 1,
+                        "anal_reduce": 1}
+    assert spectra.d_err(alm, back) < 1e-4
+
+
+@pytest.mark.parametrize("layout", ["plain", "packed", "fused"])
+@pytest.mark.parametrize("mode,K", [("cuda_vpu", 1), ("cuda_mxu", 8)])
+def test_gradients_on_card(dev, mode, K, layout):
+    """The dot identity <A x, y> = <x, A^T y> through autograd within 2e-3
+    (the reference's float32 band), and the backward of each direction
+    launches the other direction's kernels of the same layout, once."""
+    var = mode[5:]
+    plan = repro_torch.make_plan("gl", 96, K=K, dtype="float32", mode=mode,
+                                 layout=layout)
+    from repro_torch.core import sht
+    gen = torch.Generator().manual_seed(3)
+    names = {"plain": (f"synth_{var}", f"anal_{var}"),
+             "packed": (f"synth_packed_{var}", f"anal_packed_{var}"),
+             "fused": (f"synth_fused_{var}", f"anal_fused_{var}")}[layout]
+    a = sht.random_alm(gen, 96, 96, K, dtype=torch.float32,
+                       device=dev).requires_grad_(True)
+    t = torch.randn(plan._maps_shape, generator=gen).to(dev)
+    lhs = (plan.alm2map(a) * t).sum()
+    lc.reset_launches()
+    fused_cuda.reset_launches()
+    (g,) = torch.autograd.grad(lhs, a)
+    torch.cuda.synchronize()
+    launched = {k: c for k, c in {**lc.launches, **fused_cuda.launches}
+                .items() if c}
+    assert launched == {names[1]: 1, "anal_reduce": 1}
+    a = a.detach()
+    rhs = float((a.real * g.real + a.imag * g.imag).sum())
+    assert abs(lhs.item() - rhs) < 2e-3 * abs(rhs)
+    maps = t.clone().requires_grad_(True)
+    b = sht.random_alm(gen, 96, 96, K, dtype=torch.float32, device=dev)
+    out = plan.map2alm(maps)
+    lhs = (out.real * b.real + out.imag * b.imag).sum()
+    lc.reset_launches()
+    fused_cuda.reset_launches()
+    (g,) = torch.autograd.grad(lhs, maps)
+    torch.cuda.synchronize()
+    launched = {k: c for k, c in {**lc.launches, **fused_cuda.launches}
+                .items() if c}
+    assert launched == {names[0]: 1}
+    assert abs(lhs.item() - float((t * g).sum())) < 2e-3 * abs(lhs.item())

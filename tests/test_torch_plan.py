@@ -66,7 +66,7 @@ def test_default_mode_follows_the_static_variant_rule(dtype, K, want):
 
 @pytest.mark.parametrize("kwargs,item", [
     (dict(mode="auto"), "item 9"), (dict(mode="model"), "item 9"),
-    (dict(mode="dist"), "item 11"), (dict(layout="packed"), "item 5"),
+    (dict(mode="dist"), "item 11"), (dict(layout="packed", spin=2), "item 7"),
     (dict(layout="fused", spin=2), "item 7"), (dict(spin=2), "item 7"),
     (dict(grid="healpix"), "item 8"), (dict(grid="ecp"), "item 8")])
 def test_unported_requests_name_their_roadmap_item(kwargs, item):
