@@ -13,7 +13,10 @@ digest of each kernel's output and holds the bits equal where two layouts
 run the same code, times each kernel beside its bound, anchors every
 kernel plan to the float64 ``torch`` plan, and takes gradients through
 the plans on the card (dot identities on every layout, one full-width
-step whose backward must run the other direction's kernels).
+step whose backward must run the other direction's kernels).  Every phase
+runs twice: for the spin-0 transform pair and for the spin-2 one
+(``make_plan(..., spin=2)``: (E, B) alm <-> (Q, U) maps), whose paths
+launch the spin branch of every kernel.
 Prints the card's name and power limit, one JSON line of per-kernel
 numbers, and as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -86,6 +89,18 @@ SOURCES = {name: ("src/repro_torch/kernels/csrc/fused.cu"
                   if "fused" in name or "packed" in name
                   else "src/repro_torch/kernels/csrc/legendre.cu")
            for name in TPU_KERNELS}
+#: the spin branch of every kernel: `_f32_step_spin`, selected by `_step`
+SPIN_STEP = "src/repro/kernels/legendre_pallas.py:116"
+
+
+def base_name(name: str) -> str:
+    """A kernel's name without the ``_spin`` of its spin branch's counter."""
+    return name[:-len("_spin")] if name.endswith("_spin") else name
+
+
+def tag(spin: bool) -> str:
+    """The counter suffix of the spin branch."""
+    return "_spin" if spin else ""
 
 
 def log(msg: str) -> None:
@@ -118,32 +133,56 @@ def host_ms(fn, reps: int = 3) -> float:
     return (time.perf_counter() - t0) / reps * 1e3
 
 
-def seeds_for(l_max: int, m_vals, fold: bool, dev):
-    """(m_vals, x, pmm, pms) kernel operands on ``dev`` for a GL grid."""
+def seeds_for(l_max: int, m_vals, fold: bool, dev, mp_vals=None):
+    """(m_vals, x, pmm, pms) kernel operands on ``dev`` for a GL grid; with
+    ``mp_vals`` the spin seeds of the (m, m') rows (fold off)."""
     g = grids.make_grid("gl", l_max=l_max)
     nh = (g.n_rings + 1) // 2
     sin = g.sin_theta[:nh] if fold else g.sin_theta
     x = g.cos_theta[:nh] if fold else g.cos_theta
-    pmm, pms = kref.prepare_seeds(m_vals, sin, legendre.log_mu(l_max))
+    if mp_vals is None:
+        pmm, pms = kref.prepare_seeds(m_vals, sin, legendre.log_mu(l_max))
+    else:
+        pmm, pms = kref.prepare_seeds_spin(m_vals, mp_vals, x, sin,
+                                           m_max=l_max)
     return (torch.as_tensor(np.asarray(m_vals), dtype=torch.int32, device=dev),
             torch.as_tensor(x, dtype=torch.float32, device=dev),
             torch.as_tensor(pmm, device=dev), torch.as_tensor(pms, device=dev))
 
 
-def random_a(gen, m_vals, L, K2, dev):
-    """(Mp, L, 2K) f32 coefficients, zero where l < m and on padding rows."""
+def row_start(m_vals, mp_vals=None) -> np.ndarray:
+    """Each row's first multipole: m, or max(m, |m'|) for the spin rows."""
+    m = np.asarray(m_vals)
+    return m if mp_vals is None else np.maximum(m, np.abs(mp_vals))
+
+
+def random_a(gen, m_vals, L, K2, dev, mp_vals=None):
+    """(Mp, L, 2K) f32 coefficients, zero where l < l0 (m, or max(m, |m'|)
+    with ``mp_vals``) and on padding rows."""
     m = torch.as_tensor(np.asarray(m_vals))[:, None]
+    l0 = torch.as_tensor(row_start(m_vals, mp_vals))[:, None]
     a = torch.rand((len(m_vals), L, K2), generator=gen) * 2 - 1
-    keep = (m >= 0) & (torch.arange(L)[None, :] >= m)
+    keep = (m >= 0) & (torch.arange(L)[None, :] >= l0)
     return (a * keep[..., None]).to(dev)
 
 
-def legendre_work(m_vals, l_end: int, rings: int, K2: int) -> tuple:
-    """(triples, flops) of one Legendre pass: each (m, l >= m, ring) triple
-    costs 4 float32 operations of recurrence and 2 per channel."""
-    m = np.asarray(m_vals)
-    triples = int(np.sum(np.clip(l_end - m[m >= 0], 0, None))) * rings
-    return triples, triples * (4 + 2 * K2)
+def spin_test_rows(l_max: int) -> tuple:
+    """The 2M spin rows of l_max, one of them made a padding row (m = -1),
+    so the live row count is odd: (m_vals, mp_vals) numpy."""
+    m2, mp2 = ops.spin_rows(np.arange(l_max + 1))
+    m2[17] = -1
+    return m2, mp2
+
+
+def legendre_work(m_vals, l_end: int, rings: int, K2: int,
+                  mp_vals=None) -> tuple:
+    """(triples, flops) of one Legendre pass: each (row, l >= l0, ring)
+    triple costs 4 float32 operations of recurrence (5 for the spin rows,
+    ``mp_vals`` given: (a x + b) p - c q) and 2 per channel."""
+    l0 = row_start(m_vals, mp_vals)
+    live = np.asarray(m_vals) >= 0
+    triples = int(np.sum(np.clip(l_end - l0[live], 0, None))) * rings
+    return triples, triples * ((4 if mp_vals is None else 5) + 2 * K2)
 
 
 def bound_ms(flops: float, nbytes: float) -> tuple:
@@ -192,71 +231,117 @@ def held(name: str, got: torch.Tensor, want: torch.Tensor, what: str,
     return err
 
 
-def check_kernels(dev) -> None:
+def below_zero(name: str, out: torch.Tensor, m_vals, mp_vals) -> None:
+    """The analysis rows l < max(m, |m'|) of live spin rows must be exact
+    zeros (nothing exists below a row's first multipole)."""
+    l0 = torch.as_tensor(row_start(m_vals, mp_vals), device=out.device)
+    l = torch.arange(out.shape[1], device=out.device)
+    below = (torch.as_tensor(np.asarray(m_vals) >= 0, device=out.device)
+             [:, None] & (l[None, :] < l0[:, None]))
+    ok = bool((out[below] == 0).all())
+    log(f"  {name:15s} rows l < max(m, |m'|) exactly zero: {ok} "
+        f"({int(below.sum())} rows)")
+    if not ok:
+        raise AssertionError(f"{name}: nonzero rows below l0")
+
+
+def check_kernels(dev, spin: bool = False) -> None:
     """Hold each kernel against its plain version at l_max 256, K 1 and 8,
     fold off and on, with padding rows among the real ones; log kernel and
     plain times with fold off at each variant's main-path K (1 for vpu, 8
-    for mxu)."""
+    for mxu).  With ``spin`` the kernels' spin branch on the 2M spin rows
+    (fold off), whose analysis rows below l0 = max(m, |m'|) and reduce
+    output there must be exact zeros."""
     l_max = CHECK_L_MAX
-    gen = torch.Generator().manual_seed(2)
+    gen = torch.Generator().manual_seed(2 + 100 * spin)
     # plan padding: -1 rows among the real ones must come out exactly zero
-    m_vals = np.concatenate([np.arange(l_max + 1), [-1, -1]])
-    m_vals = np.insert(m_vals, 17, -1)
+    if spin:
+        m_vals, mp_vals = spin_test_rows(l_max)
+    else:
+        m_vals = np.concatenate([np.arange(l_max + 1), [-1, -1]])
+        m_vals, mp_vals = np.insert(m_vals, 17, -1), None
     pad = np.flatnonzero(m_vals < 0)
-    L = l_max + 1
-    for fold in (False, True):
-        m_t, x, pmm, pms = seeds_for(l_max, m_vals, fold, dev)
+    mp_t = None if mp_vals is None else torch.as_tensor(
+        mp_vals, dtype=torch.int32, device=dev)
+    L, sfx = l_max + 1, tag(spin)
+    for fold in ((False,) if spin else (False, True)):
+        m_t, x, pmm, pms = seeds_for(l_max, m_vals, fold, dev, mp_vals)
         R, P = x.shape[0], (2 if fold else 1)
+        kw = dict(l_max=l_max, fold=fold, mp_vals=mp_t)
         for K in (1, 8):
             K2 = 2 * K
-            a = random_a(gen, m_vals, L, K2, dev)
+            a = random_a(gen, m_vals, L, K2, dev, mp_vals)
             dw = (torch.rand((len(m_vals), P, R, K2), generator=gen) * 2 - 1
                   ).to(dev)
             want = {}
             want["synth"], plain_s = plain_ms(lambda: kref.synth_ref(
-                a, m_t, x, pmm, pms, l_max=l_max, fold=fold))
+                a, m_t, x, pmm, pms, **kw))
             want["anal"], plain_a = plain_ms(lambda: kref.anal_ref(
-                dw, m_t, x, pmm, pms, l_max=l_max, fold=fold))
+                dw, m_t, x, pmm, pms, **kw))
             plain = {"synth": plain_s, "anal": plain_a}
             what = f"l_max {l_max} fold={fold!s:5s} K={K}"
             for var in ("vpu", "mxu"):
                 for d, op in (("synth", a), ("anal", dw)):
                     fn = getattr(lc, f"{d}_{var}")
-                    held(f"{d}_{var}", fn(op, m_t, x, pmm, pms, l_max=l_max,
-                                          fold=fold), want[d], what, pad)
+                    out = fn(op, m_t, x, pmm, pms, **kw)
+                    held(f"{d}_{var}{sfx}", out, want[d], what, pad)
+                    if spin and d == "anal":
+                        below_zero(f"{d}_{var}{sfx}", out, m_vals, mp_vals)
                     if not fold and K == (1 if var == "vpu" else 8):
                         k_ms = cuda_time_ms(lambda: fn(op, m_t, x, pmm, pms,
-                                                       l_max=l_max))
-                        log(f"  {d + '_' + var:15s} {what}: kernel {k_ms:.3f} ms, "
-                            f"plain version {plain[d]:.1f} ms")
+                                                       **kw))
+                        log(f"  {d + '_' + var + sfx:15s} {what}: kernel "
+                            f"{k_ms:.3f} ms, plain version {plain[d]:.1f} ms")
     part = torch.rand((len(m_vals), 3, L, 16), generator=gen).to(dev)
     m_t = torch.as_tensor(m_vals, dtype=torch.int32, device=dev)
-    held("anal_reduce", lc.anal_reduce(part, m_t, l_max=l_max),
-         kref.anal_reduce_ref(part, m_t, l_max=l_max),
-         f"l_max {l_max}, 3 chunks, K 8", pad)
+    out = lc.anal_reduce(part, m_t, l_max=l_max, mp_vals=mp_t)
+    held("anal_reduce", out,
+         kref.anal_reduce_ref(part, m_t, l_max=l_max, mp_vals=mp_t),
+         f"l_max {l_max}, 3 chunks, K 8" + (", spin rows" if spin else ""),
+         pad)
+    if spin:
+        below_zero("anal_reduce", out, m_vals, mp_vals)
 
 
-def check_fused_kernels(dev) -> None:
+def test_layout(l_max: int, spin: bool) -> tuple:
+    """(m_vals, mp_vals, layout) of the slot-kernel checks: every m of
+    l_max and one padding row (the 2M spin rows, one made padding, with
+    ``spin``), so the live row count is odd and one slot has an empty
+    segment 1."""
+    if spin:
+        m_vals, mp_vals = spin_test_rows(l_max)
+    else:
+        m_vals, mp_vals = np.insert(np.arange(l_max + 1), 17, -1), None
+    lo = pack.build_layout(m_vals, l_max, mp_vals=mp_vals)
+    if not (lo.slot_seed == lo.S).any():
+        raise AssertionError("the check layout has no empty segment")
+    return m_vals, mp_vals, lo
+
+
+def check_fused_kernels(dev, spin: bool = False) -> None:
     """Hold each fused kernel against its plain version at l_max 256, K 1
     and 8, fold off and on, with random (non-identity) rotation tables and
-    without tables (identity tables are skipped, as on the GL main path).  A padding row makes the row count odd, so one slot has an
-    empty segment 1, whose synthesis rows must come out exactly zero, as
-    must every dead position of the analysis stream.  Logs kernel and plain
-    times with fold off at each variant's main-path K."""
+    without tables (identity tables are skipped, as on the GL main path).
+    A padding row makes the row count odd, so one slot has an empty
+    segment 1, whose synthesis rows must come out exactly zero, as must
+    every dead position of the analysis stream.  Logs kernel and plain
+    times with fold off at each variant's main-path K.  With ``spin`` the
+    spin branch on the spin slot layout (segments start at max(m, |m'|)),
+    fold off."""
     l_max = CHECK_L_MAX
-    gen = torch.Generator().manual_seed(3)
-    m_vals = np.insert(np.arange(l_max + 1), 17, -1)
-    lo = pack.build_layout(m_vals, l_max)
+    gen = torch.Generator().manual_seed(3 + 100 * spin)
+    m_vals, mp_vals, lo = test_layout(l_max, spin)
     empty = torch.as_tensor(lo.slot_seed == lo.S, device=dev)
     dead = torch.as_tensor(lo.a_row < 0, device=dev)
-    for fold in (False, True):
-        _, x, pmm, pms = seeds_for(l_max, m_vals, fold, dev)
+    sfx = tag(spin)
+    for fold in ((False,) if spin else (False, True)):
+        _, x, pmm, pms = seeds_for(l_max, m_vals, fold, dev, mp_vals)
         maps, x, pmm_pk, pms_pk = ops._prep(lo, x, pmm, pms)
         R, P = x.shape[0], (2 if fold else 1)
         for K in (1, 8):
             K2 = 2 * K
-            a_pk = ops._pack_a(random_a(gen, m_vals, l_max + 1, K2, dev),
-                               lo).contiguous()
+            a_pk = ops._pack_a(random_a(gen, m_vals, l_max + 1, K2, dev,
+                                        mp_vals), lo).contiguous()
             f = (torch.rand((lo.n_slots, 2, P, R, K2), generator=gen) * 2
                  - 1).to(dev)
             tab = (torch.rand((lo.n_slots, 2, P, 4, R), generator=gen) * 2
@@ -269,29 +354,30 @@ def check_fused_kernels(dev) -> None:
                     what = f"l_max {l_max} fold={fold!s:5s} K={K} {tname}"
                     want_s, plain_s = plain_ms(lambda: kref.synth_fused_ref(
                         a_pk, maps, x, pmm_pk, pms_pk, t, l_max=l_max,
-                        fold=fold, layout=var))
+                        fold=fold, layout=var, spin=spin))
                     want_a, plain_a = plain_ms(lambda: kref.anal_fused_ref(
                         fk, maps, x, pmm_pk, pms_pk, t, l_max=l_max,
-                        s_len=lo.S, layout=var))
+                        s_len=lo.S, layout=var, spin=spin))
 
                     def run_s():
                         return synth(a_pk, maps, x, pmm_pk, pms_pk, t,
-                                     l_max=l_max, fold=fold)
+                                     l_max=l_max, fold=fold, spin=spin)
 
                     def run_a():
                         return anal(fk, maps, x, pmm_pk, pms_pk, t,
-                                    l_max=l_max, s_len=lo.S)
+                                    l_max=l_max, s_len=lo.S, spin=spin)
 
-                    held(f"synth_fused_{var}", run_s(), want_s, what,
+                    held(f"synth_fused_{var}{sfx}", run_s(), want_s, what,
                          (empty, 1))
-                    held(f"anal_fused_{var}", run_a(), want_a, what, dead)
+                    held(f"anal_fused_{var}{sfx}", run_a(), want_a, what,
+                         dead)
                     if not fold and K == (1 if var == "vpu" else 8) \
                             and t is tab:
                         for d, fn, pl in (("synth", run_s, plain_s),
                                           ("anal", run_a, plain_a)):
-                            log(f"  {d + '_fused_' + var:15s} {what}: kernel "
-                                f"{cuda_time_ms(fn):.3f} ms, plain version "
-                                f"{pl:.1f} ms")
+                            log(f"  {d + '_fused_' + var + sfx:15s} {what}: "
+                                f"kernel {cuda_time_ms(fn):.3f} ms, plain "
+                                f"version {pl:.1f} ms")
 
 
 def same_bits(what: str, a: torch.Tensor, b: torch.Tensor) -> None:
@@ -305,7 +391,7 @@ def same_bits(what: str, a: torch.Tensor, b: torch.Tensor) -> None:
         raise AssertionError(f"{what}: not bit-equal")
 
 
-def check_packed_kernels(dev) -> None:
+def check_packed_kernels(dev, spin: bool = False) -> None:
     """Hold each packed kernel against its plain version at l_max 256, K 1
     and 8, fold off and on.  A padding row makes the row count odd, so one
     slot has an empty segment 1, whose synthesis planes must come out
@@ -313,21 +399,22 @@ def check_packed_kernels(dev) -> None:
     With the fold off the packed synthesis and analysis run the fused
     kernels' code with no tables, so they must equal the fused kernels bit
     for bit.  Logs kernel and plain times with fold off at each variant's
-    main-path K."""
+    main-path K.  With ``spin`` the spin branch on the spin slot layout,
+    fold off."""
     l_max = CHECK_L_MAX
-    gen = torch.Generator().manual_seed(4)
-    m_vals = np.insert(np.arange(l_max + 1), 17, -1)
-    lo = pack.build_layout(m_vals, l_max)
+    gen = torch.Generator().manual_seed(4 + 100 * spin)
+    m_vals, mp_vals, lo = test_layout(l_max, spin)
     empty = torch.as_tensor(lo.slot_seed == lo.S, device=dev)
     dead = torch.as_tensor(lo.a_row < 0, device=dev)
-    for fold in (False, True):
-        _, x, pmm, pms = seeds_for(l_max, m_vals, fold, dev)
+    sfx = tag(spin)
+    for fold in ((False,) if spin else (False, True)):
+        _, x, pmm, pms = seeds_for(l_max, m_vals, fold, dev, mp_vals)
         maps, x, pmm_pk, pms_pk = ops._prep(lo, x, pmm, pms)
         R, P = x.shape[0], (2 if fold else 1)
         for K in (1, 8):
             K2 = 2 * K
-            a_pk = ops._pack_a(random_a(gen, m_vals, l_max + 1, K2, dev),
-                               lo).contiguous()
+            a_pk = ops._pack_a(random_a(gen, m_vals, l_max + 1, K2, dev,
+                                        mp_vals), lo).contiguous()
             dw = (torch.rand((lo.n_slots, 2 * P, R, K2), generator=gen) * 2
                   - 1).to(dev)
             what = f"l_max {l_max} fold={fold!s:5s} K={K}"
@@ -337,42 +424,43 @@ def check_packed_kernels(dev) -> None:
                 anal = getattr(fused_cuda, f"anal_packed_{var}")
                 want_s, plain_s = plain_ms(lambda: kref.synth_packed_ref(
                     a_pk, maps, x, pmm_pk, pms_pk, l_max=l_max, fold=fold,
-                    layout=var))
+                    layout=var, spin=spin))
                 want_a, plain_a = plain_ms(lambda: kref.anal_packed_ref(
                     dk, maps, x, pmm_pk, pms_pk, l_max=l_max, s_len=lo.S,
-                    layout=var))
+                    layout=var, spin=spin))
 
                 def run_s():
                     return synth(a_pk, maps, x, pmm_pk, pms_pk, l_max=l_max,
-                                 fold=fold)
+                                 fold=fold, spin=spin)
 
                 def run_a():
                     return anal(dk, maps, x, pmm_pk, pms_pk, l_max=l_max,
-                                s_len=lo.S)
+                                s_len=lo.S, spin=spin)
 
                 out_s, out_a = run_s(), run_a()
                 # planes of segment 1 of an empty slot: q = P .. 2P - 1
-                held(f"synth_packed_{var}", out_s, want_s, what,
+                held(f"synth_packed_{var}{sfx}", out_s, want_s, what,
                      (empty, slice(P, 2 * P)))
-                held(f"anal_packed_{var}", out_a, want_a, what, dead)
+                held(f"anal_packed_{var}{sfx}", out_a, want_a, what, dead)
                 if fold:
                     continue
                 fs = getattr(fused_cuda, f"synth_fused_{var}")(
-                    a_pk, maps, x, pmm_pk, pms_pk, None, l_max=l_max)
-                same_bits(f"synth_packed_{var} = synth_fused_{var} "
+                    a_pk, maps, x, pmm_pk, pms_pk, None, l_max=l_max,
+                    spin=spin)
+                same_bits(f"synth_packed_{var}{sfx} = synth_fused_{var}{sfx} "
                           f"(no tables), {what}", out_s, fs.reshape(
                               out_s.shape))
                 fa = getattr(fused_cuda, f"anal_fused_{var}")(
                     dk.reshape(lo.n_slots, 2, 1, *dk.shape[2:]), maps, x,
-                    pmm_pk, pms_pk, None, l_max=l_max, s_len=lo.S)
-                same_bits(f"anal_packed_{var} = anal_fused_{var} "
+                    pmm_pk, pms_pk, None, l_max=l_max, s_len=lo.S, spin=spin)
+                same_bits(f"anal_packed_{var}{sfx} = anal_fused_{var}{sfx} "
                           f"(no tables), {what}", out_a, fa)
                 if K == (1 if var == "vpu" else 8):
                     for d, fn, pl in (("synth", run_s, plain_s),
                                       ("anal", run_a, plain_a)):
-                        log(f"  {d + '_packed_' + var:15s} {what}: kernel "
-                            f"{cuda_time_ms(fn):.3f} ms, plain version "
-                            f"{pl:.1f} ms")
+                        log(f"  {d + '_packed_' + var + sfx:15s} {what}: "
+                            f"kernel {cuda_time_ms(fn):.3f} ms, plain "
+                            f"version {pl:.1f} ms")
 
 
 # ---------------------------------------------------------------------------
@@ -380,17 +468,22 @@ def check_packed_kernels(dev) -> None:
 # ---------------------------------------------------------------------------
 
 #: (mode, l_max, K, layout): the sht_cmb shapes, first on the fused layout
-#: the plans pick by default, then on the staged plain and packed layouts
+#: the plans pick by default, then on the staged plain and packed layouts;
+#: each runs as the spin-0 pair and as the spin-2 (E, B) <-> (Q, U) pair
 MAIN_PATH = (("cuda_mxu", 2048, 8, "fused"), ("cuda_vpu", 4096, 1, "fused"),
              ("cuda_mxu", 2048, 8, "plain"), ("cuda_vpu", 4096, 1, "plain"),
              ("cuda_mxu", 2048, 8, "packed"), ("cuda_vpu", 4096, 1, "packed"))
+SPINS = (0, 2)
 
-#: the kernels each layout's path must launch, for a variant
+#: the kernels each layout's path must launch, for a variant and spin (the
+#: spin-2 paths launch each kernel's spin branch, and anal_reduce)
 PATH_KERNELS = {
-    "fused": lambda v: (f"synth_fused_{v}", f"anal_fused_{v}", "anal_reduce"),
-    "plain": lambda v: (f"synth_{v}", f"anal_{v}", "anal_reduce"),
-    "packed": lambda v: (f"synth_packed_{v}", f"anal_packed_{v}",
-                         "anal_reduce"),
+    "fused": lambda v, s="": (f"synth_fused_{v}{s}", f"anal_fused_{v}{s}",
+                              "anal_reduce"),
+    "plain": lambda v, s="": (f"synth_{v}{s}", f"anal_{v}{s}",
+                              "anal_reduce"),
+    "packed": lambda v, s="": (f"synth_packed_{v}{s}", f"anal_packed_{v}{s}",
+                               "anal_reduce"),
 }
 
 
@@ -403,15 +496,21 @@ def read_launches() -> dict:
     return {**lc.launches, **fused_cuda.launches}
 
 
-def run_main_path(dev, mode: str, l_max: int, K: int, layout: str) -> tuple:
-    """One sht_cmb round trip through make_plan/alm2map/map2alm."""
-    gen = torch.Generator().manual_seed(l_max + K)
-    alm = sht.random_alm(gen, l_max, l_max, K, dtype=torch.float32,
-                         device=dev)
+def run_main_path(dev, mode: str, l_max: int, K: int, layout: str,
+                  spin: int = 0) -> tuple:
+    """One sht_cmb round trip through make_plan/alm2map/map2alm (spin 2:
+    (E, B) alm -> (Q, U) maps -> (E, B) alm)."""
+    gen = torch.Generator().manual_seed(l_max + K + spin)
+    if spin:
+        alm = sht.random_alm_spin(gen, l_max, l_max, K, dtype=torch.float32,
+                                  device=dev)
+    else:
+        alm = sht.random_alm(gen, l_max, l_max, K, dtype=torch.float32,
+                             device=dev)
     t0 = time.perf_counter()
     # the fused paths are the plans' default layout: called as a user would
     plan = repro_torch.make_plan("gl", l_max, K=K, dtype="float32",
-                                 mode=mode,
+                                 mode=mode, spin=spin,
                                  layout=None if layout == "fused" else layout)
     if plan.layouts != {"synth": layout, "anal": layout}:
         raise AssertionError(f"{mode}: layouts {plan.layouts}")
@@ -420,17 +519,44 @@ def run_main_path(dev, mode: str, l_max: int, K: int, layout: str) -> tuple:
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     g = plan.grid
-    if tuple(maps.shape) != (g.n_rings, g.max_n_phi, K) or \
+    want = (g.n_rings, g.max_n_phi, K)
+    if tuple(maps.shape) != ((2,) + want if spin else want) or \
+            tuple(alm2.shape) != tuple(alm.shape) or \
             not bool(torch.isfinite(maps).all()) or \
             not bool(torch.isfinite(torch.view_as_real(alm2)).all()):
         raise AssertionError(f"{mode}: non-finite or misshapen output")
     err = spectra.d_err(alm, alm2)
-    log(f"  {mode} [{layout}] l_max={l_max} K={K}: maps {tuple(maps.shape)}, "
-        f"round-trip d_err = {err:.3e} (limit {ROUNDTRIP_TOL:g}), "
-        f"{secs:.2f} s with plan build")
+    log(f"  {mode} [{layout}] spin {spin} l_max={l_max} K={K}: maps "
+        f"{tuple(maps.shape)}, round-trip d_err = {err:.3e} (limit "
+        f"{ROUNDTRIP_TOL:g}), {secs:.2f} s with plan build")
     if not err < ROUNDTRIP_TOL:
-        raise AssertionError(f"{mode} round trip d_err {err}")
+        raise AssertionError(f"{mode} spin {spin} round trip d_err {err}")
     return plan, alm, maps
+
+
+def path_rows(plan, alm, maps) -> tuple:
+    """The Legendre-stage operands of a staged main path at its own inputs:
+    (a (Mr, L, 2K) f32 coefficient rows, dw (Mr, 1, R, 2K) f32 weighted
+    Delta rows); on a spin-2 plan the 2M a^{+-} and Delta^{+-} rows."""
+    K = plan.K
+    if plan.spin:
+        a = plan._eb_rows(alm)
+        dwc = plan.phase.anal(torch.cat([maps[0], maps[1]], dim=-1))
+        d_re, d_im = legendre.spin_pack_delta(
+            dwc[..., :K].real, dwc[..., :K].imag, dwc[..., K:].real,
+            dwc[..., K:].imag)
+        dw = torch.cat([d_re, d_im], dim=-1)
+    else:
+        a = torch.cat([alm.real, alm.imag], dim=-1).to(torch.float32)
+        dwc = plan.phase.anal(maps)
+        dw = torch.cat([dwc.real, dwc.imag], dim=-1)
+    return a, dw[:, None].contiguous()
+
+
+def path_maps(plan, maps) -> torch.Tensor:
+    """A main path's maps as the phase stage takes them: (R, n, K), or the
+    (Q, U) pair as (R, n, 2K) channels on a spin-2 plan."""
+    return torch.cat([maps[0], maps[1]], dim=-1) if plan.spin else maps
 
 
 def plain_ms(fn) -> tuple:
@@ -448,52 +574,55 @@ def time_kernels(mode: str, l_max: int, K: int, run: tuple) -> dict:
     version time, bound, and the library call where one exists."""
     var = mode[5:]
     plan, alm, maps = run
-    m_t, x, pmm, pms = plan._seeds()
-    a = torch.cat([alm.real, alm.imag], dim=-1).to(torch.float32)
-    dwc = plan.phase.anal(maps)
-    dw = torch.cat([dwc.real, dwc.imag], dim=-1)[:, None].contiguous()
+    m_t, x, pmm, pms, mp_t = plan._row_seeds()
+    sfx = tag(plan.spin)
+    a, dw = path_rows(plan, alm, maps)
     K2, R, L = 2 * K, x.shape[0], l_max + 1
     what = f"l_max {l_max}, K {K} (main path)"
-    triples, flops = legendre_work(m_t.cpu().numpy(), L, R, K2)
+    mp_np = None if mp_t is None else mp_t.cpu().numpy()
+    triples, flops = legendre_work(m_t.cpu().numpy(), L, R, K2, mp_np)
     synth = getattr(lc, f"synth_{var}")
+    rkw = dict(l_max=l_max, mp_vals=mp_t)
 
     def run_s():
-        return synth(a, m_t, x, pmm, pms, l_max=l_max)
+        return synth(a, m_t, x, pmm, pms, **rkw)
 
     def run_a():
-        return lc.anal_partials(var, dw, m_t, x, pmm, pms, l_max=l_max)
+        return lc.anal_partials(var, dw, m_t, x, pmm, pms, **rkw)
 
     out_s, part = run_s(), run_a()
-    out_a = lc.anal_reduce(part, m_t, l_max=l_max)
+    out_a = lc.anal_reduce(part, m_t, **rkw)
     want_s, plain_s = plain_ms(lambda: kref.synth_ref(a, m_t, x, pmm, pms,
-                                                      l_max=l_max))
+                                                      **rkw))
     want_a, plain_a = plain_ms(lambda: kref.anal_ref(dw, m_t, x, pmm, pms,
-                                                     l_max=l_max))
+                                                     **rkw))
     want_r, plain_r = plain_ms(lambda: kref.anal_reduce_ref(part, m_t,
-                                                            l_max=l_max))
-    err_s = held(f"synth_{var}", out_s, want_s, what)
-    err_a = held(f"anal_{var}", out_a, want_a, what)
+                                                            **rkw))
+    err_s = held(f"synth_{var}{sfx}", out_s, want_s, what)
+    err_a = held(f"anal_{var}{sfx}", out_a, want_a, what)
     err_r = held("anal_reduce", out_a, want_r, what)
+    if plan.spin:
+        below_zero(f"anal_{var}{sfx}", out_a, m_t.cpu().numpy(), mp_np)
     dig_a = digest(out_a)
     del want_s, want_a, want_r, out_s, out_a
     ms_s, ms_a = cuda_time_ms(run_s), cuda_time_ms(run_a)
-    ms_r = cuda_time_ms(lambda: lc.anal_reduce(part, m_t, l_max=l_max))
-    rerun_same(f"anal_{var}", dig_a,
-               lambda: lc.anal_reduce(run_a(), m_t, l_max=l_max))
+    ms_r = cuda_time_ms(lambda: lc.anal_reduce(part, m_t, **rkw))
+    rerun_same(f"anal_{var}{sfx}", dig_a,
+               lambda: lc.anal_reduce(run_a(), m_t, **rkw))
     lib_r = cuda_time_ms(lambda: part.sum(dim=1))
-    seeds = nbytes(m_t, x, pmm, pms)
-    shape = f"l_max {l_max}, K {K}"
+    seeds = nbytes(m_t, x, pmm, pms, mp_t)
+    shape = f"l_max {l_max}, K {K}" + (", 2M spin rows" if plan.spin else "")
     # the second pass reads the l >= m rows of every chunk and writes the
     # full output
     n_ch = part.shape[1]
     red_bytes = triples // R * n_ch * K2 * 4 + m_t.numel() * L * K2 * 4
     red_ops = triples // R * (n_ch - 1) * K2
     return {
-        f"synth_{var}": dict(
+        f"synth_{var}{sfx}": dict(
             ms=ms_s, plain_ms=plain_s, library_ms=None, err=err_s,
             shape=shape, bound=bound_ms(flops, nbytes(a) + seeds
                                         + m_t.numel() * R * K2 * 4)),
-        f"anal_{var}": dict(
+        f"anal_{var}{sfx}": dict(
             ms=ms_a, plain_ms=plain_a, library_ms=None, err=err_a,
             shape=shape, bound=bound_ms(flops, nbytes(dw, part) + seeds)),
         "anal_reduce": dict(
@@ -504,7 +633,7 @@ def time_kernels(mode: str, l_max: int, K: int, run: tuple) -> dict:
 
 
 def identity_tables(var: str, out_a, want_a, f_pk, prep, l_max: int,
-                    S: int, what: str) -> None:
+                    S: int, what: str, spin: bool) -> None:
     """The fused analysis with explicit identity tables against the skipped
     tables of the main path: the kernel must give the same bits (1 re +
     0 im == re), while the plain version, which then contracts a rotated
@@ -517,13 +646,14 @@ def identity_tables(var: str, out_a, want_a, f_pk, prep, l_max: int,
     ident[:, :, :, 0] = 1.0
     ident[:, :, :, 3] = 1.0
     kernel = getattr(fused_cuda, f"anal_fused_{var}")(
-        f_pk, *prep, ident, l_max=l_max, s_len=S)
-    same_bits(f"anal_fused_{var} with identity tables = without, {what}",
-              kernel, out_a)
+        f_pk, *prep, ident, l_max=l_max, s_len=S, spin=spin)
+    sfx = tag(spin)
+    same_bits(f"anal_fused_{var}{sfx} with identity tables = without, "
+              f"{what}", kernel, out_a)
     plain = kref.anal_fused_ref(f_pk, *prep, ident, l_max=l_max, s_len=S,
-                                layout=var)
+                                layout=var, spin=spin)
     gap = float((out_a - plain).abs().max() / plain.abs().max())
-    log(f"  anal_fused_{var} plain version with identity tables: digest "
+    log(f"  anal_fused_{var}{sfx} plain version with identity tables: digest "
         f"{digest(plain)} (without: {digest(want_a)}), kernel vs it "
         f"{gap:.3e}")
 
@@ -533,54 +663,62 @@ def time_fused_kernels(mode: str, l_max: int, K: int, run: tuple) -> dict:
     (the plan's own packed seeds and tables), as :func:`time_kernels`."""
     var = mode[5:]
     plan, alm, maps = run
+    spin = bool(plan.spin)
+    sfx = tag(spin)
     _, kw = plan._fused_parts(var)
     lo, store = kw["lo"], kw["store"]
+    rows, mp_rows = plan._rows
     pmaps, x, pmm_pk, pms_pk = store["prep"]
     tab_s = store[("tables", "synth")]
     tab_a = store[("tables", "anal")]
-    a_pk = ops._pack_a(torch.cat([alm.real, alm.imag], dim=-1), lo)
-    a_pk = a_pk.contiguous()
+    a_rows = plan._eb_rows(alm) if spin else \
+        torch.cat([alm.real, alm.imag], dim=-1)
+    a_pk = ops._pack_a(a_rows, lo).contiguous()
     w = torch.as_tensor(plan.grid.weights, dtype=torch.float32, device=x.device)
-    fp = fused._anal_rows(maps * w[:, None, None], plan._m_vals,
-                          n=plan.phase.n, fold_rings=None, n_half=x.shape[0])
+    fp = fused._anal_rows(path_maps(plan, maps) * w[:, None, None], rows,
+                          n=plan.phase.n, fold_rings=None, n_half=x.shape[0],
+                          spin=spin)
     f_pk = ops._pack_rows(fp, lo)
     f_pk = (f_pk.movedim(-1, 3) if var == "vpu" else f_pk).contiguous()
+    del fp
     K2, R, L, S = 2 * K, x.shape[0], l_max + 1, lo.S
     zeros = torch.zeros(lo.n_slots, dtype=torch.int32, device=x.device)
     what = f"l_max {l_max}, K {K} (fused main path)"
-    triples, flops = legendre_work(plan._m_vals, L, R, K2)
+    triples, flops = legendre_work(rows, L, R, K2, mp_rows)
     synth = getattr(fused_cuda, f"synth_fused_{var}")
 
     def run_s():
-        return synth(a_pk, pmaps, x, pmm_pk, pms_pk, tab_s, l_max=l_max)
+        return synth(a_pk, pmaps, x, pmm_pk, pms_pk, tab_s, l_max=l_max,
+                     spin=spin)
 
     def run_a():
         return fused_cuda.anal_fused_partials(var, f_pk, pmaps, x, pmm_pk,
                                               pms_pk, tab_a, l_max=l_max,
-                                              s_len=S)
+                                              s_len=S, spin=spin)
 
     out_s, part = run_s(), run_a()
     out_a = lc.anal_reduce(part, zeros, l_max=S - 1)
     want_s, plain_s = plain_ms(lambda: kref.synth_fused_ref(
-        a_pk, pmaps, x, pmm_pk, pms_pk, tab_s, l_max=l_max, layout=var))
+        a_pk, pmaps, x, pmm_pk, pms_pk, tab_s, l_max=l_max, layout=var,
+        spin=spin))
     want_a, plain_a = plain_ms(lambda: kref.anal_fused_ref(
         f_pk, pmaps, x, pmm_pk, pms_pk, tab_a, l_max=l_max, s_len=S,
-        layout=var))
+        layout=var, spin=spin))
     want_r, plain_r = plain_ms(lambda: kref.anal_reduce_ref(part, zeros,
                                                             l_max=S - 1))
     empty = torch.as_tensor(lo.slot_seed == S, device=x.device)
     dead = torch.as_tensor(lo.a_row < 0, device=x.device)
-    err_s = held(f"synth_fused_{var}", out_s, want_s, what, (empty, 1))
-    err_a = held(f"anal_fused_{var}", out_a, want_a, what, dead)
+    err_s = held(f"synth_fused_{var}{sfx}", out_s, want_s, what, (empty, 1))
+    err_a = held(f"anal_fused_{var}{sfx}", out_a, want_a, what, dead)
     err_r = held("anal_reduce", out_a, want_r, what)
     dig_a = digest(out_a)
     if tab_a is None:
         identity_tables(var, out_a, want_a, f_pk, (pmaps, x, pmm_pk, pms_pk),
-                        l_max, S, what)
+                        l_max, S, what, spin)
     del want_s, want_a, want_r, out_s, out_a
     ms_s, ms_a = cuda_time_ms(run_s), cuda_time_ms(run_a)
     ms_r = cuda_time_ms(lambda: lc.anal_reduce(part, zeros, l_max=S - 1))
-    rerun_same(f"anal_fused_{var}", dig_a,
+    rerun_same(f"anal_fused_{var}{sfx}", dig_a,
                lambda: lc.anal_reduce(run_a(), zeros, l_max=S - 1))
     lib_r = cuda_time_ms(lambda: part.sum(dim=1))
     seeds = nbytes(x, pmm_pk, pms_pk, *pmaps)
@@ -592,13 +730,13 @@ def time_fused_kernels(mode: str, l_max: int, K: int, run: tuple) -> dict:
     red_bytes = live * n_ch * K2 * 4 + lo.n_slots * S * K2 * 4
     red_ops = live * (n_ch - 1) * K2
     return {
-        f"synth_fused_{var}": dict(
+        f"synth_fused_{var}{sfx}": dict(
             ms=ms_s, plain_ms=plain_s, library_ms=None, err=err_s,
             shape=shape, tables=tab_s is not None,
             bound=bound_ms(flops + rotation_ops(tab_s, K),
                            nbytes(a_pk, tab_s) + seeds
                            + lo.n_slots * 2 * R * K2 * 4)),
-        f"anal_fused_{var}": dict(
+        f"anal_fused_{var}{sfx}": dict(
             ms=ms_a, plain_ms=plain_a, library_ms=None, err=err_a,
             shape=shape, tables=tab_a is not None,
             bound=bound_ms(flops + rotation_ops(tab_a, K),
@@ -627,60 +765,63 @@ def time_packed_kernels(mode: str, l_max: int, K: int, run: tuple) -> dict:
     kernels' code (no tables, fold off) on the same inputs."""
     var = mode[5:]
     plan, alm, maps = run
+    spin = bool(plan.spin)
+    sfx = tag(spin)
     store = plan._fused_store
     lo = store["layout"]
+    rows, mp_rows = plan._rows
     pmaps, x, pmm_pk, pms_pk = store["prep"]
-    a_pk = ops._pack_a(torch.cat([alm.real, alm.imag], dim=-1), lo)
-    a_pk = a_pk.contiguous()
-    dwc = plan.phase.anal(maps)
-    dw = torch.cat([dwc.real, dwc.imag], dim=-1)[:, None]
-    del dwc
+    a_rows, dw = path_rows(plan, alm, maps)
+    a_pk = ops._pack_a(a_rows, lo).contiguous()
+    del a_rows
     K2, R, L, S = 2 * K, x.shape[0], l_max + 1, lo.S
     dk = ops._pack_rows(dw, lo).reshape(lo.n_slots, 2, R, K2)
     del dw
     dk = (dk.movedim(-1, 2) if var == "vpu" else dk).contiguous()
     zeros = torch.zeros(lo.n_slots, dtype=torch.int32, device=x.device)
     what = f"l_max {l_max}, K {K} (packed main path)"
-    triples, flops = legendre_work(plan._m_vals, L, R, K2)
+    triples, flops = legendre_work(rows, L, R, K2, mp_rows)
     synth = getattr(fused_cuda, f"synth_packed_{var}")
 
     def run_s():
-        return synth(a_pk, pmaps, x, pmm_pk, pms_pk, l_max=l_max)
+        return synth(a_pk, pmaps, x, pmm_pk, pms_pk, l_max=l_max, spin=spin)
 
     def run_a():
         return fused_cuda.anal_packed_partials(var, dk, pmaps, x, pmm_pk,
-                                               pms_pk, l_max=l_max, s_len=S)
+                                               pms_pk, l_max=l_max, s_len=S,
+                                               spin=spin)
 
     out_s, part = run_s(), run_a()
     out_a = lc.anal_reduce(part, zeros, l_max=S - 1)
     want_s, plain_s = plain_ms(lambda: kref.synth_packed_ref(
-        a_pk, pmaps, x, pmm_pk, pms_pk, l_max=l_max, layout=var))
+        a_pk, pmaps, x, pmm_pk, pms_pk, l_max=l_max, layout=var, spin=spin))
     want_a, plain_a = plain_ms(lambda: kref.anal_packed_ref(
-        dk, pmaps, x, pmm_pk, pms_pk, l_max=l_max, s_len=S, layout=var))
+        dk, pmaps, x, pmm_pk, pms_pk, l_max=l_max, s_len=S, layout=var,
+        spin=spin))
     want_r, plain_r = plain_ms(lambda: kref.anal_reduce_ref(part, zeros,
                                                             l_max=S - 1))
     empty = torch.as_tensor(lo.slot_seed == S, device=x.device)
     dead = torch.as_tensor(lo.a_row < 0, device=x.device)
-    err_s = held(f"synth_packed_{var}", out_s, want_s, what, (empty, 1))
-    err_a = held(f"anal_packed_{var}", out_a, want_a, what, dead)
+    err_s = held(f"synth_packed_{var}{sfx}", out_s, want_s, what, (empty, 1))
+    err_a = held(f"anal_packed_{var}{sfx}", out_a, want_a, what, dead)
     err_r = held("anal_reduce", out_a, want_r, what)
     del want_s, want_a, want_r
     fused_s = getattr(fused_cuda, f"synth_fused_{var}")(
-        a_pk, pmaps, x, pmm_pk, pms_pk, None, l_max=l_max)
-    same_bits(f"synth_packed_{var} = synth_fused_{var} (no tables), {what}",
-              out_s, fused_s.reshape(out_s.shape))
+        a_pk, pmaps, x, pmm_pk, pms_pk, None, l_max=l_max, spin=spin)
+    same_bits(f"synth_packed_{var}{sfx} = synth_fused_{var}{sfx} (no "
+              f"tables), {what}", out_s, fused_s.reshape(out_s.shape))
     del fused_s, out_s
     fused_part = fused_cuda.anal_fused_partials(
         var, dk.reshape(lo.n_slots, 2, 1, *dk.shape[2:]), pmaps, x, pmm_pk,
-        pms_pk, None, l_max=l_max, s_len=S)
-    same_bits(f"anal_packed_{var} = anal_fused_{var} (no tables), {what}",
-              part, fused_part)
+        pms_pk, None, l_max=l_max, s_len=S, spin=spin)
+    same_bits(f"anal_packed_{var}{sfx} = anal_fused_{var}{sfx} (no "
+              f"tables), {what}", part, fused_part)
     dig_a = digest(out_a)
     del fused_part, out_a
     ms_s, ms_a = cuda_time_ms(run_s), cuda_time_ms(run_a)
     ms_r = cuda_time_ms(lambda: lc.anal_reduce(part, zeros, l_max=S - 1))
     lib_r = cuda_time_ms(lambda: part.sum(dim=1))
-    rerun_same(f"anal_packed_{var}", dig_a,
+    rerun_same(f"anal_packed_{var}{sfx}", dig_a,
                lambda: lc.anal_reduce(run_a(), zeros, l_max=S - 1))
     seeds = nbytes(x, pmm_pk, pms_pk, *pmaps)
     shape = f"l_max {l_max}, K {K}, {lo.n_slots} slots x S {S}"
@@ -689,11 +830,11 @@ def time_packed_kernels(mode: str, l_max: int, K: int, run: tuple) -> dict:
     red_bytes = live * n_ch * K2 * 4 + lo.n_slots * S * K2 * 4
     red_ops = live * (n_ch - 1) * K2
     return {
-        f"synth_packed_{var}": dict(
+        f"synth_packed_{var}{sfx}": dict(
             ms=ms_s, plain_ms=plain_s, library_ms=None, err=err_s,
             shape=shape, bound=bound_ms(flops, nbytes(a_pk) + seeds
                                         + lo.n_slots * 2 * R * K2 * 4)),
-        f"anal_packed_{var}": dict(
+        f"anal_packed_{var}{sfx}": dict(
             ms=ms_a, plain_ms=plain_a, library_ms=None, err=err_a,
             shape=shape, bound=bound_ms(flops, nbytes(dk, part) + seeds)),
         "anal_reduce": dict(
@@ -712,22 +853,24 @@ def time_round_trip(mode: str, l_max: int, K: int, layout: str, run: tuple,
     syn = host_ms(lambda: plan.alm2map(alm))
     ana = host_ms(lambda: plan.map2alm(maps))
     g, n = plan.grid, plan.phase.n
+    pmaps = path_maps(plan, maps)            # Q|U as 2K channels on spin 2
     if layout in ("plain", "packed"):
-        delta = plan.phase.anal(maps)
+        delta = plan.phase.anal(pmaps)
         fft_s = cuda_time_ms(lambda: plan.phase.synth(delta))
-        fft_a = cuda_time_ms(lambda: plan.phase.anal(maps))
+        fft_a = cuda_time_ms(lambda: plan.phase.anal(pmaps))
         what = "phase stage"
     else:
-        H = torch.zeros((g.n_rings, n // 2 + 1, K), dtype=torch.complex64,
-                        device=maps.device)
+        H = torch.zeros((g.n_rings, n // 2 + 1, pmaps.shape[-1]),
+                        dtype=torch.complex64, device=maps.device)
         fft_s = cuda_time_ms(lambda: torch.fft.irfft(H, n=n, dim=1))
-        fft_a = cuda_time_ms(lambda: torch.fft.rfft(maps, dim=1))
+        fft_a = cuda_time_ms(lambda: torch.fft.rfft(pmaps, dim=1))
         what = "FFT"
     var = mode[5:]
-    names = PATH_KERNELS[layout](var)
+    names = PATH_KERNELS[layout](var, tag(plan.spin))
     k_s = kernel_ms[names[0]]
     k_a = kernel_ms[names[1]] + kernel_ms["anal_reduce"]
-    log(f"  {mode} [{layout}] l_max={l_max} K={K}: alm2map {syn:.2f} ms "
+    log(f"  {mode} [{layout}] spin {plan.spin} l_max={l_max} K={K}: alm2map "
+        f"{syn:.2f} ms "
         f"(kernel {k_s:.2f}, {what} {fft_s:.2f}, rest "
         f"{syn - k_s - fft_s:.2f}), map2alm {ana:.2f} ms (kernels "
         f"{k_a:.2f}, {what} {fft_a:.2f}, rest {ana - k_a - fft_a:.2f})")
@@ -738,28 +881,36 @@ def time_round_trip(mode: str, l_max: int, K: int, layout: str, run: tuple,
 # ---------------------------------------------------------------------------
 
 
-def f64_anchor(dev) -> None:
+def random_alm_for(gen, plan, dtype, dev) -> torch.Tensor:
+    """Random alm of a plan's shape: an (E, B) pair on a spin-2 plan."""
+    draw = sht.random_alm_spin if plan.spin else sht.random_alm
+    return draw(gen, plan.l_max, plan.m_max, plan.K, dtype=dtype, device=dev)
+
+
+def f64_anchor(dev, spin: int = 0) -> None:
+    """Every float32 kernel plan (both variants; fused, plain, packed)
+    against the float64 torch plan of the same spin at l_max 512, K 2."""
     l_max, K = ANCHOR_L_MAX, 2
-    gen = torch.Generator().manual_seed(7)
-    alm = sht.random_alm(gen, l_max, l_max, K, device=dev)
+    gen = torch.Generator().manual_seed(7 + spin)
     p64 = repro_torch.make_plan("gl", l_max, K=K, dtype="float64",
-                                mode="torch")
+                                mode="torch", spin=spin)
+    alm = random_alm_for(gen, p64, torch.float64, dev)
     maps64 = p64.alm2map(alm)
     alm64 = p64.map2alm(maps64)
     for mode in ("cuda_vpu", "cuda_mxu"):
         for layout in ("fused", "plain", "packed"):
             p32 = repro_torch.make_plan("gl", l_max, K=K, dtype="float32",
-                                        mode=mode, layout=layout)
+                                        mode=mode, layout=layout, spin=spin)
             maps32 = p32.alm2map(alm.to(torch.complex64))
             alm32 = p32.map2alm(maps64.to(torch.float32))
             rel_s = float((maps32 - maps64).abs().max() / maps64.abs().max())
             rel_a = float((alm32 - alm64).abs().max() / alm64.abs().max())
-            log(f"  {mode} [{layout}] vs torch float64, l_max={l_max} K={K}: "
-                f"synthesis {rel_s:.3e}, analysis {rel_a:.3e} (limit "
-                f"{ANCHOR_TOL:g})")
+            log(f"  {mode} [{layout}] spin {spin} vs torch float64, "
+                f"l_max={l_max} K={K}: synthesis {rel_s:.3e}, analysis "
+                f"{rel_a:.3e} (limit {ANCHOR_TOL:g})")
             if not max(rel_s, rel_a) < ANCHOR_TOL:
-                raise AssertionError(f"{mode} [{layout}] strays from the "
-                                     "float64 plan")
+                raise AssertionError(f"{mode} [{layout}] spin {spin} strays "
+                                     "from the float64 plan")
 
 
 # ---------------------------------------------------------------------------
@@ -774,8 +925,7 @@ def dot_identity_err(plan, seed: int) -> float:
     dev = plan.device
     gen = torch.Generator().manual_seed(seed)
     errs = []
-    a = sht.random_alm(gen, plan.l_max, plan.m_max, plan.K,
-                       dtype=torch.float32, device=dev).requires_grad_(True)
+    a = random_alm_for(gen, plan, torch.float32, dev).requires_grad_(True)
     t = torch.randn(plan._maps_shape, generator=gen).to(dev)
     lhs = (plan.alm2map(a) * t).sum()
     (g,) = torch.autograd.grad(lhs, a)
@@ -783,8 +933,7 @@ def dot_identity_err(plan, seed: int) -> float:
     errs.append((lhs.item(), float((a.real * g.real + a.imag * g.imag).sum())))
     maps = torch.randn(plan._maps_shape, generator=gen).to(dev)
     maps.requires_grad_(True)
-    b = sht.random_alm(gen, plan.l_max, plan.m_max, plan.K,
-                       dtype=torch.float32, device=dev)
+    b = random_alm_for(gen, plan, torch.float32, dev)
     out = plan.map2alm(maps)
     lhs = (out.real * b.real + out.imag * b.imag).sum()
     (g,) = torch.autograd.grad(lhs, maps)
@@ -801,33 +950,35 @@ def launched_exactly(what: str, counts: dict, wanted: dict) -> None:
         raise AssertionError(f"{what}: launched {got}, expected {wanted}")
 
 
-def check_gradients(dev) -> None:
+def check_gradients(dev, spin: int = 0) -> None:
     """The dot identity through autograd on every layout at l_max 256, then
     one full-width gradient step per direction on the default plan at
     l_max 2048, K 8: the backward of alm2map must launch the fused
     analysis and anal_reduce once each, that of map2alm the fused
-    synthesis once, and nothing else."""
+    synthesis once, and nothing else (on a spin-2 plan: their spin
+    branches)."""
     for mode, K in (("cuda_vpu", 1), ("cuda_mxu", 8)):
         for layout in ("plain", "packed", "fused"):
             plan = repro_torch.make_plan("gl", CHECK_L_MAX, K=K,
                                          dtype="float32", mode=mode,
-                                         layout=layout)
-            err = dot_identity_err(plan, 11)
-            log(f"  {mode} [{layout}] l_max {CHECK_L_MAX} K {K}: <A x, y> vs "
-                f"<x, A^T y> through autograd, rel. gap {err:.3e} (limit "
-                f"{DOT_TOL:g})")
+                                         layout=layout, spin=spin)
+            err = dot_identity_err(plan, 11 + spin)
+            log(f"  {mode} [{layout}] spin {spin} l_max {CHECK_L_MAX} K {K}: "
+                f"<A x, y> vs <x, A^T y> through autograd, rel. gap "
+                f"{err:.3e} (limit {DOT_TOL:g})")
             if not err < DOT_TOL:
-                raise AssertionError(f"{mode} [{layout}]: dot identity {err}")
+                raise AssertionError(f"{mode} [{layout}] spin {spin}: dot "
+                                     f"identity {err}")
     l_max, K = GRAD_SHAPE
-    plan = repro_torch.make_plan("gl", l_max, K=K, dtype="float32")
+    plan = repro_torch.make_plan("gl", l_max, K=K, dtype="float32", spin=spin)
     if plan.backends["synth"] != "cuda_mxu" or plan.layouts["synth"] != \
             "fused":
-        raise AssertionError(f"default plan at {l_max}/K{K}: "
+        raise AssertionError(f"default plan at {l_max}/K{K} spin {spin}: "
                              f"{plan.backends} {plan.layouts}")
-    gen = torch.Generator().manual_seed(13)
-    a0 = sht.random_alm(gen, l_max, l_max, K, dtype=torch.float32, device=dev)
+    gen = torch.Generator().manual_seed(13 + spin)
+    a0 = random_alm_for(gen, plan, torch.float32, dev)
     d = torch.randn(plan._maps_shape, generator=gen).to(dev)
-    b = sht.random_alm(gen, l_max, l_max, K, dtype=torch.float32, device=dev)
+    b = random_alm_for(gen, plan, torch.float32, dev)
 
     def synth_step():
         a = a0.clone().requires_grad_(True)
@@ -843,8 +994,8 @@ def check_gradients(dev) -> None:
 
     synth_step()                                   # warm-up, plan tables
     anal_step()
-    fused = {"synth_fused_mxu": 1}
-    anal = {"anal_fused_mxu": 1, "anal_reduce": 1}
+    fused = {f"synth_fused_mxu{tag(spin)}": 1}
+    anal = {f"anal_fused_mxu{tag(spin)}": 1, "anal_reduce": 1}
     for what, step, fwd_k, bwd_k in (
             ("sum |alm2map(a) - d|^2", synth_step, fused, anal),
             ("sum |map2alm(m) - b|^2", anal_step, anal, fused)):
@@ -868,14 +1019,63 @@ def check_gradients(dev) -> None:
         with torch.no_grad():
             fwd_ms = host_ms(lambda: plan.alm2map(a0) if synth
                              else plan.map2alm(d))
-        log(f"  {what}, l_max {l_max} K {K} [fused, cuda_mxu]: forward + "
-            f"backward {ms:.2f} ms (forward alone {fwd_ms:.2f} ms)")
+        log(f"  {what}, spin {spin} l_max {l_max} K {K} [fused, cuda_mxu]: "
+            f"forward + backward {ms:.2f} ms (forward alone {fwd_ms:.2f} "
+            "ms)")
+
+
+def main_path(dev, mode: str, l_max: int, K: int, layout: str,
+              spin: int) -> list:
+    """Drive one main path with the launch counters set to 0 just before it
+    and read just after; fail if a kernel of the path never launched or
+    one outside it did.  Then hold and time each of its kernels at the
+    path's own inputs, and time both directions.  Returns the path's
+    entries of the ``kernels`` JSON line."""
+    reset_launches()
+    run = run_main_path(dev, mode, l_max, K, layout, spin)
+    torch.cuda.synchronize()
+    counts = read_launches()
+    log(f"  launches on the {mode} [{layout}] spin {spin} path: "
+        f"{ {k: c for k, c in counts.items() if c} }")
+    var = mode[5:]
+    wanted = PATH_KERNELS[layout](var, tag(spin))
+    missing = [k for k in wanted if counts[k] == 0]
+    stray = [k for k, c in counts.items() if c and k not in wanted]
+    if missing or stray:
+        raise AssertionError(f"{mode} [{layout}] spin {spin} path: never "
+                             f"launched {missing}, launched outside it "
+                             f"{stray}")
+    timed = {"fused": time_fused_kernels, "plain": time_kernels,
+             "packed": time_packed_kernels}[layout](mode, l_max, K, run)
+    out = []
+    for name, r in timed.items():
+        bms, by = r["bound"]
+        log(f"  {name:15s} {r['shape']}: {r['ms']:.3f} ms, bound "
+            f"{bms:.3f} ms ({by}), plain {r['plain_ms']:.1f} ms, "
+            f"library {r['library_ms']}, launches {counts[name]}"
+            + ("" if "tables" not in r else
+               f", tables {'applied' if r['tables'] else 'skipped'}"))
+        base = base_name(name)
+        out.append({
+            "name": name, "route": "cuda", "source": SOURCES[base],
+            "replaces": TPU_KERNELS[base], "spin": spin,
+            "branch": SPIN_STEP if spin and base != name else None,
+            "path": f"{mode} {layout} spin {spin}", "shape": r["shape"],
+            "launches": counts[name], "max_abs_err": r["err"],
+            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": bms,
+            "bound_by": by, "library_ms": r["library_ms"]})
+    time_round_trip(mode, l_max, K, layout, run,
+                    {k: r["ms"] for k, r in timed.items()})
+    del run
+    torch.cuda.empty_cache()
+    return out
 
 
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -897,53 +1097,30 @@ def main() -> int:
 
     log("phase 2: kernels against their plain versions, limit "
         f"{KERNEL_TOL:g}")
-    check_kernels(dev)
-    check_fused_kernels(dev)
-    check_packed_kernels(dev)
+    for spin in SPINS:
+        log(f"  -- spin {spin}" + (": the kernels' spin branch on the 2M "
+                                   "Wigner-d rows" if spin else ""))
+        check_kernels(dev, bool(spin))
+        check_fused_kernels(dev, bool(spin))
+        check_packed_kernels(dev, bool(spin))
 
     log("phase 3: main paths at full width; each kernel against its plain "
         "version at the shapes the path gave it")
     kernels = []
-    for mode, l_max, K, layout in MAIN_PATH:
-        reset_launches()
-        run = run_main_path(dev, mode, l_max, K, layout)
-        torch.cuda.synchronize()
-        counts = read_launches()
-        log(f"  launches on the {mode} [{layout}] path: {counts}")
-        var = mode[5:]
-        wanted = PATH_KERNELS[layout](var)
-        missing = [k for k in wanted if counts[k] == 0]
-        stray = [k for k, c in counts.items() if c and k not in wanted]
-        if missing or stray:
-            raise AssertionError(f"{mode} [{layout}] path: never launched "
-                                 f"{missing}, launched outside it {stray}")
-        timed = {"fused": time_fused_kernels, "plain": time_kernels,
-                 "packed": time_packed_kernels}[layout](mode, l_max, K, run)
-        for name, r in timed.items():
-            bms, by = r["bound"]
-            log(f"  {name:15s} {r['shape']}: {r['ms']:.3f} ms, bound "
-                f"{bms:.3f} ms ({by}), plain {r['plain_ms']:.1f} ms, "
-                f"library {r['library_ms']}, launches {counts[name]}"
-                + ("" if "tables" not in r else
-                   f", tables {'applied' if r['tables'] else 'skipped'}"))
-            kernels.append({
-                "name": name, "route": "cuda", "source": SOURCES[name],
-                "replaces": TPU_KERNELS[name], "path": f"{mode} {layout}",
-                "shape": r["shape"], "launches": counts[name],
-                "max_abs_err": r["err"], "ms": r["ms"],
-                "plain_ms": r["plain_ms"], "bound_ms": bms, "bound_by": by,
-                "library_ms": r["library_ms"]})
-        time_round_trip(mode, l_max, K, layout, run,
-                        {k: r["ms"] for k, r in timed.items()})
-        del run
-        torch.cuda.empty_cache()
+    for spin in SPINS:
+        for mode, l_max, K, layout in MAIN_PATH:
+            kernels += main_path(dev, mode, l_max, K, layout, spin)
 
     log("phase 4: float64 anchor")
-    f64_anchor(dev)
+    for spin in SPINS:
+        f64_anchor(dev, spin)
 
     log("phase 5: gradients on the card")
-    check_gradients(dev)
+    for spin in SPINS:
+        check_gradients(dev, spin)
 
+    log(f"chip_smoke wall time {time.perf_counter() - t_start:.1f} s "
+        "(kernel build included)")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

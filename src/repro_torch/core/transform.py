@@ -29,6 +29,11 @@ staged kernels (``kernels.legendre_cuda``) and the phase stage apart;
 ``kernels.fused_cuda``'s ``*_packed_*``) and the phase stage apart.
 Plans run on the CUDA device unless ``device="cpu"`` is passed.
 
+``spin=2`` plans transform polarisation: (E, B) alm ``(2, M, L, K)`` to
+(Q, U) maps ``(2, R, n_phi, K)`` and back, on every backend and layout.
+Their Legendre stage runs the 2M Wigner-d rows [m' = -2 | m' = +2]
+(the kernels' spin branch), their phase stage takes Q|U as 2K channels.
+
 ``alm2map`` and ``map2alm`` are differentiable on every backend and
 layout (``plan.grad_ready``): each layer carries an adjoint pair
 (``core.autodiff``), so a backward runs the opposite-direction transform
@@ -62,7 +67,7 @@ _CDTYPES = {"float64": torch.complex128, "float32": torch.complex64}
 #: what the reference offers and the port does not yet, with the ROADMAP.md
 #: Open items section 1 item each waits on
 _WAITING = {
-    "mode auto": 9, "mode model": 9, "mode dist": 11, "spin": 7,
+    "mode auto": 9, "mode model": 9, "mode dist": 11,
 }
 
 #: make_plan memoisation: signature key -> Plan
@@ -122,7 +127,7 @@ class Plan:
 
     def __init__(self, grid: RingGrid, l_max: int, m_max: int, K: int,
                  dtype: str, *, mode: str, fold: bool, device: torch.device,
-                 signature_key: str, seeds_key: str):
+                 signature_key: str, seeds_key: str, spin: int = 0):
         self.grid = grid
         self.l_max = int(l_max)
         self.m_max = int(m_max)
@@ -130,7 +135,7 @@ class Plan:
         self.dtype = str(dtype)
         self.mode = mode
         self.fold = bool(fold)
-        self.spin = 0
+        self.spin = int(spin)
         self.device = device
         self._signature_key = signature_key
         self._seeds_key = seeds_key
@@ -156,11 +161,21 @@ class Plan:
 
     @property
     def _alm_shape(self) -> tuple:
-        return (self.m_max + 1, self.l_max + 1, self.K)
+        base = (self.m_max + 1, self.l_max + 1, self.K)
+        return base if self.spin == 0 else (2,) + base
 
     @property
     def _maps_shape(self) -> tuple:
-        return (self.grid.n_rings, self.grid.max_n_phi, self.K)
+        base = (self.grid.n_rings, self.grid.max_n_phi, self.K)
+        return base if self.spin == 0 else (2,) + base
+
+    @property
+    def _rows(self) -> tuple:
+        """The kernel rows (m, m'): (m_vals, None) for spin 0, the 2M
+        stacked [m' = -2 | m' = +2] rows for spin 2."""
+        if self.spin == 0:
+            return self._m_vals, None
+        return legendre._spin_rows(self._m_vals)
 
     # -- precompute (shared by plans on one grid) ------------------------------
 
@@ -192,6 +207,39 @@ class Plan:
             torch.as_tensor(payload["pms"], device=dev))
         return self._seeds_cache
 
+    def _seeds_spin(self):
+        """(m2 i32, x f32, pmm f32, pms i32, mp2 i32) kernel operands of the
+        2M spin rows on the plan's device, the seeds from
+        ``ref.prepare_seeds_spin``; keyed by (grid, m_max, spin) like
+        :meth:`_seeds`."""
+        if self._seeds_cache is not None:
+            return self._seeds_cache
+        from repro_torch.kernels import ref as kref
+        g = self.grid
+        m2, mp2 = self._rows
+
+        def build():
+            pmm, pms = kref.prepare_seeds_spin(m2, mp2, g.cos_theta,
+                                               g.sin_theta, m_max=self.m_max)
+            return {"pmm": pmm, "pms": pms}
+
+        payload = plancache.get_or_build(self._seeds_key, build)
+        self.cache_events.setdefault("seeds_spin", self._seeds_key)
+        dev = self.device
+        i32 = dict(dtype=torch.int32, device=dev)
+        self._seeds_cache = (
+            torch.as_tensor(m2, **i32),
+            torch.as_tensor(g.cos_theta, dtype=torch.float32, device=dev),
+            torch.as_tensor(payload["pmm"], device=dev),
+            torch.as_tensor(payload["pms"], device=dev),
+            torch.as_tensor(mp2, **i32))
+        return self._seeds_cache
+
+    def _row_seeds(self):
+        """(m_rows, x, pmm, pms, mp_rows or None) of the plan's spin."""
+        return self._seeds() + (None,) if self.spin == 0 \
+            else self._seeds_spin()
+
     # -- per-backend execution ------------------------------------------------
 
     def _fn(self, direction: str, backend: str, layout: Optional[str]):
@@ -200,8 +248,12 @@ class Plan:
         key = (direction, backend, layout)
         if key not in self._fns:
             if backend == "torch":
-                fn = (self._sht.alm2map if direction == "synth"
-                      else self._sht.map2alm)
+                if self.spin:
+                    fn = (self._sht.alm2map_spin if direction == "synth"
+                          else self._sht.map2alm_spin)
+                else:
+                    fn = (self._sht.alm2map if direction == "synth"
+                          else self._sht.map2alm)
             elif backend not in ("cuda_vpu", "cuda_mxu"):
                 raise ValueError(f"unknown backend {backend!r}")
             elif layout == "fused":
@@ -230,6 +282,8 @@ class Plan:
         return self._fn("anal", backend, layout)
 
     def _make_kernel_synth(self, variant: str, layout: str):
+        if self.spin:
+            return self._make_kernel_synth_spin(variant, layout)
         from repro_torch.kernels import ops as kops
         K, nh = self.K, (self.grid.n_rings + 1) // 2
         ns = nh - 1 if self.grid.n_rings % 2 == 1 else nh
@@ -254,6 +308,8 @@ class Plan:
         return fn
 
     def _make_kernel_anal(self, variant: str, layout: str):
+        if self.spin:
+            return self._make_kernel_anal_spin(variant, layout)
         from repro_torch.kernels import ops as kops
         K, R = self.K, self.grid.n_rings
         nh = (R + 1) // 2
@@ -281,6 +337,77 @@ class Plan:
 
         return fn
 
+    def _spin_mask(self) -> torch.Tensor:
+        """(1, M, L, 1) bool: the valid (m, l >= max(m, 2)) entries of an
+        (E, B) alm pair."""
+        return torch.as_tensor(alm_mask(self.l_max, self.m_max, spin=2),
+                               device=self.device)[None, ..., None]
+
+    @staticmethod
+    def _eb_rows(alm_eb) -> torch.Tensor:
+        """(E, B) alm (2, M, L, K) -> the stacked a^{+-} rows (2M, L, 2K)
+        f32, re | im."""
+        e, b = alm_eb[0], alm_eb[1]
+        a2_re, a2_im = legendre.spin_pack_alm(e.real, e.imag, b.real, b.imag)
+        return torch.cat([a2_re, a2_im], dim=-1).to(torch.float32)
+
+    def _eb_alm(self, out) -> torch.Tensor:
+        """The a^{+-} rows (2M, L, 2K) f32 -> masked (E, B) alm (2, M, L,
+        K) in the plan's complex dtype."""
+        K, cdt = self.K, _CDTYPES[self.dtype]
+        e_re, e_im, b_re, b_im = legendre.spin_unpack_alm(out[..., :K],
+                                                          out[..., K:])
+        alm = torch.stack([torch.complex(e_re, e_im),
+                           torch.complex(b_re, b_im)], dim=0).to(cdt)
+        return torch.where(self._spin_mask(), alm,
+                           torch.zeros((), dtype=cdt, device=alm.device))
+
+    def _make_kernel_synth_spin(self, variant: str, layout: str):
+        """Spin-2 staged synthesis: the a^{+-} rows through the kernels'
+        spin branch, Delta^{+-} unpacked into Q|U channels, the phase
+        stage on 2K channels."""
+        from repro_torch.kernels import ops as kops
+        K, cdt, rdt = self.K, _CDTYPES[self.dtype], _DTYPES[self.dtype]
+        m_t, x32, pmm, pms, mp_t = self._seeds_spin()
+
+        def fn(alm_eb):
+            out = kops.synth(self._eb_rows(alm_eb), m_t, x32, pmm, pms,
+                             l_max=self.l_max, variant=variant,
+                             layout=layout, store=self._fused_store,
+                             mp_vals=mp_t)
+            flat = out[:, 0]                             # (2M, R, 2K)
+            dq_re, dq_im, du_re, du_im = legendre.spin_unpack_delta(
+                flat[..., :K], flat[..., K:])
+            delta = torch.cat([torch.complex(dq_re, dq_im),
+                               torch.complex(du_re, du_im)], dim=-1)
+            s = self._sht.phase.synth(delta.to(cdt)).to(rdt)
+            return torch.stack([s[..., :K], s[..., K:]], dim=0)
+
+        return fn
+
+    def _make_kernel_anal_spin(self, variant: str, layout: str):
+        """Spin-2 staged analysis: the phase stage on the Q|U channels, the
+        bins packed into Delta^{+-} rows, the kernels' spin branch, the
+        a^{+-} rows unpacked into (E, B)."""
+        from repro_torch.kernels import ops as kops
+        K, rdt = self.K, _DTYPES[self.dtype]
+        m_t, x32, pmm, pms, mp_t = self._seeds_spin()
+
+        def fn(maps_qu):
+            dwc = self._sht.phase.anal(
+                torch.cat([maps_qu[0], maps_qu[1]], dim=-1).to(rdt))
+            d2_re, d2_im = legendre.spin_pack_delta(
+                dwc[..., :K].real, dwc[..., :K].imag, dwc[..., K:].real,
+                dwc[..., K:].imag)
+            dw = torch.cat([d2_re, d2_im], dim=-1).to(torch.float32)
+            out = kops.anal(dw[:, None], m_t, x32, pmm, pms,
+                            l_max=self.l_max, variant=variant,
+                            layout=layout, store=self._fused_store,
+                            mp_vals=mp_t)
+            return self._eb_alm(out)
+
+        return fn
+
     # -- fused pipeline (layout "fused") --------------------------------------
 
     def _fusion_eligibility(self) -> tuple:
@@ -288,36 +415,44 @@ class Plan:
 
         See :func:`_fusion_eligibility`.
         """
-        return _fusion_eligibility(self.grid, self.spin)
+        return _fusion_eligibility(self.grid, self.spin, self.m_max)
 
     def _fused_layout(self):
-        """The packed slot layout shared by the fused and packed directions:
+        """The packed slot layout shared by the fused and packed directions
+        (of the 2M spin rows on a spin-2 plan):
         ``kernels.ops._resolve_layout``'s, kept in the plan's store under
         ``"layout"``."""
         from repro_torch.kernels import ops as kops
-        return kops._resolve_layout(self._m_vals, "packed", self.l_max,
-                                    self._fused_store)
+        rows, mp = self._rows
+        return kops._resolve_layout(rows, "packed", self.l_max,
+                                    self._fused_store, mp_vals=mp)
 
     def _fused_parts(self, variant: str):
         """(seeds, keyword block) of the fused kernel chains: the uniform
         phase stage's FFT length and ring offsets, the fold's full ring
-        count, and the plan's store of packed seeds, tables and indices."""
+        count, the rows' m' (spin 2), and the plan's store of packed seeds,
+        tables and indices."""
         g = self.grid
-        m_t, x32, pmm, pms = self._seeds()
+        _, x32, pmm, pms, _ = self._row_seeds()
         kw = dict(l_max=self.l_max, variant=variant, lo=self._fused_layout(),
                   n=self.phase.n, phi0=g.phi0,
                   fold_rings=g.n_rings if self.fold else None,
-                  store=self._fused_store)
+                  mp_vals=self._rows[1], store=self._fused_store)
         return (x32, pmm, pms), kw
 
     def _make_fused_synth(self, variant: str):
         from repro_torch.kernels import fused as kfused
         K, rdt = self.K, _DTYPES[self.dtype]
         (x32, pmm, pms), kw = self._fused_parts(variant)
+        rows = self._rows[0]
 
         def fn(alm):
+            if self.spin:
+                s = kfused.fused_synth(self._eb_rows(alm), rows, x32, pmm,
+                                       pms, **kw).to(rdt)
+                return torch.stack([s[..., :K], s[..., K:]], dim=0)
             a32 = torch.cat([alm.real, alm.imag], dim=-1).to(torch.float32)
-            maps = kfused.fused_synth(a32, self._m_vals, x32, pmm, pms, **kw)
+            maps = kfused.fused_synth(a32, rows, x32, pmm, pms, **kw)
             return maps.to(rdt)
 
         return fn
@@ -326,13 +461,19 @@ class Plan:
         from repro_torch.kernels import fused as kfused
         K, cdt = self.K, _CDTYPES[self.dtype]
         (x32, pmm, pms), kw = self._fused_parts(variant)
+        rows = self._rows[0]
         mask = torch.as_tensor(alm_mask(self.l_max, self.m_max),
                                device=self.device)[..., None]
 
         def fn(maps):
             # the quadrature weights are applied outside the kernel chain
-            out = kfused.fused_anal(maps, self.grid.weights, self._m_vals,
-                                    x32, pmm, pms, **kw)
+            if self.spin:
+                out = kfused.fused_anal(
+                    torch.cat([maps[0], maps[1]], dim=-1), self.grid.weights,
+                    rows, x32, pmm, pms, **kw)
+                return self._eb_alm(out)
+            out = kfused.fused_anal(maps, self.grid.weights, rows, x32, pmm,
+                                    pms, **kw)
             alm = torch.complex(out[..., :K], out[..., K:]).to(cdt)
             return torch.where(mask, alm, torch.zeros((), dtype=cdt,
                                                       device=alm.device))
@@ -350,12 +491,14 @@ class Plan:
 
     def alm2map(self, alm) -> torch.Tensor:
         """Inverse SHT: alm ``(m_max+1, l_max+1, K)`` complex -> maps
-        ``(R, n_phi, K)`` real, on the plan's device."""
+        ``(R, n_phi, K)`` real, on the plan's device; on a spin-2 plan
+        (E, B) alm ``(2, M, L, K)`` -> (Q, U) maps ``(2, R, n_phi, K)``."""
         alm = self._as_input(alm, self._alm_shape, "alm")
         return self._synth_fn(self.backends["synth"])(alm)
 
     def map2alm(self, maps, iters: int = 0) -> torch.Tensor:
-        """Direct SHT: maps -> alm.  ``iters > 0`` adds Jacobi residual
+        """Direct SHT: maps -> alm (spin 2: (Q, U) maps -> (E, B) alm, the
+        shapes of :meth:`alm2map`).  ``iters > 0`` adds Jacobi residual
         refinement passes (one synthesis and one analysis each)."""
         maps = self._as_input(maps, self._maps_shape, "maps")
         anal = self._anal_fn(self.backends["anal"])
@@ -377,13 +520,14 @@ class Plan:
         """Estimated working-set bytes per buffer class."""
         g = self.grid
         M, L1, K = self.m_max + 1, self.l_max + 1, self.K
+        ncomp = 1 if self.spin == 0 else 2
         csize = 16 if self.dtype == "float64" else 8
         rsize = csize // 2
         out = {
-            "alm_bytes": M * L1 * K * csize,
-            "maps_bytes": g.n_rings * g.max_n_phi * K * rsize,
-            "delta_bytes": M * g.n_rings * K * csize,
-            "seed_bytes": (2 * M * g.n_rings * 4
+            "alm_bytes": ncomp * M * L1 * K * csize,
+            "maps_bytes": ncomp * g.n_rings * g.max_n_phi * K * rsize,
+            "delta_bytes": ncomp * M * g.n_rings * K * csize,
+            "seed_bytes": (ncomp * 2 * M * g.n_rings * 4
                            if any(b.startswith("cuda")
                                   for b in self.backends.values()) else 0),
         }
@@ -427,8 +571,9 @@ class Plan:
             "skipped": dict(self.skipped),
             # the packed-vs-plain grid accounting of the Legendre stage
             "legendre": {"layouts": layouts,
-                         "panels": kpack.panel_counts(self._m_vals,
-                                                      self.l_max)},
+                         "panels": kpack.panel_counts(
+                             self._rows[0], self.l_max,
+                             mp_vals=self._rows[1])},
             "phase": self._sht.phase.describe(),
             "memory": self.memory_footprint(),
             "cache": {"events": dict(self.cache_events),
@@ -441,8 +586,8 @@ class Plan:
         s = d["signature"]
         lines = [
             f"Plan {s['grid']} l_max={s['l_max']} m_max={s['m_max']} "
-            f"K={s['K']} {s['dtype']} fold={s['fold']} mode={d['mode']} "
-            f"device={d['device']}",
+            f"K={s['K']} {s['dtype']} fold={s['fold']} spin={s['spin']} "
+            f"mode={d['mode']} device={d['device']}",
             f"  rings={s['n_rings']} n_phi={s['n_phi']} "
             f"memory ~{d['memory']['total_bytes'] / 1e6:.2f} MB",
         ]
@@ -465,20 +610,22 @@ class Plan:
                 f"backends={self.backends})")
 
 
-def _fusion_eligibility(grid: RingGrid, spin: int) -> tuple:
+def _fusion_eligibility(grid: RingGrid, spin: int, m_max: int) -> tuple:
     """(eligible, reason) for the fused Legendre+phase pipeline.
 
-    The port's fused kernels cover spin 0 on a uniform phase stage,
-    equator fold on or off.  The fused ring-bucket stage waits for
-    ROADMAP.md Open items section 1, item 8, and the spin-2 row set for
-    item 7.
+    The port's fused kernels cover spin 0 (equator fold on or off) and
+    spin 2 on a uniform phase stage; the fused ring-bucket stage waits for
+    ROADMAP.md Open items section 1, item 8.  As in the reference, spin 2
+    at the uniform Nyquist alias point stays staged: the real-part
+    doubling there is not complex-linear, so it cannot commute with the
+    lambda^{+-} pair unpacking that follows the in-kernel rotation.
     """
     if not grid.uniform:
         return False, ("the fused ring-bucket phase stage waits for "
                        "ROADMAP.md Open items section 1, item 8")
-    if spin != 0:
-        return False, ("the fused spin-2 kernels wait for ROADMAP.md "
-                       "Open items section 1, item 7")
+    if spin != 0 and grid.max_n_phi == 2 * m_max:
+        return False, ("spin-2 at the Nyquist alias point "
+                       "(n_phi == 2*m_max) is not fused (staged path)")
     return True, None
 
 
@@ -520,7 +667,10 @@ def make_plan(grid: Union[str, RingGrid] = "gl", l_max: Optional[int] = None,
         ``None``: ``torch`` for float64, else the kernel variant of the
         static ``2K >= 16 -> mxu`` rule.  ``"auto"``/``"model"``/``"dist"``
         raise (not ported yet).
-    fold : the equator fold (symmetric grids only).
+    fold : the equator fold (symmetric grids only, spin 0 only).
+    spin : 0 (scalar) or 2 (polarisation): a spin-2 plan transforms (E, B)
+        alm ``(2, M, L, K)`` to/from (Q, U) maps ``(2, R, n_phi, K)``;
+        needs ``l_max >= 2``.
     layout : the Legendre layout of the ``cuda_*`` backends: ``None`` (the
         default) means ``"fused"`` where the plan is eligible, else
         ``"plain"``; ``"plain"`` and ``"packed"`` run the staged kernels
@@ -539,8 +689,10 @@ def make_plan(grid: Union[str, RingGrid] = "gl", l_max: Optional[int] = None,
                          f"name {BACKENDS}")
     if layout not in (None, "plain", "packed", "fused"):
         raise ValueError(f"unknown layout {layout!r}")
-    if spin != 0:
-        raise _not_ported("spin")
+    if spin not in (0, 2):
+        raise ValueError(f"unsupported spin {spin!r}: expected 0 or 2")
+    if spin and fold:
+        raise ValueError("fold is not supported for spin transforms")
     if dtype not in _DTYPES:
         raise ValueError(f"dtype must be 'float64' or 'float32', got {dtype!r}")
     if isinstance(grid, str) and l_max is None:
@@ -552,6 +704,9 @@ def make_plan(grid: Union[str, RingGrid] = "gl", l_max: Optional[int] = None,
     m_max = l_max if m_max is None else m_max
     if m_max > l_max:
         raise ValueError(f"m_max {m_max} > l_max {l_max}")
+    if l_max < spin:
+        raise ValueError(f"a spin-{spin} plan needs l_max >= {spin}, got "
+                         f"{l_max}")
     if fold and not g.equator_symmetric:
         raise ValueError("fold requires an equator-symmetric grid")
     if mode is None:
@@ -563,22 +718,22 @@ def make_plan(grid: Union[str, RingGrid] = "gl", l_max: Optional[int] = None,
             raise ValueError(f"layout {layout!r} applies to the cuda_* "
                              "backends, not to 'torch'")
     else:
-        fusion_ok, reason = _fusion_eligibility(g, spin)
+        fusion_ok, reason = _fusion_eligibility(g, spin, m_max)
         if layout == "fused" and not fusion_ok:
             raise ValueError(f"fused layout unavailable: {reason}")
         layout = layout or ("fused" if fusion_ok else "plain")
 
     sig_key = plancache.signature_key(
         "plan", l_max=l_max, m_max=m_max, K=K, dtype=dtype, mode=mode,
-        fold=fold, layout=layout, device=str(dev), **grid_sig)
+        fold=fold, spin=spin, layout=layout, device=str(dev), **grid_sig)
     if sig_key in _PLANS:
         plancache.stats().memory_hits += 1
         return _PLANS[sig_key]
 
     seeds_key = plancache.signature_key("seeds", m_max=m_max, fold=fold,
-                                        **grid_sig)
-    plan = Plan(g, l_max, m_max, K, dtype, mode=mode, fold=fold, device=dev,
-                signature_key=sig_key, seeds_key=seeds_key)
+                                        spin=spin, **grid_sig)
+    plan = Plan(g, l_max, m_max, K, dtype, mode=mode, fold=fold, spin=spin,
+                device=dev, signature_key=sig_key, seeds_key=seeds_key)
     elig = backend_eligibility(g, dtype)
     plan.candidates = [b for b in BACKENDS if elig[b] is None]
     if mode not in plan.candidates:

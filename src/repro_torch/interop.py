@@ -6,7 +6,10 @@ operands of a slot layout.  :func:`from_reference` takes those as the
 reference produces them (numpy arrays) and returns the port's tensors on
 a device, so one set of inputs can be fed to both packages.  Layouts are
 unchanged, except that the reference's ring axis padded to (R1, 128)
-tiles becomes the port's unpadded ring axis of ``n_rings``.
+tiles becomes the port's unpadded ring axis of ``n_rings``.  The spin-2
+fields are the same names with a leading component axis of 2: (E, B) alm
+and (Q, U) maps; their seeds are the ``pmm``/``pms`` fields over the 2M
+spin rows.
 """
 
 from __future__ import annotations
@@ -21,7 +24,8 @@ from repro_torch.core.transform import resolve_device
 __all__ = ["from_reference"]
 
 #: field -> (dtype, ndim) in the port; ``None`` keeps the array's own
-#: (float or complex) precision
+#: (float or complex) precision; ``alm`` and ``maps`` also take the spin-2
+#: pairs, one more leading axis of length 2
 _FIELDS = {
     "cos_theta": (torch.float64, 1),
     "sin_theta": (torch.float64, 1),
@@ -30,8 +34,8 @@ _FIELDS = {
     "n_phi": (torch.int64, 1),
     "pmm": (torch.float32, 2),          # (Mp, R) seed mantissas
     "pms": (torch.int32, 2),            # (Mp, R) seed scales
-    "alm": (None, 3),                   # (M, L, K) complex
-    "maps": (None, 3),                  # (R, n_phi, K) real
+    "alm": (None, 3),                   # (M, L, K) / (2, M, L, K) complex
+    "maps": (None, 3),                  # (R, n_phi, K) / (2, R, n_phi, K)
     "a_pk": (torch.float32, 3),         # (n_slots, S, 2K) packed streams
     "slot_maps": (torch.int32, 2),      # (5, n_slots): m0, m1, mp0, mp1, seed
     "pmm_pk": (torch.float32, 4),       # (n_slots, 2, R1, 128) -> (.., R)
@@ -42,6 +46,9 @@ _FIELDS = {
 #: fields whose last two axes are the reference's (R1, 128) ring tiles
 _RING_TILED = ("pmm_pk", "pms_pk", "tab_pk")
 
+#: fields that also come as a spin-2 pair: (E, B) alm, (Q, U) maps
+_SPIN_PAIRS = ("alm", "maps")
+
 
 def from_reference(arrays: Mapping[str, np.ndarray], device=None,
                    n_rings: Optional[int] = None) -> dict[str, torch.Tensor]:
@@ -49,8 +56,9 @@ def from_reference(arrays: Mapping[str, np.ndarray], device=None,
     device, which must be visible).
 
     Keys are grid fields (``cos_theta``, ``sin_theta``, ``weights``,
-    ``n_phi``, ``phi0``), seeds (``pmm``, ``pms``), ``alm`` (complex),
-    ``maps`` (real), and the packed operands of the fused kernels:
+    ``n_phi``, ``phi0``), seeds (``pmm``, ``pms``), ``alm`` (complex, or
+    the (E, B) pair (2, M, L, K)), ``maps`` (real, or the (Q, U) pair (2,
+    R, n_phi, K)), and the packed operands of the fused kernels:
     ``a_pk``, ``slot_maps`` (the five per-slot maps stacked), and the
     ring-tiled ``pmm_pk``/``pms_pk``/``tab_pk``, whose (R1, 128) ring tiles
     are flattened and cut to ``n_rings`` (required for them).  Values are
@@ -64,8 +72,14 @@ def from_reference(arrays: Mapping[str, np.ndarray], device=None,
                            f"{sorted(_FIELDS)}")
         dtype, ndim = _FIELDS[name]
         a = np.array(arr, copy=True)
-        if a.ndim != ndim:
-            raise ValueError(f"{name} has {a.ndim} dims, expected {ndim}")
+        pair = name in _SPIN_PAIRS and a.ndim == ndim + 1
+        if a.ndim != ndim and not pair:
+            raise ValueError(f"{name} has {a.ndim} dims, expected {ndim}"
+                             + (f" (or {ndim + 1}, a spin-2 pair)"
+                                if name in _SPIN_PAIRS else ""))
+        if pair and a.shape[0] != 2:
+            raise ValueError(f"a spin-2 {name} pair has 2 components, got "
+                             f"{a.shape[0]}")
         if name == "alm" and not np.iscomplexobj(a):
             raise ValueError("alm must be complex")
         if name == "maps" and np.iscomplexobj(a):

@@ -31,6 +31,15 @@
 // fold off a packed and a fused kernel run the same code and give the same
 // bits.
 //
+// Every template also has its spin branch (SPIN = true, selected by non-null
+// mp0/mp1 slot maps): the Wigner-d rows (m, m') of the spin-2 transforms, run
+// by the reference's `_f32_step_spin` (legendre_pallas.py:116) through
+// recurrence.cuh's fill_coef / rec_step.  A segment then starts at
+// l0 = max(m, |m'|) (segment(), live_end()), as the spin slot layout of
+// kernels/pack.py places it; the phase rotation and the channel layout are
+// spin-blind.  The spin-2 plans never fold, so SPIN comes with FOLD = false
+// only, and its packed kernels run the fused instantiation too.
+//
 // Kernels (TPU kernel each replaces; what bounds it on the H100; design):
 //
 //   synth_fused_vpu  replaces synth_fused_vpu, src/repro/kernels/fused.py:222.
@@ -90,33 +99,45 @@
 
 namespace {
 
-// One segment of a slot's l-stream: its m, first stream position, and
-// number of l steps (0 for an empty segment 1).
+// The per-slot maps of the layout: m and (spin branch) m' per segment, and
+// the stream position where segment 1 seeds (S: no segment 1).
+struct SlotMaps {
+  const int* m0;
+  const int* m1;
+  const int* mp0;   // null unless SPIN
+  const int* mp1;
+  const int* seed;
+};
+
+// One segment of a slot's l-stream: its m and m', first multipole lz (m, or
+// max(m, |m'|) with SPIN), first stream position g0, and number of l steps
+// (0 for an empty segment 1).
 struct Seg {
   int m;
+  int mp;
+  int lz;
   int g0;
   int len;
 };
 
-__device__ __forceinline__ Seg segment(const int* __restrict__ m0s,
-                                       const int* __restrict__ m1s,
-                                       const int* __restrict__ seeds, int si,
-                                       int seg, int S, int l_max) {
-  if (seg == 0) {
-    const int m = m0s[si];
-    return {m, 0, l_max + 1 - m};
-  }
-  const int m = m1s[si], seed = seeds[si];
-  return {m, seed, seed < S ? l_max + 1 - m : 0};
+template <bool SPIN>
+__device__ __forceinline__ Seg segment(const SlotMaps& sm, int si, int seg,
+                                       int S, int l_max) {
+  const int m = seg == 0 ? sm.m0[si] : sm.m1[si];
+  const int mp = SPIN ? (seg == 0 ? sm.mp0[si] : sm.mp1[si]) : 0;
+  const int lz = row_start<SPIN>(m, mp);
+  if (seg == 0) return {m, mp, lz, 0, l_max + 1 - lz};
+  const int seed = sm.seed[si];
+  return {m, mp, lz, seed, seed < S ? l_max + 1 - lz : 0};
 }
 
 // First stream position past both segments: the dead tail starts here.
-__device__ __forceinline__ int live_end(const int* __restrict__ m0s,
-                                        const int* __restrict__ m1s,
-                                        const int* __restrict__ seeds, int si,
-                                        int S, int l_max) {
-  const int seed = seeds[si];
-  return seed < S ? seed + l_max + 1 - m1s[si] : l_max + 1 - m0s[si];
+template <bool SPIN>
+__device__ __forceinline__ int live_end(const SlotMaps& sm, int si, int S,
+                                        int l_max) {
+  const Seg s1 = segment<SPIN>(sm, si, 1, S, l_max);
+  return s1.len > 0 ? s1.g0 + s1.len
+                    : segment<SPIN>(sm, si, 0, S, l_max).len;
 }
 
 // Global channel of local channel c of a chunk of KM maps from map k0:
@@ -160,12 +181,10 @@ __device__ __forceinline__ void zero_tail(float* __restrict__ part,
 // synth_fused_vpu: grid (ceil(R / 128), n_slots, ceil(K / KM)), block 128.
 // out (n_slots, 2, P, 2K, R).
 // ---------------------------------------------------------------------------
-template <int KM, bool FOLD, bool COMBINE>
+template <int KM, bool FOLD, bool COMBINE, bool SPIN>
 __global__ void __launch_bounds__(kTile)
 synth_fused_vpu_kernel(const float* __restrict__ a_pk,
-                       const int* __restrict__ m0s,
-                       const int* __restrict__ m1s,
-                       const int* __restrict__ seeds,
+                       const SlotMaps sm,
                        const float* __restrict__ x,
                        const float* __restrict__ pmm_pk,
                        const int* __restrict__ pms_pk,
@@ -174,7 +193,7 @@ synth_fused_vpu_kernel(const float* __restrict__ a_pk,
   constexpr int P = FOLD ? 2 : 1;
   constexpr int CC = 2 * KM;
   __shared__ __align__(16) float a_s[kLT][CC];
-  __shared__ float bl_s[kLT], ratio_s[kLT];
+  __shared__ float bl_s[kLT], ratio_s[kLT], c_s[SPIN ? kLT : 1];
   const int si = blockIdx.y;
   const int r = blockIdx.x * kTile + threadIdx.x;
   const int k0 = blockIdx.z * KM;
@@ -184,34 +203,34 @@ synth_fused_vpu_kernel(const float* __restrict__ a_pk,
   const float xr = live ? x[r] : 0.0f;
 
   for (int seg = 0; seg < 2; ++seg) {
-    const Seg sg = segment(m0s, m1s, seeds, si, seg, S, l_max);
+    const Seg sg = segment<SPIN>(sm, si, seg, S, l_max);
     const size_t srow = (static_cast<size_t>(si) * 2 + seg) * R + r;
     const float pmm_r = live ? pmm_pk[srow] : 0.0f;
     const int pms_r = live ? pms_pk[srow] : 0;
     const float p1 = p_first_coef(sg.m);
-    const int l_end = sg.m + sg.len;
+    const int l_end = sg.lz + sg.len;
     float acc[P][CC];
 #pragma unroll
     for (int p = 0; p < P; ++p)
 #pragma unroll
       for (int c = 0; c < CC; ++c) acc[p][c] = 0.0f;
     Rec s;
-    for (int l0 = sg.m; l0 < l_end; l0 += kLT) {   // block-uniform
+    for (int l0 = sg.lz; l0 < l_end; l0 += kLT) {  // block-uniform
       const int n = min(kLT, l_end - l0);
       __syncthreads();                             // previous tile consumed
       for (int i = threadIdx.x; i < kLT * CC; i += kTile) {
         const int j = i / CC, c = i % CC;
         a_s[j][c] = (j < n && c % KM < nk)
-            ? a_pk[(static_cast<size_t>(si) * S + sg.g0 + l0 - sg.m + j) * K2 +
-                   channel<KM>(c, k0, K)]
+            ? a_pk[(static_cast<size_t>(si) * S + sg.g0 + l0 - sg.lz + j) *
+                       K2 + channel<KM>(c, k0, K)]
             : 0.0f;
       }
-      fill_beta(l0, sg.m, bl_s, ratio_s);
+      fill_coef<SPIN>(l0, sg.m, sg.mp, bl_s, ratio_s, c_s);
       __syncthreads();
       for (int j = 0; j < n; ++j) {
         const int l = l0 + j;
-        const float v = rec_advance(&s, l, sg.m, xr, bl_s[j], ratio_s[j], p1,
-                                    pmm_r, pms_r);
+        const float v = rec_step<SPIN>(&s, l, sg.lz, xr, bl_s, ratio_s, c_s,
+                                       j, p1, pmm_r, pms_r);
         if (FOLD && ((l + sg.m) & 1)) {
 #pragma unroll
           for (int c = 0; c < CC; ++c)
@@ -252,12 +271,10 @@ synth_fused_vpu_kernel(const float* __restrict__ a_pk,
 // sums; the epilogue stages them in shared memory and rotates with one
 // thread per ring.  out (n_slots, 2, P, R, 2K).
 // ---------------------------------------------------------------------------
-template <int KM, bool FOLD, bool COMBINE>
+template <int KM, bool FOLD, bool COMBINE, bool SPIN>
 __global__ void __launch_bounds__(kTile)
 synth_fused_mxu_kernel(const float* __restrict__ a_pk,
-                       const int* __restrict__ m0s,
-                       const int* __restrict__ m1s,
-                       const int* __restrict__ seeds,
+                       const SlotMaps sm,
                        const float* __restrict__ x,
                        const float* __restrict__ pmm_pk,
                        const int* __restrict__ pms_pk,
@@ -271,7 +288,7 @@ synth_fused_mxu_kernel(const float* __restrict__ a_pk,
   __shared__ __align__(16) float panel_s[kLT][kTile];
   __shared__ __align__(16) float coef_s[kLT][CC];
   __shared__ float stage_s[P][kTile][CC + 1];
-  __shared__ float bl_s[kLT], ratio_s[kLT];
+  __shared__ float bl_s[kLT], ratio_s[kLT], c_s[SPIN ? kLT : 1];
   const int si = blockIdx.y;
   const int tile0 = blockIdx.x * kTile;
   const int k0 = blockIdx.z * KM;
@@ -284,12 +301,12 @@ synth_fused_mxu_kernel(const float* __restrict__ a_pk,
   const float xr = live ? x[r] : 0.0f;
 
   for (int seg = 0; seg < 2; ++seg) {
-    const Seg sg = segment(m0s, m1s, seeds, si, seg, S, l_max);
+    const Seg sg = segment<SPIN>(sm, si, seg, S, l_max);
     const size_t srow = (static_cast<size_t>(si) * 2 + seg) * R + r;
     const float pmm_r = live ? pmm_pk[srow] : 0.0f;
     const int pms_r = live ? pms_pk[srow] : 0;
     const float p1 = p_first_coef(sg.m);
-    const int l_end = sg.m + sg.len;
+    const int l_end = sg.lz + sg.len;
     float acc[P][TR][TC];
 #pragma unroll
     for (int p = 0; p < P; ++p)
@@ -298,21 +315,21 @@ synth_fused_mxu_kernel(const float* __restrict__ a_pk,
 #pragma unroll
         for (int k = 0; k < TC; ++k) acc[p][i][k] = 0.0f;
     Rec s;
-    for (int l0 = sg.m; l0 < l_end; l0 += kLT) {   // block-uniform
+    for (int l0 = sg.lz; l0 < l_end; l0 += kLT) {  // block-uniform
       const int n = min(kLT, l_end - l0);
       __syncthreads();                             // previous panel consumed
-      fill_beta(l0, sg.m, bl_s, ratio_s);
+      fill_coef<SPIN>(l0, sg.m, sg.mp, bl_s, ratio_s, c_s);
       for (int i = t; i < kLT * CC; i += kTile) {
         const int j = i / CC, c = i % CC;
         coef_s[j][c] = (j < n && c % KM < nk)
-            ? a_pk[(static_cast<size_t>(si) * S + sg.g0 + l0 - sg.m + j) * K2 +
-                   channel<KM>(c, k0, K)]
+            ? a_pk[(static_cast<size_t>(si) * S + sg.g0 + l0 - sg.lz + j) *
+                       K2 + channel<KM>(c, k0, K)]
             : 0.0f;
       }
       __syncthreads();
       for (int j = 0; j < n; ++j)                  // build the P panel
-        panel_s[j][t] = rec_advance(&s, l0 + j, sg.m, xr, bl_s[j],
-                                    ratio_s[j], p1, pmm_r, pms_r);
+        panel_s[j][t] = rec_step<SPIN>(&s, l0 + j, sg.lz, xr, bl_s, ratio_s,
+                                       c_s, j, p1, pmm_r, pms_r);
       __syncthreads();
       for (int j = 0; j < n; ++j) {                // contract over l
         float pv[TR], cv[TC];
@@ -378,12 +395,10 @@ synth_fused_mxu_kernel(const float* __restrict__ a_pk,
 // chunk0 + k * 128 + t, k < 8.  f_pk (n_slots, 2, P, 2K, R).
 // grid (n_chunks, n_slots, ceil(K / KM)), block 128.
 // ---------------------------------------------------------------------------
-template <int KM, bool FOLD, bool COMBINE>
+template <int KM, bool FOLD, bool COMBINE, bool SPIN>
 __global__ void __launch_bounds__(kTile)
 anal_fused_vpu_kernel(const float* __restrict__ f_pk,
-                      const int* __restrict__ m0s,
-                      const int* __restrict__ m1s,
-                      const int* __restrict__ seeds,
+                      const SlotMaps sm,
                       const float* __restrict__ x,
                       const float* __restrict__ pmm_pk,
                       const int* __restrict__ pms_pk,
@@ -393,7 +408,7 @@ anal_fused_vpu_kernel(const float* __restrict__ f_pk,
   constexpr int CC = 2 * KM;
   constexpr int kWarps = kTile / 32;
   __shared__ float row_s[kWarps][kLT][CC];
-  __shared__ float bl_s[kLT], ratio_s[kLT];
+  __shared__ float bl_s[kLT], ratio_s[kLT], c_s[SPIN ? kLT : 1];
   const int si = blockIdx.y;
   const int chunk = blockIdx.x;
   const int base = chunk * kVpuAnalTiles * kTile;
@@ -411,10 +426,10 @@ anal_fused_vpu_kernel(const float* __restrict__ f_pk,
     xr[k] = (k < ntile && r < R) ? x[r] : 0.0f;
   }
   for (int seg = 0; seg < 2; ++seg) {
-    const Seg sg = segment(m0s, m1s, seeds, si, seg, S, l_max);
+    const Seg sg = segment<SPIN>(sm, si, seg, S, l_max);
     if (sg.len == 0) continue;                     // block-uniform
     const float p1 = p_first_coef(sg.m);
-    const int l_end = sg.m + sg.len;
+    const int l_end = sg.lz + sg.len;
     float pmm_r[kVpuAnalTiles];
     int pms_r[kVpuAnalTiles];
     float d[kVpuAnalTiles][P][CC];                 // rotated Delta, planes
@@ -456,9 +471,9 @@ anal_fused_vpu_kernel(const float* __restrict__ f_pk,
     }
 
     Rec s[kVpuAnalTiles];
-    for (int l0 = sg.m; l0 < l_end; l0 += kLT) {   // block-uniform
+    for (int l0 = sg.lz; l0 < l_end; l0 += kLT) {  // block-uniform
       const int n = min(kLT, l_end - l0);
-      fill_beta(l0, sg.m, bl_s, ratio_s);
+      fill_coef<SPIN>(l0, sg.m, sg.mp, bl_s, ratio_s, c_s);
       __syncthreads();
       for (int j = 0; j < n; ++j) {
         const int l = l0 + j;
@@ -469,8 +484,9 @@ anal_fused_vpu_kernel(const float* __restrict__ f_pk,
 #pragma unroll
         for (int k = 0; k < kVpuAnalTiles; ++k) {
           if (k < ntile) {                         // block-uniform
-            const float v = rec_advance(&s[k], l, sg.m, xr[k], bl_s[j],
-                                        ratio_s[j], p1, pmm_r[k], pms_r[k]);
+            const float v = rec_step<SPIN>(&s[k], l, sg.lz, xr[k], bl_s,
+                                           ratio_s, c_s, j, p1, pmm_r[k],
+                                           pms_r[k]);
             if (p) {
 #pragma unroll
               for (int c = 0; c < CC; ++c)
@@ -499,15 +515,15 @@ anal_fused_vpu_kernel(const float* __restrict__ f_pk,
           float total = 0.0f;
 #pragma unroll
           for (int w = 0; w < kWarps; ++w) total += row_s[w][j][c];
-          part[(chunk_row + sg.g0 + l0 - sg.m + j) * K2 +
+          part[(chunk_row + sg.g0 + l0 - sg.lz + j) * K2 +
                channel<KM>(c, k0, K)] = total;
         }
       }
       __syncthreads();                             // row_s / beta reused
     }
   }
-  zero_tail<KM>(part, chunk_row, live_end(m0s, m1s, seeds, si, S, l_max), S,
-                k0, nk, K);
+  zero_tail<KM>(part, chunk_row, live_end<SPIN>(sm, si, S, l_max), S, k0,
+                nk, K);
 }
 
 // ---------------------------------------------------------------------------
@@ -519,7 +535,7 @@ anal_fused_vpu_kernel(const float* __restrict__ f_pk,
 // P, R, 2K).  grid (n_chunks, n_slots, ceil(K / KM)), block 128, dynamic
 // shared memory.
 // ---------------------------------------------------------------------------
-template <int KM, bool FOLD>
+template <int KM, bool FOLD, bool SPIN>
 struct AnalFusedMxuShape {
   static constexpr int P = FOLD ? 2 : 1;
   static constexpr int CC = 2 * KM;
@@ -534,22 +550,21 @@ struct AnalFusedMxuShape {
   static constexpr size_t dw_floats = static_cast<size_t>(P) * kChunk * CC;
   static constexpr size_t panel_floats = static_cast<size_t>(kLT) * kPanelStride;
   static constexpr size_t red_floats = static_cast<size_t>(Q) * kLT * CC;
+  static constexpr size_t coef_floats = static_cast<size_t>(SPIN ? 3 : 2) * kLT;
   static constexpr size_t smem_bytes =
-      (dw_floats + panel_floats + red_floats + 2 * kLT) * sizeof(float);
+      (dw_floats + panel_floats + red_floats + coef_floats) * sizeof(float);
 };
 
-template <int KM, bool FOLD, bool COMBINE>
+template <int KM, bool FOLD, bool COMBINE, bool SPIN>
 __global__ void __launch_bounds__(kTile)
 anal_fused_mxu_kernel(const float* __restrict__ f_pk,
-                      const int* __restrict__ m0s,
-                      const int* __restrict__ m1s,
-                      const int* __restrict__ seeds,
+                      const SlotMaps sm,
                       const float* __restrict__ x,
                       const float* __restrict__ pmm_pk,
                       const int* __restrict__ pms_pk,
                       const float* __restrict__ tab, float* __restrict__ part,
                       int S, int K, int R, int l_max) {
-  using Sh = AnalFusedMxuShape<KM, FOLD>;
+  using Sh = AnalFusedMxuShape<KM, FOLD, SPIN>;
   constexpr int P = Sh::P, CC = Sh::CC, TC = Sh::TC, CG = Sh::CG,
                 TJ = Sh::TJ, Q = Sh::Q, RS = Sh::RS;
   extern __shared__ __align__(16) float smem[];
@@ -558,6 +573,7 @@ anal_fused_mxu_kernel(const float* __restrict__ f_pk,
   float* red_s = panel_s + Sh::panel_floats;           // [Q][kLT][CC]
   float* bl_s = red_s + Sh::red_floats;                // [kLT]
   float* ratio_s = bl_s + kLT;                         // [kLT]
+  float* c_s = ratio_s + kLT;                          // [kLT] (SPIN only)
 
   const int si = blockIdx.y;
   const int chunk = blockIdx.x;
@@ -577,10 +593,10 @@ anal_fused_mxu_kernel(const float* __restrict__ f_pk,
     xr[k] = (k < ntile && r < R) ? x[r] : 0.0f;
   }
   for (int seg = 0; seg < 2; ++seg) {
-    const Seg sg = segment(m0s, m1s, seeds, si, seg, S, l_max);
+    const Seg sg = segment<SPIN>(sm, si, seg, S, l_max);
     if (sg.len == 0) continue;                     // block-uniform
     const float p1 = p_first_coef(sg.m);
-    const int l_end = sg.m + sg.len;
+    const int l_end = sg.lz + sg.len;
     __syncthreads();                               // dw_s of seg 0 consumed
     // rotate the chunk's FFT rows into Delta once, combine the planes
     for (int rr = t; rr < Sh::kChunk; rr += kTile) {
@@ -626,9 +642,9 @@ anal_fused_mxu_kernel(const float* __restrict__ f_pk,
       pms_r[k] = live ? pms_pk[srow] : 0;
     }
 
-    for (int l0 = sg.m; l0 < l_end; l0 += kLT) {   // block-uniform
+    for (int l0 = sg.lz; l0 < l_end; l0 += kLT) {  // block-uniform
       const int n = min(kLT, l_end - l0);
-      fill_beta(l0, sg.m, bl_s, ratio_s);
+      fill_coef<SPIN>(l0, sg.m, sg.mp, bl_s, ratio_s, c_s);
       __syncthreads();
       const int pb = FOLD ? ((l0 + sg.m) & 1) : 0;  // plane of even rows
       float acc[TJ][TC];
@@ -641,8 +657,8 @@ anal_fused_mxu_kernel(const float* __restrict__ f_pk,
         if (k >= ntile) break;                     // block-uniform
         for (int j = 0; j < kLT; ++j)              // build the P panel
           panel_s[j * Sh::kPanelStride + t] =
-              j < n ? rec_advance(&s[k], l0 + j, sg.m, xr[k], bl_s[j],
-                                  ratio_s[j], p1, pmm_r[k], pms_r[k])
+              j < n ? rec_step<SPIN>(&s[k], l0 + j, sg.lz, xr[k], bl_s,
+                                     ratio_s, c_s, j, p1, pmm_r[k], pms_r[k])
                     : 0.0f;
         __syncthreads();
         const float* d0 = dw_s + (static_cast<size_t>(pb) * Sh::kChunk +
@@ -680,38 +696,41 @@ anal_fused_mxu_kernel(const float* __restrict__ f_pk,
           float total = 0.0f;
 #pragma unroll
           for (int qq = 0; qq < Q; ++qq) total += red_s[(qq * kLT + j) * CC + c];
-          part[(chunk_row + sg.g0 + l0 - sg.m + j) * K2 +
+          part[(chunk_row + sg.g0 + l0 - sg.lz + j) * K2 +
                channel<KM>(c, k0, K)] = total;
         }
       }
       __syncthreads();                             // red_s / beta reused
     }
   }
-  zero_tail<KM>(part, chunk_row, live_end(m0s, m1s, seeds, si, S, l_max), S,
-                k0, nk, K);
+  zero_tail<KM>(part, chunk_row, live_end<SPIN>(sm, si, S, l_max), S, k0,
+                nk, K);
 }
 
 // ---------------------------------------------------------------------------
 // launch helpers
 // ---------------------------------------------------------------------------
 struct FusedArgs {
-  const float* in; const int* m0s; const int* m1s; const int* seeds;
-  const float* x; const float* pmm; const int* pms; const float* tab;
-  float* out; int n_slots; int S; int K; int R; int l_max; int n_chunks;
-  cudaStream_t stream;
+  const float* in; SlotMaps sm; const float* x; const float* pmm;
+  const int* pms; const float* tab; float* out; int n_slots; int S; int K;
+  int R; int l_max; int n_chunks; cudaStream_t stream;
 };
 
-// The map-chunk template for km (a power of two up to kMax), the fold, and
-// the fused combine.  Without the fold the combine does nothing, so the
-// packed kernels then run the fused instantiation itself.
-template <template <int, bool, bool> class Launch, int KM>
+// The map-chunk template for km (a power of two up to kMax), the fold, the
+// fused combine and the spin branch.  Without the fold the combine does
+// nothing, so the packed kernels then run the fused instantiation itself;
+// the spin branch runs with the fold off only.
+template <template <int, bool, bool, bool> class Launch, int KM>
 int dispatch_fold(int fold, int combine, const FusedArgs& g) {
-  if (!fold) return Launch<KM, false, true>::run(g);
-  return combine ? Launch<KM, true, true>::run(g)
-                 : Launch<KM, true, false>::run(g);
+  if (g.sm.mp0 != nullptr)
+    return fold ? static_cast<int>(cudaErrorInvalidValue)
+                : Launch<KM, false, true, true>::run(g);
+  if (!fold) return Launch<KM, false, true, false>::run(g);
+  return combine ? Launch<KM, true, true, false>::run(g)
+                 : Launch<KM, true, false, false>::run(g);
 }
 
-template <template <int, bool, bool> class Launch, int kMax>
+template <template <int, bool, bool, bool> class Launch, int kMax>
 int dispatch_maps(int km, int fold, int combine, const FusedArgs& g) {
   switch (km) {
     case 1: return dispatch_fold<Launch, 1>(fold, combine, g);
@@ -729,83 +748,88 @@ int dispatch_maps(int km, int fold, int combine, const FusedArgs& g) {
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-template <int KM, bool FOLD, bool COMBINE>
+template <int KM, bool FOLD, bool COMBINE, bool SPIN>
 struct LaunchSynthVpu {
   static int run(const FusedArgs& g) {
     dim3 grid((g.R + kTile - 1) / kTile, g.n_slots, (g.K + KM - 1) / KM);
-    synth_fused_vpu_kernel<KM, FOLD, COMBINE><<<grid, kTile, 0, g.stream>>>(
-        g.in, g.m0s, g.m1s, g.seeds, g.x, g.pmm, g.pms, g.tab, g.out, g.S,
-        g.K, g.R, g.l_max);
+    synth_fused_vpu_kernel<KM, FOLD, COMBINE, SPIN>
+        <<<grid, kTile, 0, g.stream>>>(g.in, g.sm, g.x, g.pmm, g.pms, g.tab,
+                                       g.out, g.S, g.K, g.R, g.l_max);
     return static_cast<int>(cudaGetLastError());
   }
 };
 
-template <int KM, bool FOLD, bool COMBINE>
+template <int KM, bool FOLD, bool COMBINE, bool SPIN>
 struct LaunchSynthMxu {
   static int run(const FusedArgs& g) {
     dim3 grid((g.R + kTile - 1) / kTile, g.n_slots, (g.K + KM - 1) / KM);
-    synth_fused_mxu_kernel<KM, FOLD, COMBINE><<<grid, kTile, 0, g.stream>>>(
-        g.in, g.m0s, g.m1s, g.seeds, g.x, g.pmm, g.pms, g.tab, g.out, g.S,
-        g.K, g.R, g.l_max);
+    synth_fused_mxu_kernel<KM, FOLD, COMBINE, SPIN>
+        <<<grid, kTile, 0, g.stream>>>(g.in, g.sm, g.x, g.pmm, g.pms, g.tab,
+                                       g.out, g.S, g.K, g.R, g.l_max);
     return static_cast<int>(cudaGetLastError());
   }
 };
 
-template <int KM, bool FOLD, bool COMBINE>
+template <int KM, bool FOLD, bool COMBINE, bool SPIN>
 struct LaunchAnalVpu {
   static int run(const FusedArgs& g) {
     dim3 grid(g.n_chunks, g.n_slots, (g.K + KM - 1) / KM);
-    anal_fused_vpu_kernel<KM, FOLD, COMBINE><<<grid, kTile, 0, g.stream>>>(
-        g.in, g.m0s, g.m1s, g.seeds, g.x, g.pmm, g.pms, g.tab, g.out, g.S,
-        g.K, g.R, g.l_max);
+    anal_fused_vpu_kernel<KM, FOLD, COMBINE, SPIN>
+        <<<grid, kTile, 0, g.stream>>>(g.in, g.sm, g.x, g.pmm, g.pms, g.tab,
+                                       g.out, g.S, g.K, g.R, g.l_max);
     return static_cast<int>(cudaGetLastError());
   }
 };
 
-template <int KM, bool FOLD, bool COMBINE>
+template <int KM, bool FOLD, bool COMBINE, bool SPIN>
 struct LaunchAnalMxu {
   static int run(const FusedArgs& g) {
-    using Sh = AnalFusedMxuShape<KM, FOLD>;
+    using Sh = AnalFusedMxuShape<KM, FOLD, SPIN>;
     cudaError_t err = cudaFuncSetAttribute(
-        anal_fused_mxu_kernel<KM, FOLD, COMBINE>,
+        anal_fused_mxu_kernel<KM, FOLD, COMBINE, SPIN>,
         cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(Sh::smem_bytes));
     if (err != cudaSuccess) return static_cast<int>(err);
     dim3 grid(g.n_chunks, g.n_slots, (g.K + KM - 1) / KM);
-    anal_fused_mxu_kernel<KM, FOLD, COMBINE>
+    anal_fused_mxu_kernel<KM, FOLD, COMBINE, SPIN>
         <<<grid, kTile, Sh::smem_bytes, g.stream>>>(
-            g.in, g.m0s, g.m1s, g.seeds, g.x, g.pmm, g.pms, g.tab, g.out,
-            g.S, g.K, g.R, g.l_max);
+            g.in, g.sm, g.x, g.pmm, g.pms, g.tab, g.out, g.S, g.K, g.R,
+            g.l_max);
     return static_cast<int>(cudaGetLastError());
   }
 };
 
+// A bad operand set: tables on a packed kernel (combine = 0), or only one
+// of mp0 / mp1 (both null: spin 0; both given: the spin branch).
+inline bool bad_operands(const SlotMaps& sm, const float* tab, int combine) {
+  return (!combine && tab != nullptr) ||
+         ((sm.mp0 == nullptr) != (sm.mp1 == nullptr));
+}
+
 // One synthesis launch; combine = 0 is a packed kernel (no tables).
-template <template <int, bool, bool> class Launch>
-int synth_entry(const float* a_pk, const int* m0, const int* m1,
-                const int* seed, const float* x, const float* pmm,
-                const int* pms, const float* tab, float* out, int n_slots,
-                int S, int K, int R, int l_max, int fold, int combine,
-                void* stream) {
-  if (!combine && tab != nullptr)
+template <template <int, bool, bool, bool> class Launch>
+int synth_entry(const float* a_pk, const SlotMaps& sm, const float* x,
+                const float* pmm, const int* pms, const float* tab,
+                float* out, int n_slots, int S, int K, int R, int l_max,
+                int fold, int combine, void* stream) {
+  if (bad_operands(sm, tab, combine))
     return static_cast<int>(cudaErrorInvalidValue);
-  FusedArgs g{a_pk, m0, m1, seed, x, pmm, pms, tab, out, n_slots, S, K, R,
-              l_max, 0, static_cast<cudaStream_t>(stream)};
+  FusedArgs g{a_pk, sm, x, pmm, pms, tab, out, n_slots, S, K, R, l_max, 0,
+              static_cast<cudaStream_t>(stream)};
   return dispatch_maps<Launch, 8>(chunk_for(K, 8, 1), fold, combine, g);
 }
 
 // One analysis partials launch; kMax caps the map chunk, tiles sizes the
 // ring chunk the caller's buffer must match.
-template <template <int, bool, bool> class Launch, int kMax, int tiles>
-int anal_entry(const float* f_pk, const int* m0, const int* m1,
-               const int* seed, const float* x, const float* pmm,
-               const int* pms, const float* tab, float* part, int n_slots,
-               int S, int K, int R, int l_max, int n_chunks, int fold,
-               int combine, void* stream) {
-  if (n_chunks != chunks_of(R, tiles) || (!combine && tab != nullptr))
+template <template <int, bool, bool, bool> class Launch, int kMax, int tiles>
+int anal_entry(const float* f_pk, const SlotMaps& sm, const float* x,
+               const float* pmm, const int* pms, const float* tab,
+               float* part, int n_slots, int S, int K, int R, int l_max,
+               int n_chunks, int fold, int combine, void* stream) {
+  if (n_chunks != chunks_of(R, tiles) || bad_operands(sm, tab, combine))
     return static_cast<int>(cudaErrorInvalidValue);
-  FusedArgs g{f_pk, m0, m1, seed, x, pmm, pms, tab, part, n_slots, S, K, R,
-              l_max, n_chunks, static_cast<cudaStream_t>(stream)};
+  FusedArgs g{f_pk, sm, x, pmm, pms, tab, part, n_slots, S, K, R, l_max,
+              n_chunks, static_cast<cudaStream_t>(stream)};
   return dispatch_maps<Launch, kMax>(chunk_for(K, kMax, 1), fold, combine, g);
 }
 
@@ -814,83 +838,90 @@ int anal_entry(const float* f_pk, const int* m0, const int* m1,
 // ---------------------------------------------------------------------------
 // Plain C interface.  Pointers are device pointers of contiguous tensors
 // (tab may be null: identity tables); every function launches on `stream`
-// and returns cudaGetLastError().  m0/m1/seed are the per-slot maps.
+// and returns cudaGetLastError().  m0/m1/mp0/mp1/seed are the per-slot maps;
+// mp0 and mp1 are null for the scalar rows and given for the spin branch.
 // ---------------------------------------------------------------------------
 extern "C" {
 
 int fused_synth_vpu(const float* a_pk, const int* m0, const int* m1,
-                    const int* seed, const float* x, const float* pmm,
-                    const int* pms, const float* tab, float* out, int n_slots,
-                    int S, int K, int R, int l_max, int fold, void* stream) {
-  return synth_entry<LaunchSynthVpu>(a_pk, m0, m1, seed, x, pmm, pms, tab,
-                                     out, n_slots, S, K, R, l_max, fold, 1,
-                                     stream);
+                    const int* mp0, const int* mp1, const int* seed,
+                    const float* x, const float* pmm, const int* pms,
+                    const float* tab, float* out, int n_slots, int S, int K,
+                    int R, int l_max, int fold, void* stream) {
+  return synth_entry<LaunchSynthVpu>(a_pk, {m0, m1, mp0, mp1, seed}, x, pmm,
+                                     pms, tab, out, n_slots, S, K, R, l_max,
+                                     fold, 1, stream);
 }
 
 int fused_synth_mxu(const float* a_pk, const int* m0, const int* m1,
-                    const int* seed, const float* x, const float* pmm,
-                    const int* pms, const float* tab, float* out, int n_slots,
-                    int S, int K, int R, int l_max, int fold, void* stream) {
-  return synth_entry<LaunchSynthMxu>(a_pk, m0, m1, seed, x, pmm, pms, tab,
-                                     out, n_slots, S, K, R, l_max, fold, 1,
-                                     stream);
+                    const int* mp0, const int* mp1, const int* seed,
+                    const float* x, const float* pmm, const int* pms,
+                    const float* tab, float* out, int n_slots, int S, int K,
+                    int R, int l_max, int fold, void* stream) {
+  return synth_entry<LaunchSynthMxu>(a_pk, {m0, m1, mp0, mp1, seed}, x, pmm,
+                                     pms, tab, out, n_slots, S, K, R, l_max,
+                                     fold, 1, stream);
 }
 
 int fused_anal_vpu(const float* f_pk, const int* m0, const int* m1,
-                   const int* seed, const float* x, const float* pmm,
-                   const int* pms, const float* tab, float* part, int n_slots,
-                   int S, int K, int R, int l_max, int n_chunks, int fold,
-                   void* stream) {
+                   const int* mp0, const int* mp1, const int* seed,
+                   const float* x, const float* pmm, const int* pms,
+                   const float* tab, float* part, int n_slots, int S, int K,
+                   int R, int l_max, int n_chunks, int fold, void* stream) {
   return anal_entry<LaunchAnalVpu, 2, kVpuAnalTiles>(
-      f_pk, m0, m1, seed, x, pmm, pms, tab, part, n_slots, S, K, R, l_max,
-      n_chunks, fold, 1, stream);
+      f_pk, {m0, m1, mp0, mp1, seed}, x, pmm, pms, tab, part, n_slots, S, K,
+      R, l_max, n_chunks, fold, 1, stream);
 }
 
 int fused_anal_mxu(const float* f_pk, const int* m0, const int* m1,
-                   const int* seed, const float* x, const float* pmm,
-                   const int* pms, const float* tab, float* part, int n_slots,
-                   int S, int K, int R, int l_max, int n_chunks, int fold,
-                   void* stream) {
+                   const int* mp0, const int* mp1, const int* seed,
+                   const float* x, const float* pmm, const int* pms,
+                   const float* tab, float* part, int n_slots, int S, int K,
+                   int R, int l_max, int n_chunks, int fold, void* stream) {
   return anal_entry<LaunchAnalMxu, 8, kMxuAnalTiles>(
-      f_pk, m0, m1, seed, x, pmm, pms, tab, part, n_slots, S, K, R, l_max,
-      n_chunks, fold, 1, stream);
+      f_pk, {m0, m1, mp0, mp1, seed}, x, pmm, pms, tab, part, n_slots, S, K,
+      R, l_max, n_chunks, fold, 1, stream);
 }
 
 // The packed staged kernels: no tables, planes kept apart.
 int packed_synth_vpu(const float* a_pk, const int* m0, const int* m1,
-                     const int* seed, const float* x, const float* pmm,
-                     const int* pms, float* out, int n_slots, int S, int K,
-                     int R, int l_max, int fold, void* stream) {
-  return synth_entry<LaunchSynthVpu>(a_pk, m0, m1, seed, x, pmm, pms, nullptr,
-                                     out, n_slots, S, K, R, l_max, fold, 0,
-                                     stream);
+                     const int* mp0, const int* mp1, const int* seed,
+                     const float* x, const float* pmm, const int* pms,
+                     float* out, int n_slots, int S, int K, int R, int l_max,
+                     int fold, void* stream) {
+  return synth_entry<LaunchSynthVpu>(a_pk, {m0, m1, mp0, mp1, seed}, x, pmm,
+                                     pms, nullptr, out, n_slots, S, K, R,
+                                     l_max, fold, 0, stream);
 }
 
 int packed_synth_mxu(const float* a_pk, const int* m0, const int* m1,
-                     const int* seed, const float* x, const float* pmm,
-                     const int* pms, float* out, int n_slots, int S, int K,
-                     int R, int l_max, int fold, void* stream) {
-  return synth_entry<LaunchSynthMxu>(a_pk, m0, m1, seed, x, pmm, pms, nullptr,
-                                     out, n_slots, S, K, R, l_max, fold, 0,
-                                     stream);
+                     const int* mp0, const int* mp1, const int* seed,
+                     const float* x, const float* pmm, const int* pms,
+                     float* out, int n_slots, int S, int K, int R, int l_max,
+                     int fold, void* stream) {
+  return synth_entry<LaunchSynthMxu>(a_pk, {m0, m1, mp0, mp1, seed}, x, pmm,
+                                     pms, nullptr, out, n_slots, S, K, R,
+                                     l_max, fold, 0, stream);
 }
 
 int packed_anal_vpu(const float* dw_pk, const int* m0, const int* m1,
-                    const int* seed, const float* x, const float* pmm,
-                    const int* pms, float* part, int n_slots, int S, int K,
-                    int R, int l_max, int n_chunks, int fold, void* stream) {
+                    const int* mp0, const int* mp1, const int* seed,
+                    const float* x, const float* pmm, const int* pms,
+                    float* part, int n_slots, int S, int K, int R, int l_max,
+                    int n_chunks, int fold, void* stream) {
   return anal_entry<LaunchAnalVpu, 2, kVpuAnalTiles>(
-      dw_pk, m0, m1, seed, x, pmm, pms, nullptr, part, n_slots, S, K, R,
-      l_max, n_chunks, fold, 0, stream);
+      dw_pk, {m0, m1, mp0, mp1, seed}, x, pmm, pms, nullptr, part, n_slots, S,
+      K, R, l_max, n_chunks, fold, 0, stream);
 }
 
 int packed_anal_mxu(const float* dw_pk, const int* m0, const int* m1,
-                    const int* seed, const float* x, const float* pmm,
-                    const int* pms, float* part, int n_slots, int S, int K,
-                    int R, int l_max, int n_chunks, int fold, void* stream) {
+                    const int* mp0, const int* mp1, const int* seed,
+                    const float* x, const float* pmm, const int* pms,
+                    float* part, int n_slots, int S, int K, int R, int l_max,
+                    int n_chunks, int fold, void* stream) {
   return anal_entry<LaunchAnalMxu, 8, kMxuAnalTiles>(
-      dw_pk, m0, m1, seed, x, pmm, pms, nullptr, part, n_slots, S, K, R,
-      l_max, n_chunks, fold, 0, stream);
+      dw_pk, {m0, m1, mp0, mp1, seed}, x, pmm, pms, nullptr, part, n_slots, S,
+      K, R, l_max, n_chunks, fold, 0, stream);
 }
 
 }  // extern "C"

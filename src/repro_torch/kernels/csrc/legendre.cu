@@ -25,6 +25,13 @@
 // accumulation (fmaf, summation order) differs from the plain version.  The
 // recurrence step lives in recurrence.cuh, shared with fused.cu.
 //
+// Every kernel also has its spin branch (template SPIN = true, selected by a
+// non-null mp_vals): the Wigner-d rows (m, m') of the spin-2 transforms, run
+// by the reference's `_f32_step_spin` (legendre_pallas.py:116).  A row then
+// starts at l0 = max(m, |m'|) instead of m, the per-tile table holds the
+// a, b, c coefficients instead of beta and its ratio, and anal_reduce zeroes
+// l < l0.  The spin-2 plans never fold, so SPIN comes with FOLD = false only.
+//
 // Kernels (TPU kernel each replaces; what bounds it on the H100; design):
 //
 //   synth_vpu   replaces synth_vpu, src/repro/kernels/legendre_pallas.py:222.
@@ -70,20 +77,22 @@ namespace {
 // synth_vpu: Delta_m(r) = sum_l a_lm P_lm(x_r), one ring per thread.
 // grid (ceil(R / 128), Mp, ceil(K2 / KC)), block 128.
 // ---------------------------------------------------------------------------
-template <int KC, bool FOLD>
+template <int KC, bool FOLD, bool SPIN>
 __global__ void __launch_bounds__(kTile)
 synth_vpu_kernel(const float* __restrict__ a, const int* __restrict__ m_vals,
-                 const float* __restrict__ x, const float* __restrict__ pmm,
-                 const int* __restrict__ pms, float* __restrict__ out, int L1,
-                 int K2, int R, int l_end) {
+                 const int* __restrict__ mp_vals, const float* __restrict__ x,
+                 const float* __restrict__ pmm, const int* __restrict__ pms,
+                 float* __restrict__ out, int L1, int K2, int R, int l_end) {
   constexpr int P = FOLD ? 2 : 1;
   __shared__ __align__(16) float a_s[kLT][KC];
-  __shared__ float bl_s[kLT], ratio_s[kLT];
+  __shared__ float bl_s[kLT], ratio_s[kLT], c_s[SPIN ? kLT : 1];
   const int mi = blockIdx.y;
   const int r = blockIdx.x * kTile + threadIdx.x;
   const int c0 = blockIdx.z * KC;
   const int nch = min(KC, K2 - c0);
   const int m = m_vals[mi];
+  const int mp = SPIN ? mp_vals[mi] : 0;
+  const int lz = row_start<SPIN>(m, mp);
   const bool live = r < R;
   float acc[P][KC];
 #pragma unroll
@@ -98,7 +107,7 @@ synth_vpu_kernel(const float* __restrict__ a, const int* __restrict__ m_vals,
     const int pms_r = live ? pms[row] : 0;
     const float p1 = p_first_coef(m);
     Rec s;
-    for (int l0 = m; l0 < l_end; l0 += kLT) {
+    for (int l0 = lz; l0 < l_end; l0 += kLT) {
       const int n = min(kLT, l_end - l0);
       __syncthreads();                       // previous tile consumed
       for (int i = threadIdx.x; i < kLT * KC; i += kTile) {
@@ -107,12 +116,12 @@ synth_vpu_kernel(const float* __restrict__ a, const int* __restrict__ m_vals,
             ? a[(static_cast<size_t>(mi) * L1 + l0 + j) * K2 + c0 + c]
             : 0.0f;
       }
-      fill_beta(l0, m, bl_s, ratio_s);
+      fill_coef<SPIN>(l0, m, mp, bl_s, ratio_s, c_s);
       __syncthreads();
       for (int j = 0; j < n; ++j) {
         const int l = l0 + j;
-        const float v = rec_advance(&s, l, m, xr, bl_s[j], ratio_s[j], p1,
-                                    pmm_r, pms_r);
+        const float v = rec_step<SPIN>(&s, l, lz, xr, bl_s, ratio_s, c_s, j,
+                                       p1, pmm_r, pms_r);
         if (FOLD && ((l + m) & 1)) {
 #pragma unroll
           for (int c = 0; c < KC; ++c)
@@ -142,24 +151,26 @@ synth_vpu_kernel(const float* __restrict__ a, const int* __restrict__ m_vals,
 // consecutive rings x TC channels of the (128 x CC) output tile.
 // grid (ceil(R / 128), Mp, ceil(K2 / CC)), block 128.
 // ---------------------------------------------------------------------------
-template <int CC, bool FOLD>
+template <int CC, bool FOLD, bool SPIN>
 __global__ void __launch_bounds__(kTile)
 synth_mxu_kernel(const float* __restrict__ a, const int* __restrict__ m_vals,
-                 const float* __restrict__ x, const float* __restrict__ pmm,
-                 const int* __restrict__ pms, float* __restrict__ out, int L1,
-                 int K2, int R, int l_end) {
+                 const int* __restrict__ mp_vals, const float* __restrict__ x,
+                 const float* __restrict__ pmm, const int* __restrict__ pms,
+                 float* __restrict__ out, int L1, int K2, int R, int l_end) {
   constexpr int P = FOLD ? 2 : 1;
   constexpr int TC = CC < 4 ? CC : 4;     // channels per thread
   constexpr int CG = CC / TC;             // channel groups
   constexpr int TR = CG;                  // rings per thread (128 / (128/CG))
   __shared__ __align__(16) float panel_s[kLT][kTile];
   __shared__ __align__(16) float coef_s[kLT][CC];
-  __shared__ float bl_s[kLT], ratio_s[kLT];
+  __shared__ float bl_s[kLT], ratio_s[kLT], c_s[SPIN ? kLT : 1];
   const int mi = blockIdx.y;
   const int tile0 = blockIdx.x * kTile;
   const int c0 = blockIdx.z * CC;
   const int nch = min(CC, K2 - c0);
   const int m = m_vals[mi];
+  const int mp = SPIN ? mp_vals[mi] : 0;
+  const int lz = row_start<SPIN>(m, mp);
   const int t = threadIdx.x;
   const int cg = t % CG, rg = t / CG;
   float acc[P][TR][TC];
@@ -179,10 +190,10 @@ synth_mxu_kernel(const float* __restrict__ a, const int* __restrict__ m_vals,
     const int pms_r = live ? pms[row] : 0;
     const float p1 = p_first_coef(m);
     Rec s;
-    for (int l0 = m; l0 < l_end; l0 += kLT) {
+    for (int l0 = lz; l0 < l_end; l0 += kLT) {
       const int n = min(kLT, l_end - l0);
       __syncthreads();                       // previous panel consumed
-      fill_beta(l0, m, bl_s, ratio_s);
+      fill_coef<SPIN>(l0, m, mp, bl_s, ratio_s, c_s);
       for (int i = t; i < kLT * CC; i += kTile) {
         const int j = i / CC, c = i % CC;
         coef_s[j][c] = (j < n && c < nch)
@@ -191,8 +202,8 @@ synth_mxu_kernel(const float* __restrict__ a, const int* __restrict__ m_vals,
       }
       __syncthreads();
       for (int j = 0; j < n; ++j)             // build the P panel
-        panel_s[j][t] = rec_advance(&s, l0 + j, m, xr, bl_s[j], ratio_s[j],
-                                    p1, pmm_r, pms_r);
+        panel_s[j][t] = rec_step<SPIN>(&s, l0 + j, lz, xr, bl_s, ratio_s,
+                                       c_s, j, p1, pmm_r, pms_r);
       __syncthreads();
       for (int j = 0; j < n; ++j) {           // contract over l
         float pv[TR], cv[TC];
@@ -238,16 +249,16 @@ synth_mxu_kernel(const float* __restrict__ a, const int* __restrict__ m_vals,
 // dw_m(r) P_lm(r).  Thread t carries rings chunk0 + k * 128 + t, k < 8.
 // grid (n_chunks, Mp, ceil(K2 / KC)), block 128.
 // ---------------------------------------------------------------------------
-template <int KC, bool FOLD>
+template <int KC, bool FOLD, bool SPIN>
 __global__ void __launch_bounds__(kTile)
 anal_vpu_kernel(const float* __restrict__ dw, const int* __restrict__ m_vals,
-                const float* __restrict__ x, const float* __restrict__ pmm,
-                const int* __restrict__ pms, float* __restrict__ part, int K2,
-                int R, int l_end) {
+                const int* __restrict__ mp_vals, const float* __restrict__ x,
+                const float* __restrict__ pmm, const int* __restrict__ pms,
+                float* __restrict__ part, int K2, int R, int l_end) {
   constexpr int P = FOLD ? 2 : 1;
   constexpr int kWarps = kTile / 32;
   __shared__ float row_s[kWarps][kLT][KC];
-  __shared__ float bl_s[kLT], ratio_s[kLT];
+  __shared__ float bl_s[kLT], ratio_s[kLT], c_s[SPIN ? kLT : 1];
   const int mi = blockIdx.y;
   const int chunk = blockIdx.x;
   const int base = chunk * kVpuAnalTiles * kTile;
@@ -255,6 +266,8 @@ anal_vpu_kernel(const float* __restrict__ dw, const int* __restrict__ m_vals,
   const int nch = min(KC, K2 - c0);
   const int m = m_vals[mi];
   if (m < 0) return;                         // block-uniform; reduce zeroes it
+  const int mp = SPIN ? mp_vals[mi] : 0;
+  const int lz = row_start<SPIN>(m, mp);     // reduce zeroes the rows below
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
   const int ntile = min(kVpuAnalTiles, (R - base + kTile - 1) / kTile);
   const float p1 = p_first_coef(m);
@@ -280,9 +293,9 @@ anal_vpu_kernel(const float* __restrict__ dw, const int* __restrict__ m_vals,
             : 0.0f;
   }
 
-  for (int l0 = m; l0 < l_end; l0 += kLT) {
+  for (int l0 = lz; l0 < l_end; l0 += kLT) {
     const int n = min(kLT, l_end - l0);
-    fill_beta(l0, m, bl_s, ratio_s);
+    fill_coef<SPIN>(l0, m, mp, bl_s, ratio_s, c_s);
     __syncthreads();
     for (int j = 0; j < n; ++j) {
       const int l = l0 + j;
@@ -293,8 +306,8 @@ anal_vpu_kernel(const float* __restrict__ dw, const int* __restrict__ m_vals,
 #pragma unroll
       for (int k = 0; k < kVpuAnalTiles; ++k) {
         if (k < ntile) {                      // block-uniform
-          const float v = rec_advance(&s[k], l, m, xr[k], bl_s[j], ratio_s[j],
-                                      p1, pmm_r[k], pms_r[k]);
+          const float v = rec_step<SPIN>(&s[k], l, lz, xr[k], bl_s, ratio_s,
+                                         c_s, j, p1, pmm_r[k], pms_r[k]);
           if (p) {
 #pragma unroll
             for (int c = 0; c < KC; ++c)
@@ -338,7 +351,7 @@ anal_vpu_kernel(const float* __restrict__ dw, const int* __restrict__ m_vals,
 // jg*4 .. jg*4+3, channels cg*TC .. +TC, over ring split q of each tile.
 // grid (n_chunks, Mp, ceil(K2 / CC)), block 128, dynamic shared memory.
 // ---------------------------------------------------------------------------
-template <int CC, bool FOLD>
+template <int CC, bool FOLD, bool SPIN>
 struct AnalMxuShape {
   static constexpr int P = FOLD ? 2 : 1;
   static constexpr int TC = CC < 4 ? CC : 4;
@@ -352,17 +365,18 @@ struct AnalMxuShape {
   static constexpr size_t dw_floats = static_cast<size_t>(P) * kChunk * CC;
   static constexpr size_t panel_floats = static_cast<size_t>(kLT) * kPanelStride;
   static constexpr size_t red_floats = static_cast<size_t>(Q) * kLT * CC;
+  static constexpr size_t coef_floats = static_cast<size_t>(SPIN ? 3 : 2) * kLT;
   static constexpr size_t smem_bytes =
-      (dw_floats + panel_floats + red_floats + 2 * kLT) * sizeof(float);
+      (dw_floats + panel_floats + red_floats + coef_floats) * sizeof(float);
 };
 
-template <int CC, bool FOLD>
+template <int CC, bool FOLD, bool SPIN>
 __global__ void __launch_bounds__(kTile)
 anal_mxu_kernel(const float* __restrict__ dw, const int* __restrict__ m_vals,
-                const float* __restrict__ x, const float* __restrict__ pmm,
-                const int* __restrict__ pms, float* __restrict__ part, int K2,
-                int R, int l_end) {
-  using S = AnalMxuShape<CC, FOLD>;
+                const int* __restrict__ mp_vals, const float* __restrict__ x,
+                const float* __restrict__ pmm, const int* __restrict__ pms,
+                float* __restrict__ part, int K2, int R, int l_end) {
+  using S = AnalMxuShape<CC, FOLD, SPIN>;
   constexpr int P = S::P, TC = S::TC, CG = S::CG, TJ = S::TJ, Q = S::Q,
                 RS = S::RS;
   extern __shared__ __align__(16) float smem[];
@@ -371,6 +385,7 @@ anal_mxu_kernel(const float* __restrict__ dw, const int* __restrict__ m_vals,
   float* red_s = panel_s + S::panel_floats;            // [Q][kLT][CC]
   float* bl_s = red_s + S::red_floats;                 // [kLT]
   float* ratio_s = bl_s + kLT;                         // [kLT]
+  float* c_s = ratio_s + kLT;                          // [kLT] (SPIN only)
 
   const int mi = blockIdx.y;
   const int chunk = blockIdx.x;
@@ -379,6 +394,8 @@ anal_mxu_kernel(const float* __restrict__ dw, const int* __restrict__ m_vals,
   const int nch = min(CC, K2 - c0);
   const int m = m_vals[mi];
   if (m < 0) return;                         // block-uniform; reduce zeroes it
+  const int mp = SPIN ? mp_vals[mi] : 0;
+  const int lz = row_start<SPIN>(m, mp);     // reduce zeroes the rows below
   const int t = threadIdx.x;
   const int cg = t % CG, jg = (t / CG) % S::JG, q = t / (CG * S::JG);
   const int ntile = min(kMxuAnalTiles, (R - base + kTile - 1) / kTile);
@@ -404,9 +421,9 @@ anal_mxu_kernel(const float* __restrict__ dw, const int* __restrict__ m_vals,
     pms_r[k] = live ? pms[row] : 0;
   }
 
-  for (int l0 = m; l0 < l_end; l0 += kLT) {
+  for (int l0 = lz; l0 < l_end; l0 += kLT) {
     const int n = min(kLT, l_end - l0);
-    fill_beta(l0, m, bl_s, ratio_s);
+    fill_coef<SPIN>(l0, m, mp, bl_s, ratio_s, c_s);
     __syncthreads();
     const int pb = FOLD ? ((l0 + m) & 1) : 0;     // plane of even rows
     float acc[TJ][TC];
@@ -419,8 +436,8 @@ anal_mxu_kernel(const float* __restrict__ dw, const int* __restrict__ m_vals,
       if (k >= ntile) break;                  // block-uniform
       for (int j = 0; j < kLT; ++j)           // build the P panel
         panel_s[j * S::kPanelStride + t] =
-            j < n ? rec_advance(&s[k], l0 + j, m, xr[k], bl_s[j], ratio_s[j],
-                                p1, pmm_r[k], pms_r[k])
+            j < n ? rec_step<SPIN>(&s[k], l0 + j, lz, xr[k], bl_s, ratio_s,
+                                   c_s, j, p1, pmm_r[k], pms_r[k])
                   : 0.0f;
       __syncthreads();
       const float* d0 = dw_s + (static_cast<size_t>(pb) * S::kChunk +
@@ -468,10 +485,12 @@ anal_mxu_kernel(const float* __restrict__ dw, const int* __restrict__ m_vals,
 
 // ---------------------------------------------------------------------------
 // anal_reduce: out[m][l][c] = sum over chunks, in chunk order, of
-// part[m][chunk][l][c]; zero where l < m or m < 0.
+// part[m][chunk][l][c]; zero where l < m (l < max(m, |m'|) with mp_vals)
+// or m < 0.
 // ---------------------------------------------------------------------------
 __global__ void anal_reduce_kernel(const float* __restrict__ part,
                                    const int* __restrict__ m_vals,
+                                   const int* __restrict__ mp_vals,
                                    float* __restrict__ out, int Mp,
                                    int n_chunks, int L, int K2) {
   const size_t idx = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
@@ -481,8 +500,9 @@ __global__ void anal_reduce_kernel(const float* __restrict__ part,
   const int l = static_cast<int>((idx / K2) % L);
   const int mi = static_cast<int>(idx / (static_cast<size_t>(K2) * L));
   const int m = m_vals[mi];
+  const int lz = mp_vals != nullptr ? max(m, abs(mp_vals[mi])) : m;
   float sum = 0.0f;
-  if (m >= 0 && l >= m) {
+  if (m >= 0 && l >= lz) {
     for (int ch = 0; ch < n_chunks; ++ch)
       sum += part[((static_cast<size_t>(mi) * n_chunks + ch) * L + l) * K2 + c];
   }
@@ -490,72 +510,87 @@ __global__ void anal_reduce_kernel(const float* __restrict__ part,
 }
 
 // ---------------------------------------------------------------------------
-// launch helpers: pick the channel-chunk template for K2.
+// launch helpers: pick the channel-chunk template for K2, the fold, and
+// the spin branch (spin with fold off only).
 // ---------------------------------------------------------------------------
-template <template <int, bool> class Launch, typename... Args>
-int dispatch(int kc, int fold, Args... args) {
+template <template <int, bool, bool> class Launch, int KC, typename Args>
+int dispatch_flags(int fold, bool spin, const Args& g) {
+  if (spin)
+    return fold ? static_cast<int>(cudaErrorInvalidValue)
+                : Launch<KC, false, true>::run(g);
+  return fold ? Launch<KC, true, false>::run(g)
+              : Launch<KC, false, false>::run(g);
+}
+
+template <template <int, bool, bool> class Launch, typename Args>
+int dispatch(int kc, int fold, bool spin, const Args& g) {
   switch (kc) {
-    case 2: return fold ? Launch<2, true>::run(args...) : Launch<2, false>::run(args...);
-    case 4: return fold ? Launch<4, true>::run(args...) : Launch<4, false>::run(args...);
-    case 8: return fold ? Launch<8, true>::run(args...) : Launch<8, false>::run(args...);
-    case 16: return fold ? Launch<16, true>::run(args...) : Launch<16, false>::run(args...);
+    case 2: return dispatch_flags<Launch, 2>(fold, spin, g);
+    case 4: return dispatch_flags<Launch, 4>(fold, spin, g);
+    case 8: return dispatch_flags<Launch, 8>(fold, spin, g);
+    case 16: return dispatch_flags<Launch, 16>(fold, spin, g);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 struct SynthArgs {
-  const float* a; const int* m_vals; const float* x; const float* pmm;
-  const int* pms; float* out; int Mp; int L1; int K2; int R; int l_end;
-  cudaStream_t stream;
+  const float* a; const int* m_vals; const int* mp_vals; const float* x;
+  const float* pmm; const int* pms; float* out; int Mp; int L1; int K2;
+  int R; int l_end; cudaStream_t stream;
 };
 
 struct AnalArgs {
-  const float* dw; const int* m_vals; const float* x; const float* pmm;
-  const int* pms; float* part; int Mp; int K2; int R; int l_end;
-  int n_chunks; cudaStream_t stream;
+  const float* dw; const int* m_vals; const int* mp_vals; const float* x;
+  const float* pmm; const int* pms; float* part; int Mp; int K2; int R;
+  int l_end; int n_chunks; cudaStream_t stream;
 };
 
-template <int KC, bool FOLD>
+template <int KC, bool FOLD, bool SPIN>
 struct LaunchSynthVpu {
   static int run(const SynthArgs& g) {
     dim3 grid((g.R + kTile - 1) / kTile, g.Mp, (g.K2 + KC - 1) / KC);
-    synth_vpu_kernel<KC, FOLD><<<grid, kTile, 0, g.stream>>>(
-        g.a, g.m_vals, g.x, g.pmm, g.pms, g.out, g.L1, g.K2, g.R, g.l_end);
+    synth_vpu_kernel<KC, FOLD, SPIN><<<grid, kTile, 0, g.stream>>>(
+        g.a, g.m_vals, g.mp_vals, g.x, g.pmm, g.pms, g.out, g.L1, g.K2, g.R,
+        g.l_end);
     return static_cast<int>(cudaGetLastError());
   }
 };
 
-template <int CC, bool FOLD>
+template <int CC, bool FOLD, bool SPIN>
 struct LaunchSynthMxu {
   static int run(const SynthArgs& g) {
     dim3 grid((g.R + kTile - 1) / kTile, g.Mp, (g.K2 + CC - 1) / CC);
-    synth_mxu_kernel<CC, FOLD><<<grid, kTile, 0, g.stream>>>(
-        g.a, g.m_vals, g.x, g.pmm, g.pms, g.out, g.L1, g.K2, g.R, g.l_end);
+    synth_mxu_kernel<CC, FOLD, SPIN><<<grid, kTile, 0, g.stream>>>(
+        g.a, g.m_vals, g.mp_vals, g.x, g.pmm, g.pms, g.out, g.L1, g.K2, g.R,
+        g.l_end);
     return static_cast<int>(cudaGetLastError());
   }
 };
 
-template <int KC, bool FOLD>
+template <int KC, bool FOLD, bool SPIN>
 struct LaunchAnalVpu {
   static int run(const AnalArgs& g) {
     dim3 grid(g.n_chunks, g.Mp, (g.K2 + KC - 1) / KC);
-    anal_vpu_kernel<KC, FOLD><<<grid, kTile, 0, g.stream>>>(
-        g.dw, g.m_vals, g.x, g.pmm, g.pms, g.part, g.K2, g.R, g.l_end);
+    anal_vpu_kernel<KC, FOLD, SPIN><<<grid, kTile, 0, g.stream>>>(
+        g.dw, g.m_vals, g.mp_vals, g.x, g.pmm, g.pms, g.part, g.K2, g.R,
+        g.l_end);
     return static_cast<int>(cudaGetLastError());
   }
 };
 
-template <int CC, bool FOLD>
+template <int CC, bool FOLD, bool SPIN>
 struct LaunchAnalMxu {
   static int run(const AnalArgs& g) {
-    using S = AnalMxuShape<CC, FOLD>;
+    using S = AnalMxuShape<CC, FOLD, SPIN>;
     cudaError_t err = cudaFuncSetAttribute(
-        anal_mxu_kernel<CC, FOLD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        anal_mxu_kernel<CC, FOLD, SPIN>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(S::smem_bytes));
     if (err != cudaSuccess) return static_cast<int>(err);
     dim3 grid(g.n_chunks, g.Mp, (g.K2 + CC - 1) / CC);
-    anal_mxu_kernel<CC, FOLD><<<grid, kTile, S::smem_bytes, g.stream>>>(
-        g.dw, g.m_vals, g.x, g.pmm, g.pms, g.part, g.K2, g.R, g.l_end);
+    anal_mxu_kernel<CC, FOLD, SPIN><<<grid, kTile, S::smem_bytes, g.stream>>>(
+        g.dw, g.m_vals, g.mp_vals, g.x, g.pmm, g.pms, g.part, g.K2, g.R,
+        g.l_end);
     return static_cast<int>(cudaGetLastError());
   }
 };
@@ -564,57 +599,63 @@ struct LaunchAnalMxu {
 
 // ---------------------------------------------------------------------------
 // Plain C interface.  Pointers are device pointers of contiguous tensors;
-// every function launches on `stream` and returns cudaGetLastError().
+// mp_vals (m' per row) may be null: the scalar rows, else the spin branch.
+// Every function launches on `stream` and returns cudaGetLastError().
 // ---------------------------------------------------------------------------
 extern "C" {
 
-int legendre_synth_vpu(const float* a, const int* m_vals, const float* x,
-                       const float* pmm, const int* pms, float* out, int Mp,
-                       int L1, int K2, int R, int l_end, int fold,
-                       void* stream) {
-  SynthArgs g{a, m_vals, x, pmm, pms, out, Mp, L1, K2, R, l_end,
+int legendre_synth_vpu(const float* a, const int* m_vals, const int* mp_vals,
+                       const float* x, const float* pmm, const int* pms,
+                       float* out, int Mp, int L1, int K2, int R, int l_end,
+                       int fold, void* stream) {
+  SynthArgs g{a, m_vals, mp_vals, x, pmm, pms, out, Mp, L1, K2, R, l_end,
               static_cast<cudaStream_t>(stream)};
-  return dispatch<LaunchSynthVpu>(chunk_for(K2, 16), fold, g);
+  return dispatch<LaunchSynthVpu>(chunk_for(K2, 16), fold, mp_vals != nullptr,
+                                  g);
 }
 
-int legendre_synth_mxu(const float* a, const int* m_vals, const float* x,
-                       const float* pmm, const int* pms, float* out, int Mp,
-                       int L1, int K2, int R, int l_end, int fold,
-                       void* stream) {
-  SynthArgs g{a, m_vals, x, pmm, pms, out, Mp, L1, K2, R, l_end,
+int legendre_synth_mxu(const float* a, const int* m_vals, const int* mp_vals,
+                       const float* x, const float* pmm, const int* pms,
+                       float* out, int Mp, int L1, int K2, int R, int l_end,
+                       int fold, void* stream) {
+  SynthArgs g{a, m_vals, mp_vals, x, pmm, pms, out, Mp, L1, K2, R, l_end,
               static_cast<cudaStream_t>(stream)};
-  return dispatch<LaunchSynthMxu>(chunk_for(K2, 16), fold, g);
+  return dispatch<LaunchSynthMxu>(chunk_for(K2, 16), fold, mp_vals != nullptr,
+                                  g);
 }
 
-int legendre_anal_vpu(const float* dw, const int* m_vals, const float* x,
-                      const float* pmm, const int* pms, float* part, int Mp,
-                      int K2, int R, int l_end, int n_chunks, int fold,
-                      void* stream) {
+int legendre_anal_vpu(const float* dw, const int* m_vals, const int* mp_vals,
+                      const float* x, const float* pmm, const int* pms,
+                      float* part, int Mp, int K2, int R, int l_end,
+                      int n_chunks, int fold, void* stream) {
   if (n_chunks != chunks_of(R, kVpuAnalTiles))
     return static_cast<int>(cudaErrorInvalidValue);
-  AnalArgs g{dw, m_vals, x, pmm, pms, part, Mp, K2, R, l_end, n_chunks,
-             static_cast<cudaStream_t>(stream)};
-  return dispatch<LaunchAnalVpu>(chunk_for(K2, 4), fold, g);
+  AnalArgs g{dw, m_vals, mp_vals, x, pmm, pms, part, Mp, K2, R, l_end,
+             n_chunks, static_cast<cudaStream_t>(stream)};
+  return dispatch<LaunchAnalVpu>(chunk_for(K2, 4), fold, mp_vals != nullptr,
+                                 g);
 }
 
-int legendre_anal_mxu(const float* dw, const int* m_vals, const float* x,
-                      const float* pmm, const int* pms, float* part, int Mp,
-                      int K2, int R, int l_end, int n_chunks, int fold,
-                      void* stream) {
+int legendre_anal_mxu(const float* dw, const int* m_vals, const int* mp_vals,
+                      const float* x, const float* pmm, const int* pms,
+                      float* part, int Mp, int K2, int R, int l_end,
+                      int n_chunks, int fold, void* stream) {
   if (n_chunks != chunks_of(R, kMxuAnalTiles))
     return static_cast<int>(cudaErrorInvalidValue);
-  AnalArgs g{dw, m_vals, x, pmm, pms, part, Mp, K2, R, l_end, n_chunks,
-             static_cast<cudaStream_t>(stream)};
-  return dispatch<LaunchAnalMxu>(chunk_for(K2, 16), fold, g);
+  AnalArgs g{dw, m_vals, mp_vals, x, pmm, pms, part, Mp, K2, R, l_end,
+             n_chunks, static_cast<cudaStream_t>(stream)};
+  return dispatch<LaunchAnalMxu>(chunk_for(K2, 16), fold, mp_vals != nullptr,
+                                 g);
 }
 
-int legendre_anal_reduce(const float* part, const int* m_vals, float* out,
-                         int Mp, int n_chunks, int L, int K2, void* stream) {
+int legendre_anal_reduce(const float* part, const int* m_vals,
+                         const int* mp_vals, float* out, int Mp, int n_chunks,
+                         int L, int K2, void* stream) {
   const size_t total = static_cast<size_t>(Mp) * L * K2;
   const int threads = 256;
   const unsigned blocks = static_cast<unsigned>((total + threads - 1) / threads);
   anal_reduce_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      part, m_vals, out, Mp, n_chunks, L, K2);
+      part, m_vals, mp_vals, out, Mp, n_chunks, L, K2);
   return static_cast<int>(cudaGetLastError());
 }
 

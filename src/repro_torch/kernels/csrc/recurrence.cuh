@@ -9,6 +9,16 @@
 // rounded square root and division, as in the plain PyTorch version
 // (repro_torch/kernels/ref.py): the recurrence amplifies a last-bit
 // difference to about 4e-4 of max|Delta| by l_max 256.
+//
+// The spin branch (the reference's `_f32_step_spin`,
+// src/repro/kernels/legendre_pallas.py:116) runs the Wigner-d rows of the
+// spin-2 transforms, lam_l = (a_l x + b_l) lam_{l-1} - c_l lam_{l-2}, seeded
+// at l0 = max(m, |m'|).  a, b, c depend on (l, m, m') only, so a block fills
+// them per 32-l tile into shared memory (fill_spin, the counterpart of
+// fill_beta) and each ring's step is five operations and the rescale.  The
+// kernels select the branch with a `bool SPIN` template parameter through
+// fill_coef / rec_step; their SPIN = false instantiations run fill_beta and
+// rec_advance as before.
 
 #pragma once
 
@@ -111,6 +121,102 @@ __device__ __forceinline__ float rec_advance(Rec* s, int l, int m, float x,
 
 __device__ __forceinline__ float p_first_coef(int m) {
   return __fsqrt_rn(fmaxf(2.0f * static_cast<float>(m) + 3.0f, 0.0f));
+}
+
+// The Wigner-d coefficients a_l, b_l, c_l of row (m, m') at l, in float32
+// as `_f32_step_spin` computes them: every operation separately rounded, in
+// the plain version's order.  l0 = max(m, |m'|); at l = l0 + 1, c = 0.
+__device__ __forceinline__ void spin_coef(int l, int m, int mp, float* a,
+                                          float* b, float* c) {
+  const float lf = static_cast<float>(l), mf = static_cast<float>(m),
+              mpf = static_cast<float>(mp);
+  const float l0 = fmaxf(mf, fabsf(mpf));
+  const float ls = fmaxf(lf, __fadd_rn(l0, 1.0f));
+  const float mm = __fmul_rn(mf, mf), mpmp = __fmul_rn(mpf, mpf);
+  const float ls2 = __fmul_rn(ls, ls);
+  const float d2 = fmaxf(__fmul_rn(__fsub_rn(ls2, mm), __fsub_rn(ls2, mpmp)),
+                         1e-30f);
+  const float lm1 = __fsub_rn(ls, 1.0f);
+  const float lm12 = __fmul_rn(lm1, lm1);
+  const float d2m1 = fmaxf(
+      __fmul_rn(__fsub_rn(lm12, mm), __fsub_rn(lm12, mpmp)), 0.0f);
+  const float s2l = __fsqrt_rn(__fsub_rn(__fmul_rn(__fmul_rn(4.0f, ls), ls),
+                                         1.0f));
+  const float inv_d = __fdiv_rn(1.0f, __fsqrt_rn(d2));
+  const float inv_lm1 = __fdiv_rn(1.0f, fmaxf(lm1, 1.0f));
+  *a = __fmul_rn(__fmul_rn(ls, s2l), inv_d);
+  *b = __fmul_rn(__fmul_rn(__fmul_rn(-__fmul_rn(mf, mpf), s2l), inv_d),
+                 inv_lm1);
+  const float q = __fsqrt_rn(__fdiv_rn(
+      __fadd_rn(__fmul_rn(2.0f, ls), 1.0f),
+      fmaxf(__fsub_rn(__fmul_rn(2.0f, ls), 3.0f), 1.0f)));
+  *c = __fmul_rn(__fmul_rn(__fmul_rn(__fmul_rn(q, ls), __fsqrt_rn(d2m1)),
+                           inv_d),
+                 inv_lm1);
+}
+
+// Threads below kLT fill the block's Wigner-d table for rows
+// l0 .. l0 + kLT - 1 of row (m, m').
+__device__ __forceinline__ void fill_spin(int l0, int m, int mp, float* a_s,
+                                          float* b_s, float* c_s) {
+  if (threadIdx.x < kLT) {
+    float a, b, c;
+    spin_coef(l0 + static_cast<int>(threadIdx.x), m, mp, &a, &b, &c);
+    a_s[threadIdx.x] = a;
+    b_s[threadIdx.x] = b;
+    c_s[threadIdx.x] = c;
+  }
+}
+
+// One Wigner-d step at multipole l >= lz = max(m, |m'|) (block-uniform
+// branches): the seed at l == lz, the three-term recurrence after (at
+// lz + 1 its c is 0).  Returns the descaled lambda_{l,m}.
+__device__ __forceinline__ float rec_advance_spin(Rec* s, int l, int lz,
+                                                  float x, float a, float b,
+                                                  float c, float seed,
+                                                  int seed_scale) {
+  if (l == lz) return rec_advance(s, l, l, x, 0.0f, 0.0f, 0.0f, seed,
+                                  seed_scale);
+  const float p = __fsub_rn(
+      __fmul_rn(__fadd_rn(__fmul_rn(a, x), b), s->pc), __fmul_rn(c, s->pp));
+  return rec_finish(s, p);
+}
+
+// The coefficient table of one 32-l tile of a row: beta and the beta ratio
+// in t0, t1 (spin 0), or a, b, c in t0, t1, t2 (spin).
+template <bool SPIN>
+__device__ __forceinline__ void fill_coef(int l0, int m, int mp, float* t0,
+                                          float* t1, float* t2) {
+  if constexpr (SPIN) {
+    fill_spin(l0, m, mp, t0, t1, t2);
+  } else {
+    fill_beta(l0, m, t0, t1);
+  }
+}
+
+// One step of row (m, m') at l from its first multipole lz (m for spin 0),
+// with tile entry j of the table fill_coef filled.
+template <bool SPIN>
+__device__ __forceinline__ float rec_step(Rec* s, int l, int lz, float x,
+                                          const float* t0, const float* t1,
+                                          const float* t2, int j, float p1,
+                                          float seed, int seed_scale) {
+  if constexpr (SPIN) {
+    return rec_advance_spin(s, l, lz, x, t0[j], t1[j], t2[j], seed,
+                            seed_scale);
+  } else {
+    return rec_advance(s, l, lz, x, t0[j], t1[j], p1, seed, seed_scale);
+  }
+}
+
+// First multipole of row (m, m'): m for spin 0, max(m, |m'|) for spin.
+template <bool SPIN>
+__device__ __forceinline__ int row_start(int m, int mp) {
+  if constexpr (SPIN) {
+    return max(m, abs(mp));
+  } else {
+    return m;
+  }
 }
 
 // Map (or channel) chunk per block: the smallest power of two >= n, from

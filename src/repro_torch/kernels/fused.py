@@ -1,8 +1,8 @@
 """Fused Legendre+phase pipeline: host side of the fused kernels.
 
-Counterpart of ``repro.kernels.fused``, uniform phase stage, spin 0.  The
-staged pipeline writes Delta_m(r) to device memory between the Legendre
-kernel and the phase stage; the fused kernels keep it on chip:
+Counterpart of ``repro.kernels.fused``, uniform phase stage, spin 0 and
+2.  The staged pipeline writes Delta_m(r) to device memory between the
+Legendre kernel and the phase stage; the fused kernels keep it on chip:
 
 * synthesis: per slot of a ``kernels.pack`` layout, the kernel sums the
   recurrence against the packed coefficient streams, combines the fold
@@ -22,9 +22,18 @@ CUDA tensor the CUDA kernels (``kernels.fused_cuda``).  ``fused_synth`` and
 ``fused_anal`` are differentiable through their adjoints, the chains of
 the other direction (``core.autodiff.linear_pair``): the transpose of the
 synthesis chain is fac_m times the analysis chain, and the reverse, as in
-the reference.  What is not ported yet raises, naming the ROADMAP.md item
-it waits on: the spin-2 row set (item 7), ring buckets (item 8) and the
-bfloat16 contraction (item 6).
+the reference.
+
+Spin 2 (``mp_vals`` the stacked [m' = -2 | m' = +2] rows of
+``ops.spin_rows``, fold off): the kernels run their spin branch on the 2M
+lambda^{+-} rows; the synthesis epilogue unpacks Delta^{+-} into the Q|U
+channels (``core.legendre.spin_unpack_delta``) before the bins, which come
+from the first M rows (both halves share one m), and the analysis packs
+the gathered Q|U bins into Delta^{+-} rows (``spin_pack_delta``).  The
+pair packing adds a net 1/2 to the synthesis adjoint (``bsc``) and 2 to
+the analysis adjoint.  What is not ported yet raises, naming the
+ROADMAP.md item it waits on: ring buckets (item 8) and the bfloat16
+contraction (item 6).
 """
 
 from __future__ import annotations
@@ -32,7 +41,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.core import phase
+from repro_torch.core import legendre, phase
 from repro_torch.core.autodiff import linear_pair
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
@@ -108,19 +117,20 @@ def _tables(store, direction, m_vals, lo, device, *, n, phi0, fold_rings,
 
 def _kernel_synth(a, tab_pk, prep, *, l_max, var, lo, fold, store):
     """Packed fused kernel leg: a (Mr, L1, 2K) -> rotated per-plane rows
-    h (Mr, n_pl, R, 2K)."""
+    h (Mr, n_pl, R, 2K); the spin branch on a spin layout."""
     maps, x, pmm_pk, pms_pk = prep
     Mr, K2 = a.shape[0], a.shape[-1]
     R = x.shape[0]
     a_pk = kops._pack_a(a.to(torch.float32), lo, cache=store).contiguous()
     if kops._route(a.device) == "cpu":
         out = kref.synth_fused_ref(a_pk, maps, x, pmm_pk, pms_pk, tab_pk,
-                                   l_max=l_max, fold=fold, layout=var)
+                                   l_max=l_max, fold=fold, layout=var,
+                                   spin=lo.spin)
     else:
         from repro_torch.kernels import fused_cuda
         kernel = getattr(fused_cuda, f"synth_fused_{var}")
         out = kernel(a_pk, maps, x, pmm_pk, pms_pk, tab_pk, l_max=l_max,
-                     fold=fold)
+                     fold=fold, spin=lo.spin)
     if var == "vpu":
         out = out.movedim(3, -1)              # (n_slots, 2, n_pl, R, 2K)
     seg = out.reshape(lo.n_slots * 2, 2 if fold else 1, R, K2)
@@ -137,18 +147,21 @@ def _kernel_anal(fp, tab_pk, prep, *, l_max, var, lo, store):
     f_pk = f_pk.contiguous()
     if kops._route(fp.device) == "cpu":
         out = kref.anal_fused_ref(f_pk, maps, x, pmm_pk, pms_pk, tab_pk,
-                                  l_max=l_max, s_len=lo.S, layout=var)
+                                  l_max=l_max, s_len=lo.S, layout=var,
+                                  spin=lo.spin)
     else:
         from repro_torch.kernels import fused_cuda
         kernel = getattr(fused_cuda, f"anal_fused_{var}")
         out = kernel(f_pk, maps, x, pmm_pk, pms_pk, tab_pk, l_max=l_max,
-                     s_len=lo.S)
+                     s_len=lo.S, spin=lo.spin)
     return kops._unpack_alm(out, lo, cache=store)
 
 
 def _synth_chain(a, m_vals, x, pmm, pms, *, l_max, var, lo, n, phi0,
                  fold_rings, store):
-    """Weight-free fused synthesis: a (M, L1, 2K) f32 -> maps (R, n, K)."""
+    """Weight-free fused synthesis: a (Mr, L1, 2K) f32 -> maps (R, n, C).
+    ``Mr`` is the kernel row count: M, or the 2M lambda^{+-} rows of a spin
+    layout, whose Q|U maps come out as C = 2K channels (else C = K)."""
     prep = kops._prep(lo, x, pmm, pms, store)
     nh = prep[1].shape[0]
     tab = _tables(store, "synth", m_vals, lo, a.device, n=n, phi0=phi0,
@@ -161,26 +174,45 @@ def _synth_chain(a, m_vals, x, pmm, pms, *, l_max, var, lo, n, phi0,
         ns = fold_rings - nh
         flat = torch.cat([h[:, 0], h[:, 1, :ns].flip(1)], dim=1)
     else:
-        flat = h[:, 0]                        # (M, R, 2K)
+        flat = h[:, 0]                        # (Mr, R, 2K)
     K = flat.shape[-1] // 2
-    hc = torch.complex(flat[..., :K], flat[..., K:])        # (M, R, K)
-    bins, _, _ = phase.uniform_bin_maps(m_vals, n)
+    mv = np.asarray(m_vals)
+    if lo.spin:
+        dq_re, dq_im, du_re, du_im = legendre.spin_unpack_delta(
+            flat[..., :K], flat[..., K:])
+        hc = torch.cat([torch.complex(dq_re, dq_im),
+                        torch.complex(du_re, du_im)], dim=-1)  # (M, R, 2K)
+        mv = mv[:mv.shape[0] // 2]
+    else:
+        hc = torch.complex(flat[..., :K], flat[..., K:])    # (M, R, K)
+    bins, _, _ = phase.uniform_bin_maps(mv, n)
     H = torch.zeros((n // 2 + 1,) + tuple(hc.shape[1:]), dtype=hc.dtype,
                     device=hc.device)
     H.index_add_(0, torch.as_tensor(bins, device=hc.device), hc)
     return torch.fft.irfft(H.movedim(0, 1), n=n, dim=1) * n
 
 
-def _anal_rows(maps_w, m_vals, *, n, fold_rings, n_half):
-    """The analysis kernels' input: ring-weighted maps (R, n, K) f32 ->
-    gathered, unrotated FFT rows (M, n_pl, R_kernel, 2K) f32, with the fold
-    as north rings and reversed south rings (zero past the southern
-    count)."""
+def _anal_rows(maps_w, m_vals, *, n, fold_rings, n_half, spin=False):
+    """The analysis kernels' input: ring-weighted maps (R, n, C) f32 ->
+    gathered, unrotated FFT rows (Mr, n_pl, R_kernel, 2K) f32, with the
+    fold as north rings and reversed south rings (zero past the southern
+    count).  With ``spin`` the C = 2K channels are Q|U and ``m_vals`` the
+    2M spin rows: the bins of the first M rows are packed into the
+    Delta^{+-} rows (Mr = 2M); else C = K and Mr = M."""
     dev = maps_w.device
-    F = torch.fft.rfft(maps_w, dim=1)                       # (R, half, K)
-    bins, _, _ = phase.uniform_bin_maps(m_vals, n)
-    Fm = F[:, torch.as_tensor(bins, device=dev)].movedim(1, 0)   # (M, R, K)
-    f = torch.cat([Fm.real, Fm.imag], dim=-1)               # (M, R, 2K)
+    mv = np.asarray(m_vals)
+    mv = mv[:mv.shape[0] // 2] if spin else mv
+    F = torch.fft.rfft(maps_w, dim=1)                       # (R, half, C)
+    bins, _, _ = phase.uniform_bin_maps(mv, n)
+    Fm = F[:, torch.as_tensor(bins, device=dev)].movedim(1, 0)   # (M, R, C)
+    if spin:
+        K = Fm.shape[-1] // 2
+        f_re, f_im = legendre.spin_pack_delta(
+            Fm[..., :K].real, Fm[..., :K].imag, Fm[..., K:].real,
+            Fm[..., K:].imag)
+        f = torch.cat([f_re, f_im], dim=-1)                 # (2M, R, 2K)
+    else:
+        f = torch.cat([Fm.real, Fm.imag], dim=-1)           # (M, R, 2K)
     if fold_rings is None:
         return f[:, None]                     # (M, 1, R, 2K)
     nh, ns = n_half, fold_rings - n_half
@@ -192,24 +224,32 @@ def _anal_rows(maps_w, m_vals, *, n, fold_rings, n_half):
 
 def _anal_chain(maps_w, m_vals, x, pmm, pms, *, l_max, var, lo, n, phi0,
                 fold_rings, store):
-    """Weight-free fused analysis core: ring-weighted maps (R, n, K) f32
-    -> a (M, l_max + 1, 2K) f32."""
+    """Weight-free fused analysis core: ring-weighted maps (R, n, C) f32
+    -> a (Mr, l_max + 1, 2K) f32 (rows and channels as
+    :func:`_synth_chain`)."""
     prep = kops._prep(lo, x, pmm, pms, store)
     nh = prep[1].shape[0]
-    fp = _anal_rows(maps_w, m_vals, n=n, fold_rings=fold_rings, n_half=nh)
+    fp = _anal_rows(maps_w, m_vals, n=n, fold_rings=fold_rings, n_half=nh,
+                    spin=lo.spin)
     tab = _tables(store, "anal", m_vals, lo, maps_w.device, n=n, phi0=phi0,
                   fold_rings=fold_rings, n_half=nh)
     return _kernel_anal(fp, tab, prep, l_max=l_max, var=var, lo=lo,
                         store=store)
 
 
-def _resolve(m_vals, l_max, lo, mp_vals, bf16):
-    if mp_vals is not None:
-        raise _waits("the fused spin-2 row set (mp_vals)", 7)
+def _resolve(m_vals, l_max, lo, mp_vals, bf16, fold_rings):
+    """The slot layout of the rows (the spin layout with ``mp_vals``),
+    checked against the request."""
     if bf16:
         raise _waits("the bfloat16 fused contraction (bf16=True)", 6)
+    if mp_vals is not None and fold_rings is not None:
+        raise ValueError("fold is not supported for spin transforms")
     if lo is None:
-        lo = kops._resolve_layout(np.asarray(m_vals), "packed", l_max)
+        lo = kops._resolve_layout(np.asarray(m_vals), "packed", l_max,
+                                  mp_vals=mp_vals)
+    if lo.spin != (mp_vals is not None):
+        raise ValueError(f"layout spin={lo.spin} does not match mp_vals "
+                         f"{'given' if mp_vals is not None else 'absent'}")
     return lo
 
 
@@ -227,24 +267,29 @@ def fused_synth(a, m_vals, x, pmm, pms, *, l_max, n, phi0, variant="vpu",
     K) f32, on a's device.
 
     m_vals (M,) numpy rows; x (R_k,) f32 cos(theta) and pmm/pms (M, R_k)
-    seeds on a's device.  Equator fold: pass ``fold_rings`` = the full ring
-    count; x/pmm/pms then cover the northern half only and the
-    north/south combine runs in the kernel.  ``store``: a dict the caller
-    keeps, for one layout and device, to reuse the packed seeds, rotation
-    tables and pack/unpack index tensors across calls (a plan passes its
-    own).  Differentiable: the backward is fac_m times the fused analysis
+    seeds on a's device.  Spin 2: ``m_vals``/``mp_vals`` the 2M rows of
+    ``ops.spin_rows``, ``a`` the ``spin_pack_alm`` rows (re|im), seeds from
+    ``ref.prepare_seeds_spin``; the maps are then (R, n, 2K), Q|U.  Equator
+    fold (spin 0 only): pass ``fold_rings`` = the full ring count; x/pmm/pms
+    then cover the northern half only and the north/south combine runs in
+    the kernel.  ``store``: a dict the caller keeps, for one layout and
+    device, to reuse the packed seeds, rotation tables and pack/unpack
+    index tensors across calls (a plan passes its own).  Differentiable:
+    the backward is fac_m (and 1/2 for spin) times the fused analysis
     chain of the cotangent.
     """
-    lo = _resolve(m_vals, l_max, lo, mp_vals, bf16)
+    lo = _resolve(m_vals, l_max, lo, mp_vals, bf16, fold_rings)
     kw = dict(l_max=l_max, var=variant, lo=lo, n=n, phi0=phi0,
               fold_rings=fold_rings, store=store)
     fac = _fac(m_vals, a.device)
+    bsc = 0.5 if lo.spin else 1.0
 
     def fwd(_, a_):
         return _synth_chain(a_, m_vals, x, pmm, pms, **kw)
 
     def bwd(_, t):
-        return fac * _anal_chain(t.contiguous(), m_vals, x, pmm, pms, **kw)
+        return bsc * fac * _anal_chain(t.contiguous(), m_vals, x, pmm, pms,
+                                       **kw)
 
     return linear_pair(fwd, bwd, {"x": x, "pmm": pmm, "pms": pms}, a)
 
@@ -253,26 +298,28 @@ def fused_anal(maps, weights, m_vals, x, pmm, pms, *, l_max, n, phi0,
                variant="vpu", bf16=False, lo=None, mp_vals=None,
                fold_rings=None, store=None):
     """Fused analysis on a uniform grid: maps (R, n, K) -> a (M, l_max + 1,
-    2K) f32, on the maps' device.
+    2K) f32, on the maps' device (spin 2: Q|U maps (R, n, 2K) -> the 2M
+    lambda^{+-} rows, for ``spin_unpack_alm``).
 
     The ring quadrature ``weights`` are applied to the maps outside the
     kernel chain (they commute with the phi-axis FFT), so the chain's
-    adjoint is the weight-free fused synthesis of the cotangent / fac_m.
-    Other arguments as :func:`fused_synth`.
+    adjoint is the weight-free fused synthesis of the cotangent / fac_m
+    (and 2 for spin).  Other arguments as :func:`fused_synth`.
     """
-    lo = _resolve(m_vals, l_max, lo, mp_vals, bf16)
+    lo = _resolve(m_vals, l_max, lo, mp_vals, bf16, fold_rings)
     maps = torch.as_tensor(maps)
     w = torch.as_tensor(np.asarray(weights), dtype=torch.float32,
                         device=maps.device)
     kw = dict(l_max=l_max, var=variant, lo=lo, n=n, phi0=phi0,
               fold_rings=fold_rings, store=store)
     fac = _fac(m_vals, maps.device)
+    bsc = 0.5 if lo.spin else 1.0
 
     def fwd(_, mw):
         return _anal_chain(mw, m_vals, x, pmm, pms, **kw)
 
     def bwd(_, g):
-        return _synth_chain(g / fac, m_vals, x, pmm, pms, **kw)
+        return _synth_chain(g / (bsc * fac), m_vals, x, pmm, pms, **kw)
 
     return linear_pair(fwd, bwd, {"x": x, "pmm": pmm, "pms": pms},
                        maps.to(torch.float32) * w[:, None, None])

@@ -12,8 +12,8 @@ versions for CPU tensors are ``kernels.ref.synth_fused_ref`` /
 Operands, on a ``kernels.pack`` slot layout (n_slots slots, stream length
 S, P = 2 planes with the equator fold, else 1, Q = 2 x P):
   maps   the five per-slot i32 (n_slots,) maps of ``ops._pack_maps``
-         (m0, m1, mp0, mp1, seed); mp0/mp1 belong to the spin branch and
-         are not read;
+         (m0, m1, mp0, mp1, seed); mp0/mp1 are read by the spin branch
+         only;
   x (R,) f32; pmm_pk / pms_pk (n_slots, 2, R) f32 / i32 segment seeds;
   tab_pk (n_slots, 2, P, 4, R) f32 rotation tables, or None (identity).
   synth_fused_vpu:  a_pk (n_slots, S, 2K) -> (n_slots, 2, P, 2K, R);
@@ -28,6 +28,11 @@ The fused planes are north/south (combined in the kernel), the packed ones
 even/odd (l+m), plane q = segment x P + parity, and take no tables.
 Analysis writes per-ring-chunk partials and sums them in chunk order with
 ``legendre_cuda.anal_reduce``.
+
+``spin=True`` launches each kernel's spin branch on a spin slot layout (the
+Wigner-d rows (m, m') of the spin-2 plans, each segment starting at
+l0 = max(m, |m'|); fold off only), counted under the kernel's name with
+``_spin`` appended.
 """
 
 from __future__ import annotations
@@ -46,22 +51,23 @@ __all__ = ["synth_fused_vpu", "synth_fused_mxu", "anal_fused_vpu",
            "synth_packed_mxu", "anal_packed_vpu", "anal_packed_mxu",
            "anal_packed_partials", "launches", "reset_launches"]
 
-#: kernel name -> launches since the last :func:`reset_launches`
-launches = {"synth_fused_vpu": 0, "synth_fused_mxu": 0, "anal_fused_vpu": 0,
-            "anal_fused_mxu": 0, "synth_packed_vpu": 0, "synth_packed_mxu": 0,
-            "anal_packed_vpu": 0, "anal_packed_mxu": 0}
+#: kernel name -> launches since the last :func:`reset_launches`; the spin
+#: branch of a kernel counts under its name with ``_spin`` appended
+launches = {f"{d}_{kind}_{v}{b}": 0 for d in ("synth", "anal")
+            for kind in ("fused", "packed") for v in ("vpu", "mxu")
+            for b in ("", "_spin")}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    "fused_synth_vpu": [_P] * 9 + [_I] * 6 + [_P],
-    "fused_synth_mxu": [_P] * 9 + [_I] * 6 + [_P],
-    "fused_anal_vpu": [_P] * 9 + [_I] * 7 + [_P],
-    "fused_anal_mxu": [_P] * 9 + [_I] * 7 + [_P],
-    "packed_synth_vpu": [_P] * 8 + [_I] * 6 + [_P],
-    "packed_synth_mxu": [_P] * 8 + [_I] * 6 + [_P],
-    "packed_anal_vpu": [_P] * 8 + [_I] * 7 + [_P],
-    "packed_anal_mxu": [_P] * 8 + [_I] * 7 + [_P],
+    "fused_synth_vpu": [_P] * 11 + [_I] * 6 + [_P],
+    "fused_synth_mxu": [_P] * 11 + [_I] * 6 + [_P],
+    "fused_anal_vpu": [_P] * 11 + [_I] * 7 + [_P],
+    "fused_anal_mxu": [_P] * 11 + [_I] * 7 + [_P],
+    "packed_synth_vpu": [_P] * 10 + [_I] * 6 + [_P],
+    "packed_synth_mxu": [_P] * 10 + [_I] * 6 + [_P],
+    "packed_anal_vpu": [_P] * 10 + [_I] * 7 + [_P],
+    "packed_anal_mxu": [_P] * 10 + [_I] * 7 + [_P],
 }
 
 
@@ -80,36 +86,45 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _operands(maps, x, pmm_pk, pms_pk, tab_pk, n_slots, P, device):
-    """Check the shared operands; returns the pointers of (m0, m1, seed, x,
-    pmm_pk, pms_pk) and the table's (0 for None)."""
-    m0, m1, _, _, seed = maps
+def _operands(maps, x, pmm_pk, pms_pk, tab_pk, n_slots, P, device, spin):
+    """Check the shared operands; returns the pointers of (m0, m1, mp0, mp1,
+    seed, x, pmm_pk, pms_pk), mp0/mp1 null unless ``spin``, and the
+    table's (0 for None)."""
+    m0, m1, mp0, mp1, seed = maps
     R = x.shape[0]
-    for name, t in (("m0", m0), ("m1", m1), ("seed", seed)):
+    if spin and P != 1:
+        raise ValueError("the spin branch runs with the fold off; fold is "
+                         "not supported for spin transforms")
+    for name, t in (("m0", m0), ("m1", m1), ("mp0", mp0), ("mp1", mp1),
+                    ("seed", seed)):
         lc._check(name, t, torch.int32, (n_slots,))
     lc._check("x", x, torch.float32, (R,))
     lc._check("pmm_pk", pmm_pk, torch.float32, (n_slots, 2, R))
     lc._check("pms_pk", pms_pk, torch.int32, (n_slots, 2, R))
     if tab_pk is not None:
         lc._check("tab_pk", tab_pk, torch.float32, (n_slots, 2, P, 4, R))
-    ts = (m0, m1, seed, x, pmm_pk, pms_pk)
+    ts = (m0, m1, mp0, mp1, seed, x, pmm_pk, pms_pk)
     for t in ts + (() if tab_pk is None else (tab_pk,)):
         if t.device != device:
             raise ValueError(f"operands on {t.device} and {device}")
-    return [t.data_ptr() for t in ts], \
-        (0 if tab_pk is None else tab_pk.data_ptr())
+    ptrs = [t.data_ptr() for t in ts]
+    if not spin:
+        ptrs[2] = ptrs[3] = 0
+    return ptrs, (0 if tab_pk is None else tab_pk.data_ptr())
 
 
-def _synth(kernel, a_pk, maps, x, pmm_pk, pms_pk, tab_pk, *, l_max, fold):
+def _synth(kernel, a_pk, maps, x, pmm_pk, pms_pk, tab_pk, *, l_max, fold,
+           spin):
     """Launch synthesis ``kernel`` (``synth_{fused,packed}_{vpu,mxu}``); the
     packed ones take no table and return their planes as (n_slots, Q,
     ...)."""
     n_slots, S, K2 = a_pk.shape
     R, P = x.shape[0], (2 if fold else 1)
     _, kind, var = kernel.split("_")
+    name = kernel + ("_spin" if spin else "")
     lc._check("a_pk", a_pk, torch.float32, (n_slots, S, K2))
     ptrs, tab = _operands(maps, x, pmm_pk, pms_pk, tab_pk, n_slots, P,
-                          a_pk.device)
+                          a_pk.device, spin)
     shape = ((n_slots, 2, P, K2, R) if var == "vpu"
              else (n_slots, 2, P, R, K2))
     out = torch.empty(shape, dtype=torch.float32, device=a_pk.device)
@@ -118,43 +133,44 @@ def _synth(kernel, a_pk, maps, x, pmm_pk, pms_pk, tab_pk, *, l_max, fold):
     with torch.cuda.device(a_pk.device):
         err = fn(a_pk.data_ptr(), *ptrs, *tab, out.data_ptr(), n_slots, S,
                  K2 // 2, R, l_max, int(fold), lc._stream())
-    lc._raise_on(err, kernel)
-    launches[kernel] += 1
+    lc._raise_on(err, name)
+    launches[name] += 1
     return out if kind == "fused" else out.reshape(n_slots, 2 * P,
                                                    *shape[3:])
 
 
 def synth_fused_vpu(a_pk, maps, x, pmm_pk, pms_pk, tab_pk=None, *,
-                    l_max: int, fold: bool = False):
+                    l_max: int, fold: bool = False, spin: bool = False):
     """Fused synthesis, one ring per thread."""
     return _synth("synth_fused_vpu", a_pk, maps, x, pmm_pk, pms_pk, tab_pk,
-                  l_max=l_max, fold=fold)
+                  l_max=l_max, fold=fold, spin=spin)
 
 
 def synth_fused_mxu(a_pk, maps, x, pmm_pk, pms_pk, tab_pk=None, *,
-                    l_max: int, fold: bool = False):
+                    l_max: int, fold: bool = False, spin: bool = False):
     """Fused synthesis as (l x ring) P panels contracted in float32."""
     return _synth("synth_fused_mxu", a_pk, maps, x, pmm_pk, pms_pk, tab_pk,
-                  l_max=l_max, fold=fold)
+                  l_max=l_max, fold=fold, spin=spin)
 
 
 def synth_packed_vpu(a_pk, maps, x, pmm_pk, pms_pk, *, l_max: int,
-                     fold: bool = False):
+                     fold: bool = False, spin: bool = False):
     """Packed synthesis, one ring per thread: the fused vpu kernel without
     the fold combine and the rotation."""
     return _synth("synth_packed_vpu", a_pk, maps, x, pmm_pk, pms_pk, None,
-                  l_max=l_max, fold=fold)
+                  l_max=l_max, fold=fold, spin=spin)
 
 
 def synth_packed_mxu(a_pk, maps, x, pmm_pk, pms_pk, *, l_max: int,
-                     fold: bool = False):
+                     fold: bool = False, spin: bool = False):
     """Packed synthesis as (l x ring) P panels: the fused mxu kernel without
     the fold combine and the rotation."""
     return _synth("synth_packed_mxu", a_pk, maps, x, pmm_pk, pms_pk, None,
-                  l_max=l_max, fold=fold)
+                  l_max=l_max, fold=fold, spin=spin)
 
 
-def _partials(kernel, f, maps, x, pmm_pk, pms_pk, tab_pk, *, l_max, s_len):
+def _partials(kernel, f, maps, x, pmm_pk, pms_pk, tab_pk, *, l_max, s_len,
+              spin):
     """Launch analysis ``kernel`` (``anal_{fused,packed}_{vpu,mxu}``) on its
     per-slot rows ``f`` (n_slots, 2 x P, ...): per-ring-chunk partial sums
     (n_slots, n_chunks, S, 2K), dead stream positions zero."""
@@ -169,8 +185,9 @@ def _partials(kernel, f, maps, x, pmm_pk, pms_pk, tab_pk, *, l_max, s_len):
         raise ValueError(f"rows {tuple(f.shape)} do not fit x "
                          f"({x.shape[0]} rings) and 1 or 2 planes")
     P = Q // 2
+    name = kernel + ("_spin" if spin else "")
     ptrs, tab = _operands(maps, x, pmm_pk, pms_pk, tab_pk, n_slots, P,
-                          f.device)
+                          f.device, spin)
     chunk = lc.ANAL_CHUNK[var]
     n_chunks = _pad_to(R, chunk) // chunk
     part = torch.empty((n_slots, n_chunks, s_len, K2), dtype=torch.float32,
@@ -180,25 +197,26 @@ def _partials(kernel, f, maps, x, pmm_pk, pms_pk, tab_pk, *, l_max, s_len):
     with torch.cuda.device(f.device):
         err = fn(f.data_ptr(), *ptrs, *tab, part.data_ptr(), n_slots, s_len,
                  K2 // 2, R, l_max, n_chunks, int(P == 2), lc._stream())
-    lc._raise_on(err, kernel)
-    launches[kernel] += 1
+    lc._raise_on(err, name)
+    launches[name] += 1
     return part
 
 
 def anal_fused_partials(variant: str, f_pk, maps, x, pmm_pk, pms_pk,
-                        tab_pk=None, *, l_max: int, s_len: int):
+                        tab_pk=None, *, l_max: int, s_len: int,
+                        spin: bool = False):
     """First pass of ``anal_fused_<variant>``: per-ring-chunk partial sums
     (n_slots, n_chunks, S, 2K), dead stream positions zero."""
     return _partials(f"anal_fused_{variant}", f_pk, maps, x, pmm_pk, pms_pk,
-                     tab_pk, l_max=l_max, s_len=s_len)
+                     tab_pk, l_max=l_max, s_len=s_len, spin=spin)
 
 
 def anal_packed_partials(variant: str, dw_pk, maps, x, pmm_pk, pms_pk, *,
-                         l_max: int, s_len: int):
+                         l_max: int, s_len: int, spin: bool = False):
     """First pass of ``anal_packed_<variant>``, as
     :func:`anal_fused_partials`."""
     return _partials(f"anal_packed_{variant}", dw_pk, maps, x, pmm_pk,
-                     pms_pk, None, l_max=l_max, s_len=s_len)
+                     pms_pk, None, l_max=l_max, s_len=s_len, spin=spin)
 
 
 def _reduce(part):
@@ -210,32 +228,36 @@ def _reduce(part):
 
 
 def anal_fused_vpu(f_pk, maps, x, pmm_pk, pms_pk, tab_pk=None, *,
-                   l_max: int, s_len: int):
+                   l_max: int, s_len: int, spin: bool = False):
     """Fused analysis, rings reduced in registers, warps and a fixed-order
     pass."""
     return _reduce(anal_fused_partials("vpu", f_pk, maps, x, pmm_pk, pms_pk,
-                                       tab_pk, l_max=l_max, s_len=s_len))
+                                       tab_pk, l_max=l_max, s_len=s_len,
+                                       spin=spin))
 
 
 def anal_fused_mxu(f_pk, maps, x, pmm_pk, pms_pk, tab_pk=None, *,
-                   l_max: int, s_len: int):
+                   l_max: int, s_len: int, spin: bool = False):
     """Fused analysis as (l x ring) P panels contracted against the rotated
     Delta resident in shared memory."""
     return _reduce(anal_fused_partials("mxu", f_pk, maps, x, pmm_pk, pms_pk,
-                                       tab_pk, l_max=l_max, s_len=s_len))
+                                       tab_pk, l_max=l_max, s_len=s_len,
+                                       spin=spin))
 
 
 def anal_packed_vpu(dw_pk, maps, x, pmm_pk, pms_pk, *, l_max: int,
-                    s_len: int):
+                    s_len: int, spin: bool = False):
     """Packed analysis: the fused vpu kernel on the parity planes as given,
     unrotated."""
     return _reduce(anal_packed_partials("vpu", dw_pk, maps, x, pmm_pk,
-                                        pms_pk, l_max=l_max, s_len=s_len))
+                                        pms_pk, l_max=l_max, s_len=s_len,
+                                        spin=spin))
 
 
 def anal_packed_mxu(dw_pk, maps, x, pmm_pk, pms_pk, *, l_max: int,
-                    s_len: int):
+                    s_len: int, spin: bool = False):
     """Packed analysis: the fused mxu kernel on the parity planes as given,
     unrotated."""
     return _reduce(anal_packed_partials("mxu", dw_pk, maps, x, pmm_pk,
-                                        pms_pk, l_max=l_max, s_len=s_len))
+                                        pms_pk, l_max=l_max, s_len=s_len,
+                                        spin=spin))

@@ -13,6 +13,11 @@ Layouts (the unpadded ``ops`` seam):
   anal_*:  dw (Mp, P, R, 2K) f32 (same seeds) -> (Mp, l_max+1, 2K) f32,
            through per-ring-chunk partials and the ``anal_reduce`` pass.
 P is 2 (even, odd (l+m) planes) when ``fold`` else 1.
+
+``mp_vals`` (Mp,) i32, m' per row, launches each kernel's spin branch (the
+Wigner-d rows of the spin-2 plans, seeded at l0 = max(m, |m'|) from
+``ref.prepare_seeds_spin``; fold off only), counted under the kernel's name
+with ``_spin`` appended; ``anal_reduce`` then zeroes l < l0.
 """
 
 from __future__ import annotations
@@ -27,9 +32,11 @@ from repro_torch.kernels import build
 __all__ = ["synth_vpu", "synth_mxu", "anal_vpu", "anal_mxu", "anal_partials",
            "anal_reduce", "launches", "reset_launches", "ANAL_CHUNK"]
 
-#: kernel name -> launches since the last :func:`reset_launches`
-launches = {"synth_vpu": 0, "synth_mxu": 0, "anal_vpu": 0, "anal_mxu": 0,
-            "anal_reduce": 0}
+#: kernel name -> launches since the last :func:`reset_launches`; the spin
+#: branch of a kernel counts under its name with ``_spin`` appended
+launches = {f"{k}{b}": 0 for k in ("synth_vpu", "synth_mxu", "anal_vpu",
+                                   "anal_mxu") for b in ("", "_spin")}
+launches["anal_reduce"] = 0
 
 #: rings per partial-sum chunk of each analysis kernel; the C launchers
 #: refuse a partials buffer sized otherwise (``legendre.cu``: kTile times
@@ -39,11 +46,11 @@ ANAL_CHUNK = {"vpu": 1024, "mxu": 512}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    "legendre_synth_vpu": [_P] * 6 + [_I] * 6 + [_P],
-    "legendre_synth_mxu": [_P] * 6 + [_I] * 6 + [_P],
-    "legendre_anal_vpu": [_P] * 6 + [_I] * 6 + [_P],
-    "legendre_anal_mxu": [_P] * 6 + [_I] * 6 + [_P],
-    "legendre_anal_reduce": [_P] * 3 + [_I] * 4 + [_P],
+    "legendre_synth_vpu": [_P] * 7 + [_I] * 6 + [_P],
+    "legendre_synth_mxu": [_P] * 7 + [_I] * 6 + [_P],
+    "legendre_anal_vpu": [_P] * 7 + [_I] * 6 + [_P],
+    "legendre_anal_mxu": [_P] * 7 + [_I] * 6 + [_P],
+    "legendre_anal_reduce": [_P] * 4 + [_I] * 4 + [_P],
 }
 
 
@@ -74,14 +81,33 @@ def _check(name: str, t: torch.Tensor, dtype, shape) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
-def _check_seeds(m_vals, x, pmm, pms, Mp, R, device):
+def _check_seeds(m_vals, x, pmm, pms, Mp, R, device, mp_vals=None):
     _check("m_vals", m_vals, torch.int32, (Mp,))
     _check("x", x, torch.float32, (R,))
     _check("pmm", pmm, torch.float32, (Mp, R))
     _check("pms", pms, torch.int32, (Mp, R))
-    for t in (m_vals, x, pmm, pms):
-        if t.device != device:
+    if mp_vals is not None:
+        _check("mp_vals", mp_vals, torch.int32, (Mp,))
+    for t in (m_vals, mp_vals, x, pmm, pms):
+        if t is not None and t.device != device:
             raise ValueError(f"operands on {t.device} and {device}")
+
+
+def _branch(kernel: str, mp_vals, fold: bool) -> str:
+    """The counter and error name of ``kernel``'s branch for ``mp_vals``;
+    the spin branch runs with the fold off only."""
+    if mp_vals is None:
+        return kernel
+    if fold:
+        raise ValueError(f"{kernel}: the spin branch (mp_vals) runs with "
+                         "the fold off; fold is not supported for spin "
+                         "transforms")
+    return f"{kernel}_spin"
+
+
+def _ptr(t) -> int:
+    """A tensor's device pointer, or 0 (null) for None."""
+    return 0 if t is None else t.data_ptr()
 
 
 def _raise_on(err: int, kernel: str) -> None:
@@ -94,87 +120,100 @@ def _stream() -> int:
     return torch.cuda.current_stream().cuda_stream
 
 
-def _synth(kernel, a, m_vals, x, pmm, pms, *, l_max, fold):
+def _synth(kernel, a, m_vals, x, pmm, pms, *, l_max, fold, mp_vals):
     Mp, L1, K2 = a.shape
     R = x.shape[0]
+    name = _branch(kernel, mp_vals, fold)
     _check("a", a, torch.float32, (Mp, L1, K2))
-    _check_seeds(m_vals, x, pmm, pms, Mp, R, a.device)
+    _check_seeds(m_vals, x, pmm, pms, Mp, R, a.device, mp_vals)
     P = 2 if fold else 1
     out = torch.empty((Mp, P, R, K2), dtype=torch.float32, device=a.device)
     fn = getattr(_lib(), f"legendre_{kernel}")
     with torch.cuda.device(a.device):
-        err = fn(a.data_ptr(), m_vals.data_ptr(), x.data_ptr(),
-                 pmm.data_ptr(), pms.data_ptr(), out.data_ptr(), Mp, L1, K2,
-                 R, min(l_max + 1, L1), int(fold), _stream())
-    _raise_on(err, kernel)
-    launches[kernel] += 1
+        err = fn(a.data_ptr(), m_vals.data_ptr(), _ptr(mp_vals),
+                 x.data_ptr(), pmm.data_ptr(), pms.data_ptr(),
+                 out.data_ptr(), Mp, L1, K2, R, min(l_max + 1, L1),
+                 int(fold), _stream())
+    _raise_on(err, name)
+    launches[name] += 1
     return out
 
 
-def synth_vpu(a, m_vals, x, pmm, pms, *, l_max: int, fold: bool = False):
+def synth_vpu(a, m_vals, x, pmm, pms, *, l_max: int, fold: bool = False,
+              mp_vals=None):
     """Synthesis, one ring per thread (paper Alg. 4)."""
-    return _synth("synth_vpu", a, m_vals, x, pmm, pms, l_max=l_max, fold=fold)
+    return _synth("synth_vpu", a, m_vals, x, pmm, pms, l_max=l_max, fold=fold,
+                  mp_vals=mp_vals)
 
 
-def synth_mxu(a, m_vals, x, pmm, pms, *, l_max: int, fold: bool = False):
+def synth_mxu(a, m_vals, x, pmm, pms, *, l_max: int, fold: bool = False,
+              mp_vals=None):
     """Synthesis as (l x ring) P panels contracted in float32."""
-    return _synth("synth_mxu", a, m_vals, x, pmm, pms, l_max=l_max, fold=fold)
+    return _synth("synth_mxu", a, m_vals, x, pmm, pms, l_max=l_max, fold=fold,
+                  mp_vals=mp_vals)
 
 
 def anal_partials(variant: str, dw, m_vals, x, pmm, pms, *, l_max: int,
-                  fold: bool = False):
+                  fold: bool = False, mp_vals=None):
     """First analysis pass of ``anal_<variant>``: per-ring-chunk partial
-    sums (Mp, n_chunks, l_max+1, 2K); rows l < m are left unwritten."""
+    sums (Mp, n_chunks, l_max+1, 2K); rows l < l0 (m, or max(m, |m'|) with
+    ``mp_vals``) are left unwritten."""
     kernel = f"anal_{variant}"
+    name = _branch(kernel, mp_vals, fold)
     Mp, P, R, K2 = dw.shape
     if P != (2 if fold else 1):
         raise ValueError(f"dw has {P} parity planes, fold={fold}")
     _check("dw", dw, torch.float32, (Mp, P, R, K2))
-    _check_seeds(m_vals, x, pmm, pms, Mp, R, dw.device)
+    _check_seeds(m_vals, x, pmm, pms, Mp, R, dw.device, mp_vals)
     L = l_max + 1
     n_chunks = -(-R // ANAL_CHUNK[variant])
     part = torch.empty((Mp, n_chunks, L, K2), dtype=torch.float32,
                        device=dw.device)
     fn = getattr(_lib(), f"legendre_{kernel}")
     with torch.cuda.device(dw.device):
-        err = fn(dw.data_ptr(), m_vals.data_ptr(), x.data_ptr(),
-                 pmm.data_ptr(), pms.data_ptr(), part.data_ptr(), Mp, K2, R,
-                 L, n_chunks, int(fold), _stream())
-    _raise_on(err, kernel)
-    launches[kernel] += 1
+        err = fn(dw.data_ptr(), m_vals.data_ptr(), _ptr(mp_vals),
+                 x.data_ptr(), pmm.data_ptr(), pms.data_ptr(),
+                 part.data_ptr(), Mp, K2, R, L, n_chunks, int(fold),
+                 _stream())
+    _raise_on(err, name)
+    launches[name] += 1
     return part
 
 
-def anal_vpu(dw, m_vals, x, pmm, pms, *, l_max: int, fold: bool = False):
+def anal_vpu(dw, m_vals, x, pmm, pms, *, l_max: int, fold: bool = False,
+             mp_vals=None):
     """Analysis, rings reduced in registers, warps and a fixed-order pass
     (paper Alg. 5)."""
     part = anal_partials("vpu", dw, m_vals, x, pmm, pms, l_max=l_max,
-                         fold=fold)
-    return anal_reduce(part, m_vals, l_max=l_max)
+                         fold=fold, mp_vals=mp_vals)
+    return anal_reduce(part, m_vals, l_max=l_max, mp_vals=mp_vals)
 
 
-def anal_mxu(dw, m_vals, x, pmm, pms, *, l_max: int, fold: bool = False):
+def anal_mxu(dw, m_vals, x, pmm, pms, *, l_max: int, fold: bool = False,
+             mp_vals=None):
     """Analysis as (l x ring) P panels contracted against resident dw."""
     part = anal_partials("mxu", dw, m_vals, x, pmm, pms, l_max=l_max,
-                         fold=fold)
-    return anal_reduce(part, m_vals, l_max=l_max)
+                         fold=fold, mp_vals=mp_vals)
+    return anal_reduce(part, m_vals, l_max=l_max, mp_vals=mp_vals)
 
 
-def anal_reduce(partials, m_vals, *, l_max: int):
+def anal_reduce(partials, m_vals, *, l_max: int, mp_vals=None):
     """Second analysis pass: (Mp, n_chunks, l_max+1, 2K) partials summed
-    over chunks in chunk order -> (Mp, l_max+1, 2K); rows l < m and padding
-    rows are zero."""
+    over chunks in chunk order -> (Mp, l_max+1, 2K); rows l < m (l < max(m,
+    |m'|) with ``mp_vals``) and padding rows are exact zeros."""
     Mp, n_chunks, L, K2 = partials.shape
     if L != l_max + 1:
         raise ValueError(f"partials hold {L} rows, l_max + 1 = {l_max + 1}")
     _check("partials", partials, torch.float32, (Mp, n_chunks, L, K2))
     _check("m_vals", m_vals, torch.int32, (Mp,))
+    if mp_vals is not None:
+        _check("mp_vals", mp_vals, torch.int32, (Mp,))
     out = torch.empty((Mp, L, K2), dtype=torch.float32,
                       device=partials.device)
     with torch.cuda.device(partials.device):
         err = _lib().legendre_anal_reduce(
-            partials.data_ptr(), m_vals.data_ptr(), out.data_ptr(), Mp,
-            n_chunks, L, K2, _stream())
+            partials.data_ptr(), m_vals.data_ptr(), _ptr(mp_vals),
+            out.data_ptr(), Mp, n_chunks, L, K2, _stream())
     _raise_on(err, "anal_reduce")
     launches["anal_reduce"] += 1
     return out

@@ -11,14 +11,18 @@ tiles):
 
 ``layout="plain"`` runs the rectangular (row, l) grid, ``"packed"`` the
 triangular m-pair slot grid of ``kernels.pack`` (two rows per slot, so
-every slot walks a near-constant number of steps).  A CPU tensor runs the
+every slot walks a near-constant number of steps).  ``mp_vals`` (one m' per
+row, e.g. the stacked rows of :func:`spin_rows`) runs the kernels' spin
+branch on either layout: the Wigner-d rows of the spin-2 transforms, fold
+off.  A CPU tensor runs the
 plain version (``kernels.ref``); a CUDA tensor launches the hand-written
 kernel (``kernels.legendre_cuda`` for plain, ``kernels.fused_cuda`` for
 packed) or raises; any other device raises.  Each direction is
 differentiable: its backward is the other direction with the same seeds,
 variant and layout (``core.autodiff.linear_pair``).  The environment
 overrides and the measured autotune of the reference's ``pick_variant`` /
-``pick_layout`` wait for ROADMAP.md Open items section 1, item 9.
+``pick_layout`` wait for ROADMAP.md Open items section 1, item 9, and the
+dist-path adapters (``delta_from_alm_spin_auto`` and its kin) for item 11.
 
 The packing helpers (``_pack_a``, ``_pack_rows``, ``_unpack_rows``,
 ``_unpack_alm``, ``_pack_maps``) convert between the plain (row, ...)
@@ -34,11 +38,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.core import legendre
 from repro_torch.core.autodiff import linear_pair
 from repro_torch.kernels import pack as kpack
 from repro_torch.kernels import ref as kref
 
-__all__ = ["synth", "anal", "pick_variant", "pick_layout"]
+__all__ = ["synth", "anal", "pick_variant", "pick_layout", "spin_rows"]
 
 #: the panel length of the packed and fused layouts (the reference's
 #: default, ``kernels.fused.FUSED_LP_SIZE``)
@@ -74,12 +79,20 @@ def pick_layout(layout: str) -> str:
     raise ValueError(f"unknown Legendre layout {layout!r}")
 
 
-def _operands(m_vals, x, pmm, pms, device):
-    """The seed operands as contiguous tensors of the kernels' dtypes."""
+def spin_rows(m_vals):
+    """The rows of the two spin-2 recurrences: (m2, mp2), each (2M,) int32
+    numpy, [m' = -2 | m' = +2] (``core.legendre._spin_rows``)."""
+    return legendre._spin_rows(m_vals)
+
+
+def _operands(m_vals, x, pmm, pms, device, mp_vals=None):
+    """The seed operands, and m' per row (None for the scalar rows), as
+    contiguous tensors of the kernels' dtypes."""
     def t(v, dtype):
         return torch.as_tensor(v, device=device).to(dtype).contiguous()
     return (t(m_vals, torch.int32), t(x, torch.float32),
-            t(pmm, torch.float32), t(pms, torch.int32))
+            t(pmm, torch.float32), t(pms, torch.int32),
+            None if mp_vals is None else t(mp_vals, torch.int32))
 
 
 def _route(device: torch.device) -> str:
@@ -105,18 +118,21 @@ def _host_rows(m_vals) -> np.ndarray:
     return np.asarray(m_vals)
 
 
-def _resolve_layout(m_vals, layout, l_max, store=None):
-    """The packed layout object of the row set, or None for the plain
-    grid; kept in ``store`` under ``"layout"``."""
+def _resolve_layout(m_vals, layout, l_max, store=None, mp_vals=None):
+    """The packed layout object of the row set (the spin slot layout with
+    ``mp_vals``), or None for the plain grid; kept in ``store`` under
+    ``"layout"``."""
     if pick_layout(layout) != "packed":
         return None
 
     def build():
-        lo = kpack.build_layout(_host_rows(m_vals), l_max,
-                                lp_size=PACK_LP_SIZE)
+        lo = kpack.build_layout(
+            _host_rows(m_vals), l_max, lp_size=PACK_LP_SIZE,
+            mp_vals=None if mp_vals is None else _host_rows(mp_vals))
         if lo is None:
             raise ValueError("the packed layout needs at least one live row "
-                             "(m >= 0) and every row's m <= l_max")
+                             "(m >= 0) and every row's max(m, |m'|) <= "
+                             "l_max")
         return lo
 
     return _stored(store, "layout", build)
@@ -139,31 +155,35 @@ def _prep(lo, x, pmm, pms, store=None):
     return _stored(store, "prep", build)
 
 
-def _synth_exec(a, m_t, x_t, pmm_t, pms_t, *, l_max, fold, var, lo, store):
+def _synth_exec(a, m_t, x_t, pmm_t, pms_t, mp_t, *, l_max, fold, var, lo,
+                store):
     """Synthesis with the layout and variant decided (``lo`` the packed
-    layout, or None for plain)."""
+    layout, or None for plain; ``mp_t`` m' per row, or None)."""
     if lo is not None:
         return _synth_packed(a, lo, x_t, pmm_t, pms_t, l_max=l_max,
                              fold=fold, var=var, store=store)
     if _route(a.device) == "cpu":
         return kref.synth_ref(a, m_t, x_t, pmm_t, pms_t, l_max=l_max,
-                              fold=fold)
+                              fold=fold, mp_vals=mp_t)
     from repro_torch.kernels import legendre_cuda
     kernel = getattr(legendre_cuda, f"synth_{var}")
-    return kernel(a, m_t, x_t, pmm_t, pms_t, l_max=l_max, fold=fold)
+    return kernel(a, m_t, x_t, pmm_t, pms_t, l_max=l_max, fold=fold,
+                  mp_vals=mp_t)
 
 
-def _anal_exec(dw, m_t, x_t, pmm_t, pms_t, *, l_max, fold, var, lo, store):
+def _anal_exec(dw, m_t, x_t, pmm_t, pms_t, mp_t, *, l_max, fold, var, lo,
+               store):
     """Analysis with the layout and variant decided."""
     if lo is not None:
         return _anal_packed(dw, lo, x_t, pmm_t, pms_t, l_max=l_max,
                             fold=fold, var=var, store=store)
     if _route(dw.device) == "cpu":
         return kref.anal_ref(dw, m_t, x_t, pmm_t, pms_t, l_max=l_max,
-                             fold=fold)
+                             fold=fold, mp_vals=mp_t)
     from repro_torch.kernels import legendre_cuda
     kernel = getattr(legendre_cuda, f"anal_{var}")
-    return kernel(dw, m_t, x_t, pmm_t, pms_t, l_max=l_max, fold=fold)
+    return kernel(dw, m_t, x_t, pmm_t, pms_t, l_max=l_max, fold=fold,
+                  mp_vals=mp_t)
 
 
 def _synth_packed(a, lo, x, pmm, pms, *, l_max, fold, var, store):
@@ -175,11 +195,13 @@ def _synth_packed(a, lo, x, pmm, pms, *, l_max, fold, var, store):
     a_pk = _pack_a(a, lo, cache=store).contiguous()
     if _route(a.device) == "cpu":
         out = kref.synth_packed_ref(a_pk, maps, x, pmm_pk, pms_pk,
-                                    l_max=l_max, fold=fold, layout=var)
+                                    l_max=l_max, fold=fold, layout=var,
+                                    spin=lo.spin)
     else:
         from repro_torch.kernels import fused_cuda
         kernel = getattr(fused_cuda, f"synth_packed_{var}")
-        out = kernel(a_pk, maps, x, pmm_pk, pms_pk, l_max=l_max, fold=fold)
+        out = kernel(a_pk, maps, x, pmm_pk, pms_pk, l_max=l_max, fold=fold,
+                     spin=lo.spin)
     if var == "vpu":
         out = out.movedim(2, -1)                 # (n_slots, Q, R, 2K)
     seg = out.reshape(lo.n_slots * 2, P, R, K2)
@@ -198,19 +220,20 @@ def _anal_packed(dw, lo, x, pmm, pms, *, l_max, fold, var, store):
     dw_pk = dw_pk.contiguous()
     if _route(dw.device) == "cpu":
         out = kref.anal_packed_ref(dw_pk, maps, x, pmm_pk, pms_pk,
-                                   l_max=l_max, s_len=lo.S, layout=var)
+                                   l_max=l_max, s_len=lo.S, layout=var,
+                                   spin=lo.spin)
     else:
         from repro_torch.kernels import fused_cuda
         kernel = getattr(fused_cuda, f"anal_packed_{var}")
         out = kernel(dw_pk, maps, x, pmm_pk, pms_pk, l_max=l_max,
-                     s_len=lo.S)
+                     s_len=lo.S, spin=lo.spin)
     return _unpack_alm(out, lo, cache=store)
 
 
 def _pair(direction, op, m_vals, x, pmm, pms, *, l_max, fold, variant,
-          layout, store):
+          layout, store, mp_vals):
     """One direction of the seam as a linear pair: the backward of synth is
-    anal with the same seeds, variant and layout, and the reverse."""
+    anal with the same seeds, rows, variant and layout, and the reverse."""
     _route(op.device)
     rows = l_max + 1 if direction == "synth" else (2 if fold else 1)
     if op.ndim != (3 if direction == "synth" else 4) or op.shape[1] != rows:
@@ -218,53 +241,63 @@ def _pair(direction, op, m_vals, x, pmm, pms, *, l_max, fold, variant,
         raise ValueError(f"{direction}: expected {rows} {what} (l_max "
                          f"{l_max}, fold {fold}), got shape "
                          f"{tuple(op.shape)}")
+    if fold and mp_vals is not None:
+        raise ValueError("fold is not supported for spin transforms "
+                         "(mp_vals)")
     var = pick_variant(op.shape[-1], variant)
-    lo = _resolve_layout(m_vals, layout, l_max, store)
-    m_t, x_t, pmm_t, pms_t = _operands(m_vals, x, pmm, pms, op.device)
+    lo = _resolve_layout(m_vals, layout, l_max, store, mp_vals)
+    m_t, x_t, pmm_t, pms_t, mp_t = _operands(m_vals, x, pmm, pms, op.device,
+                                             mp_vals)
     kw = dict(l_max=l_max, fold=fold, var=var, lo=lo, store=store)
     fns = {"synth": _synth_exec, "anal": _anal_exec}
     other = "anal" if direction == "synth" else "synth"
 
     def fwd(_, v):
         return fns[direction](v.to(torch.float32).contiguous(), m_t, x_t,
-                              pmm_t, pms_t, **kw)
+                              pmm_t, pms_t, mp_t, **kw)
 
     def bwd(_, g):
-        return fns[other](g.contiguous(), m_t, x_t, pmm_t, pms_t, **kw)
+        return fns[other](g.contiguous(), m_t, x_t, pmm_t, pms_t, mp_t, **kw)
 
     return linear_pair(fwd, bwd, {"m_vals": m_vals, "x": x, "pmm": pmm,
-                                  "pms": pms}, op)
+                                  "pms": pms, "mp_vals": mp_vals}, op)
 
 
 def synth(a, m_vals, x, pmm, pms, *, l_max: int, fold: bool = False,
           variant: str | None = None, layout: str = "plain",
-          store: dict | None = None) -> torch.Tensor:
+          store: dict | None = None, mp_vals=None) -> torch.Tensor:
     """Kernel-backed synthesis: Delta_m(r) = sum_l a_lm P_lm(x_r).
 
     a (Mp, l_max+1, 2K) f32; m_vals (Mp,) int (-1 rows are padding and give
     zeros); x (R,) f32 cos(theta); pmm/pms (Mp, R) seeds from
-    ``ref.prepare_seeds``.  ``layout``: ``"plain"`` (the default) or
-    ``"packed"``.  ``store``: a dict the caller keeps for one row set and
-    device, to reuse the packed layout, seeds and gather indices across
-    calls.  Returns
-    (Mp, P, R, 2K) f32, P = 2 if fold.  Differentiable: the backward is
-    :func:`anal` with the same seeds, variant and layout.
+    ``ref.prepare_seeds``.  ``mp_vals`` (Mp,) int, m' per row, runs the spin
+    branch (the lambda^{(m')}_{l,m} rows, seeds from
+    ``ref.prepare_seeds_spin``, fold off).  ``layout``: ``"plain"`` (the
+    default) or ``"packed"``.  ``store``: a dict the caller keeps for one
+    row set and device, to reuse the packed layout, seeds and gather
+    indices across calls.  Returns (Mp, P, R, 2K) f32, P = 2 if fold.
+    Differentiable: the backward is :func:`anal` with the same seeds, rows,
+    variant and layout.
     """
     return _pair("synth", a, m_vals, x, pmm, pms, l_max=l_max, fold=fold,
-                 variant=variant, layout=layout, store=store)
+                 variant=variant, layout=layout, store=store,
+                 mp_vals=mp_vals)
 
 
 def anal(dw, m_vals, x, pmm, pms, *, l_max: int, fold: bool = False,
          variant: str | None = None, layout: str = "plain",
-         store: dict | None = None) -> torch.Tensor:
+         store: dict | None = None, mp_vals=None) -> torch.Tensor:
     """Kernel-backed analysis: a_lm = sum_r dw_m(r) P_lm(x_r).
 
     dw (Mp, P, R, 2K) f32 weighted Delta (P = 2 (even, odd) if fold); the
-    rest as :func:`synth`.  Returns (Mp, l_max+1, 2K) f32.  Differentiable:
-    the backward is :func:`synth` with the same seeds, variant and layout.
+    rest as :func:`synth`.  Returns (Mp, l_max+1, 2K) f32, exact zeros
+    where l < m (l < max(m, |m'|) with ``mp_vals``).  Differentiable: the
+    backward is :func:`synth` with the same seeds, rows, variant and
+    layout.
     """
     return _pair("anal", dw, m_vals, x, pmm, pms, l_max=l_max, fold=fold,
-                 variant=variant, layout=layout, store=store)
+                 variant=variant, layout=layout, store=store,
+                 mp_vals=mp_vals)
 
 
 def _pad_to(n: int, mult: int) -> int:

@@ -3,9 +3,13 @@
 Counterpart of ``repro.kernels.ref``.  ``synth_ref``/``anal_ref`` run the
 float32 scaled recurrence of the reference's ``_f32_step``
 (``repro/kernels/legendre_pallas.py``) over all m rows at once, with the l
-loop in Python.  They are what ``kernels.ops`` runs on CPU tensors and what
-the CUDA kernels are held against on the card.  ``anal_reduce_ref`` is the
-plain version of the analysis kernels' second pass.
+loop in Python; with ``mp_vals`` (one m' per row) they run the Wigner-d
+step of its ``_f32_step_spin`` instead, seeded at l0 = max(m, |m'|) from
+``prepare_seeds_spin``, as the spin-2 plans do on their stacked
+[m' = -2 | m' = +2] rows.  They are what ``kernels.ops`` runs on CPU
+tensors and what the CUDA kernels are held against on the card.
+``anal_reduce_ref`` is the plain version of the analysis kernels' second
+pass.
 
 Layouts are the unpadded ones of the ``ops`` seam:
   a  (Mp, L1, 2K) f32 -> Delta (Mp, P, R, 2K) f32, P = 2 (even, odd) if fold;
@@ -26,7 +30,9 @@ slot layout:
 P = 2 with the equator fold, else 1; the fused kernels combine the two
 planes into n_pl = 2 (north, south) and rotate, the packed ones do
 neither.  Stream positions past a segment's l_max, and empty segments,
-give exact zeros.
+give exact zeros.  With ``spin=True`` the slot plain versions run the
+Wigner-d step on each segment's (m, m') from the slot maps, and a segment
+starts at l0 = max(m, |m'|).
 """
 
 from __future__ import annotations
@@ -34,9 +40,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["prepare_seeds", "synth_ref", "anal_ref", "anal_reduce_ref",
-           "synth_packed_ref", "anal_packed_ref", "synth_fused_ref",
-           "anal_fused_ref", "SCALE_BITS_F32"]
+__all__ = ["prepare_seeds", "prepare_seeds_spin", "synth_ref", "anal_ref",
+           "anal_reduce_ref", "synth_packed_ref", "anal_packed_ref",
+           "synth_fused_ref", "anal_fused_ref", "SCALE_BITS_F32"]
 
 SCALE_BITS_F32 = 64
 _BIG = float(2.0 ** (SCALE_BITS_F32 // 2))        # 2^32
@@ -62,32 +68,32 @@ def prepare_seeds(m_vals, sin_theta, log_mu_all, scale_bits: int = 64):
     return mant.astype(np.float32), scale.astype(np.int32)
 
 
-def _f32_step(l: int, m_f, x, pp, pc, sc, pmm, pms):
-    """One scaled-recurrence step in float32, branch-free.
+def prepare_seeds_spin(m_vals, mprime_vals, cos_theta, sin_theta,
+                       m_max=None, scale_bits: int = 64):
+    """Scaled spin-weighted lambda^{(m')} seeds for the float32 kernels,
+    computed in float64 (``core.legendre.spin_seeds_scaled``).
 
-    l an int, or an (Mp, 1) f32 tensor (one l per row, as on the packed
-    stream); m_f (Mp, 1) f32; x (1, R) f32; pp, pc, pmm (Mp, R) f32; sc,
-    pms i32.  Returns (pp', pc', sc', value), ``value`` the descaled P_{l,m}.
+    m_vals/mprime_vals (Ms,) int rows (m < 0 rows are padding with inert 0
+    seeds); cos_theta/sin_theta (R,) f64.  Returns numpy (pmm (Ms, R) f32,
+    pms (Ms, R) i32).
     """
-    lf = l if torch.is_tensor(l) else torch.tensor(
-        float(l), dtype=torch.float32, device=m_f.device)
-    zero = torch.zeros((), dtype=torch.float32, device=m_f.device)
-    # 1/sqrt, not rsqrt: both are correctly rounded on every device, so
-    # the CUDA kernels reproduce these bits (rsqrt is approximate on CUDA)
-    lb = torch.maximum(lf, m_f + 2.0)
-    bl = 1.0 / torch.sqrt((lb * lb - m_f * m_f) / (4.0 * lb * lb - 1.0))
-    lb1 = torch.maximum(lf - 1.0, m_f + 1.0)
-    bl1 = 1.0 / torch.sqrt((lb1 * lb1 - m_f * m_f) / (4.0 * lb1 * lb1 - 1.0))
-    ratio = bl / bl1
-    p_rec = bl * x * pc - ratio * pp
-    p_first = torch.sqrt(torch.clamp(2.0 * m_f + 3.0, min=0.0)) * x * pc
+    from repro_torch.core import legendre
+    if m_max is None:
+        m_max = int(np.max(np.asarray(m_vals)))
+    logfact = legendre.log_factorials(2 * max(int(m_max), 2) + 1)
+    mant, scale = legendre.spin_seeds_scaled(
+        m_vals, mprime_vals, cos_theta, sin_theta, logfact,
+        dtype=torch.float32, scale_bits=scale_bits)
+    return mant.numpy(), scale.numpy()
 
-    is_seed = lf == m_f
-    is_first = lf == m_f + 1.0
-    before = lf < m_f
-    new_c = torch.where(before, zero,
-                        torch.where(is_seed, pmm,
-                                    torch.where(is_first, p_first, p_rec)))
+
+def _rescale(lf, l_start, p_rec, pp, pc, sc, pmm, pms):
+    """The seed / carry selects and the 2^+-64 rescale of one step, rows
+    seeded where ``lf == l_start``; returns (pp', pc', sc', value)."""
+    zero = torch.zeros((), dtype=torch.float32, device=pc.device)
+    is_seed = lf == l_start
+    before = lf < l_start
+    new_c = torch.where(before, zero, torch.where(is_seed, pmm, p_rec))
     new_p = torch.where(before | is_seed, zero, pc)
     new_s = torch.where(is_seed, pms, sc)
 
@@ -105,6 +111,58 @@ def _f32_step(l: int, m_f, x, pp, pc, sc, pmm, pms):
     return new_p, new_c, new_s, value
 
 
+def _f32_step_spin(l, m_f, mp_f, x, pp, pc, sc, pmm, pms):
+    """One Wigner-d scaled-recurrence step in float32, branch-free, as the
+    reference's ``_f32_step_spin``: lam_l = (a x + b) lam_{l-1} - c lam_{l-2}
+    seeded at l0 = max(m, |m'|), the coefficients recomputed from (l, m,
+    m').  Operands as :func:`_f32_step`, ``mp_f`` (Mp, 1) f32.
+
+    Every operation is one correctly rounded float32 operation in the order
+    written (1/sqrt as a square root and a division, not rsqrt), which the
+    CUDA kernels' spin step (``csrc/recurrence.cuh``) repeats bit for bit.
+    """
+    lf = l if torch.is_tensor(l) else torch.tensor(
+        float(l), dtype=torch.float32, device=m_f.device)
+    l0 = torch.maximum(m_f, mp_f.abs())
+    ls = torch.maximum(lf, l0 + 1.0)
+    d2 = torch.clamp((ls * ls - m_f * m_f) * (ls * ls - mp_f * mp_f),
+                     min=1e-30)
+    lm1 = ls - 1.0
+    d2m1 = torch.clamp((lm1 * lm1 - m_f * m_f) * (lm1 * lm1 - mp_f * mp_f),
+                       min=0.0)
+    s2l = torch.sqrt(4.0 * ls * ls - 1.0)
+    inv_d = 1.0 / torch.sqrt(d2)
+    inv_lm1 = 1.0 / torch.clamp(lm1, min=1.0)
+    a = ls * s2l * inv_d
+    b = -(m_f * mp_f) * s2l * inv_d * inv_lm1
+    c = (torch.sqrt((2.0 * ls + 1.0) / torch.clamp(2.0 * ls - 3.0, min=1.0))
+         * ls * torch.sqrt(d2m1) * inv_d * inv_lm1)
+    p_rec = (a * x + b) * pc - c * pp
+    return _rescale(lf, l0, p_rec, pp, pc, sc, pmm, pms)
+
+
+def _f32_step(l: int, m_f, x, pp, pc, sc, pmm, pms):
+    """One scaled-recurrence step in float32, branch-free.
+
+    l an int, or an (Mp, 1) f32 tensor (one l per row, as on the packed
+    stream); m_f (Mp, 1) f32; x (1, R) f32; pp, pc, pmm (Mp, R) f32; sc,
+    pms i32.  Returns (pp', pc', sc', value), ``value`` the descaled P_{l,m}.
+    """
+    lf = l if torch.is_tensor(l) else torch.tensor(
+        float(l), dtype=torch.float32, device=m_f.device)
+    # 1/sqrt, not rsqrt: both are correctly rounded on every device, so
+    # the CUDA kernels reproduce these bits (rsqrt is approximate on CUDA)
+    lb = torch.maximum(lf, m_f + 2.0)
+    bl = 1.0 / torch.sqrt((lb * lb - m_f * m_f) / (4.0 * lb * lb - 1.0))
+    lb1 = torch.maximum(lf - 1.0, m_f + 1.0)
+    bl1 = 1.0 / torch.sqrt((lb1 * lb1 - m_f * m_f) / (4.0 * lb1 * lb1 - 1.0))
+    ratio = bl / bl1
+    p_rec = bl * x * pc - ratio * pp
+    p_first = torch.sqrt(torch.clamp(2.0 * m_f + 3.0, min=0.0)) * x * pc
+    p_new = torch.where(lf == m_f + 1.0, p_first, p_rec)
+    return _rescale(lf, m_f, p_new, pp, pc, sc, pmm, pms)
+
+
 def _carry(m_vals, x):
     m = m_vals.to(torch.int32)[:, None]
     Mp, R = m.shape[0], x.shape[0]
@@ -113,18 +171,31 @@ def _carry(m_vals, x):
             torch.zeros(Mp, R, dtype=torch.int32, device=x.device))
 
 
-def synth_ref(a, m_vals, x, pmm, pms, *, l_max: int, fold: bool = False):
+def _stepper(m_f, mp_vals):
+    """The row step: the scalar one, or the Wigner-d one on the rows' m'
+    (``mp_vals`` (Mp,) int tensor)."""
+    if mp_vals is None:
+        return lambda l, *c: _f32_step(l, m_f, *c)
+    mp_f = mp_vals.to(torch.float32)[:, None]
+    return lambda l, *c: _f32_step_spin(l, m_f, mp_f, *c)
+
+
+def synth_ref(a, m_vals, x, pmm, pms, *, l_max: int, fold: bool = False,
+              mp_vals=None):
     """Plain version of the synthesis kernels.
 
     a (Mp, L1, 2K) f32; m_vals (Mp,) int tensor; x (R,) f32; pmm/pms
-    (Mp, R).  Returns Delta (Mp, P, R, 2K) f32 (P = 2 if fold).
+    (Mp, R); ``mp_vals`` (Mp,) int tensor of m' per row selects the
+    Wigner-d step (None: the scalar P_lm).  Returns Delta (Mp, P, R, 2K)
+    f32 (P = 2 if fold).
     """
     Mp, L1, K2 = a.shape
     m, m_f, xb, pp, pc, sc = _carry(m_vals, x)
+    step = _stepper(m_f, mp_vals)
     acc = torch.zeros(Mp, 2 if fold else 1, x.shape[0], K2,
                       dtype=torch.float32, device=a.device)
     for l in range(min(l_max + 1, L1)):
-        pp, pc, sc, val = _f32_step(l, m_f, xb, pp, pc, sc, pmm, pms)
+        pp, pc, sc, val = step(l, xb, pp, pc, sc, pmm, pms)
         contrib = val[:, :, None] * a[:, l][:, None, :]      # (Mp, R, 2K)
         if fold:
             odd = ((l + m) % 2 == 1)[..., None]               # (Mp, 1, 1)
@@ -136,15 +207,19 @@ def synth_ref(a, m_vals, x, pmm, pms, *, l_max: int, fold: bool = False):
     return acc
 
 
-def anal_ref(dw, m_vals, x, pmm, pms, *, l_max: int, fold: bool = False):
+def anal_ref(dw, m_vals, x, pmm, pms, *, l_max: int, fold: bool = False,
+             mp_vals=None):
     """Plain version of the analysis kernels.
 
-    dw (Mp, P, R, 2K) f32 weighted Delta.  Returns (Mp, l_max+1, 2K) f32.
+    dw (Mp, P, R, 2K) f32 weighted Delta; ``mp_vals`` as in
+    :func:`synth_ref`.  Returns (Mp, l_max+1, 2K) f32, exact zeros where
+    l < max(m, |m'|).
     """
     m, m_f, xb, pp, pc, sc = _carry(m_vals, x)
+    step = _stepper(m_f, mp_vals)
     rows = []
     for l in range(l_max + 1):
-        pp, pc, sc, val = _f32_step(l, m_f, xb, pp, pc, sc, pmm, pms)
+        pp, pc, sc, val = step(l, xb, pp, pc, sc, pmm, pms)
         if fold:
             d = torch.where(((l + m) % 2 == 0)[..., None], dw[:, 0], dw[:, 1])
         else:
@@ -153,14 +228,16 @@ def anal_ref(dw, m_vals, x, pmm, pms, *, l_max: int, fold: bool = False):
     return torch.stack(rows, dim=1)
 
 
-def anal_reduce_ref(partials, m_vals, *, l_max: int):
+def anal_reduce_ref(partials, m_vals, *, l_max: int, mp_vals=None):
     """Plain version of the analysis second pass: sum the per-ring-chunk
-    partials (Mp, n_chunks, l_max+1, 2K) over chunks; rows with l < m and
-    padding rows (m < 0) are zero."""
+    partials (Mp, n_chunks, l_max+1, 2K) over chunks; rows with l < m (l <
+    max(m, |m'|) with ``mp_vals``) and padding rows (m < 0) are zero."""
     L = l_max + 1
     m = m_vals.to(torch.int64)[:, None]
+    l0 = m if mp_vals is None else \
+        torch.maximum(m, mp_vals.to(torch.int64)[:, None].abs())
     l = torch.arange(L, device=partials.device)[None, :]
-    keep = ((m >= 0) & (l >= m))[..., None]
+    keep = ((m >= 0) & (l >= l0))[..., None]
     total = partials[:, :, :L].sum(dim=1)
     return torch.where(keep, total, torch.zeros((), dtype=total.dtype,
                                                 device=total.device))
@@ -171,20 +248,23 @@ def anal_reduce_ref(partials, m_vals, *, l_max: int):
 # ---------------------------------------------------------------------------
 
 
-def _stream(maps, x, pmm_pk, pms_pk, *, l_max: int, s_len: int):
+def _stream(maps, x, pmm_pk, pms_pk, *, l_max: int, s_len: int,
+            spin: bool = False):
     """Walk the packed l-stream of every slot at once.
 
     Yields ``(g, val, seg1, odd)`` per stream position g up to the last
-    live one of any slot: ``val`` (n_slots, R) the descaled P_{l,m} (zero
-    past the segment's l_max), ``seg1`` and ``odd`` ((l + m) odd) as
-    (n_slots, 1) bools.  Segment 1 re-seeds at ``slot_seed`` because the
-    step seeds wherever l == m.
+    live one of any slot: ``val`` (n_slots, R) the descaled P_{l,m} (the
+    lambda^{(m')}_{l,m} with ``spin``; zero past the segment's l_max),
+    ``seg1`` and ``odd`` ((l + m) odd) as (n_slots, 1) bools.  A segment
+    starts at its l0 (m, or max(m, |m'|) with ``spin``), and segment 1
+    re-seeds at ``slot_seed`` because the step seeds wherever l == l0.
     """
-    m0, m1 = maps[0].to(torch.int64)[:, None], maps[1].to(torch.int64)[:, None]
-    seed = maps[4].to(torch.int64)[:, None]
+    m0, m1, mp0, mp1, seed = (v.to(torch.int64)[:, None] for v in maps)
+    l00 = torch.maximum(m0, mp0.abs()) if spin else m0
+    l01 = torch.maximum(m1, mp1.abs()) if spin else m1
     # slot_seed == s_len marks an empty segment 1
-    S_live = int(torch.where(seed < s_len, seed + l_max + 1 - m1,
-                             l_max + 1 - m0).max()) if m0.numel() else 0
+    S_live = int(torch.where(seed < s_len, seed + l_max + 1 - l01,
+                             l_max + 1 - l00).max()) if m0.numel() else 0
     z = torch.zeros(pmm_pk.shape[0], x.shape[0], dtype=torch.float32,
                     device=x.device)
     pp, pc = z, z.clone()
@@ -193,22 +273,28 @@ def _stream(maps, x, pmm_pk, pms_pk, *, l_max: int, s_len: int):
     for g in range(S_live):
         seg1 = g >= seed
         m = torch.where(seg1, m1, m0)
-        l = torch.where(seg1, m1 + g - seed, m0 + g)
+        l = torch.where(seg1, l01 + g - seed, l00 + g)
         pmm = torch.where(seg1, pmm_pk[:, 1], pmm_pk[:, 0])
         pms = torch.where(seg1, pms_pk[:, 1], pms_pk[:, 0])
-        pp, pc, sc, val = _f32_step(l.to(torch.float32), m.to(torch.float32),
-                                    xb, pp, pc, sc, pmm, pms)
+        lf, m_f = l.to(torch.float32), m.to(torch.float32)
+        if spin:
+            mp_f = torch.where(seg1, mp1, mp0).to(torch.float32)
+            pp, pc, sc, val = _f32_step_spin(lf, m_f, mp_f, xb, pp, pc, sc,
+                                             pmm, pms)
+        else:
+            pp, pc, sc, val = _f32_step(lf, m_f, xb, pp, pc, sc, pmm, pms)
         val = torch.where(l <= l_max, val, torch.zeros((), device=x.device))
         yield g, val, seg1, ((l + m) % 2 == 1)
 
 
 def synth_packed_ref(a_pk, maps, x, pmm_pk, pms_pk, *, l_max: int,
-                     fold: bool = False, layout: str = "mxu"):
+                     fold: bool = False, layout: str = "mxu",
+                     spin: bool = False):
     """Plain version of the packed synthesis kernels.
 
     a_pk (n_slots, S, 2K) f32 packed coefficient streams; maps the five
     per-slot i32 tensors of ``ops._pack_maps`` (m0, m1, mp0, mp1, seed;
-    mp0/mp1 belong to the spin branch and are not read); x (R,) f32;
+    mp0/mp1 are read with ``spin``); x (R,) f32;
     pmm_pk/pms_pk (n_slots, 2, R) per-segment seeds.  Each segment's Delta
     is summed into its (l+m) parity plane with ``fold`` and returned as
     (n_slots, Q, R, 2K), Q = 2 x P, plane q = segment x P + parity, in
@@ -221,7 +307,7 @@ def synth_packed_ref(a_pk, maps, x, pmm_pk, pms_pk, *, l_max: int,
                       device=a_pk.device)
     zero = torch.zeros((), dtype=torch.float32, device=a_pk.device)
     for g, val, seg1, odd in _stream(maps, x, pmm_pk, pms_pk, l_max=l_max,
-                                     s_len=S):
+                                     s_len=S, spin=spin):
         contrib = val[:, :, None] * a_pk[:, g][:, None, :]   # (n_slots, R, 2K)
         for seg, in_seg in ((0, ~seg1), (1, seg1)):
             for p in range(P):
@@ -232,7 +318,7 @@ def synth_packed_ref(a_pk, maps, x, pmm_pk, pms_pk, *, l_max: int,
 
 
 def anal_packed_ref(dw_pk, maps, x, pmm_pk, pms_pk, *, l_max: int,
-                    s_len: int, layout: str = "mxu"):
+                    s_len: int, layout: str = "mxu", spin: bool = False):
     """Plain version of the packed analysis kernels.
 
     dw_pk (n_slots, Q, R, 2K) (``layout="mxu"``) or (n_slots, Q, 2K, R)
@@ -247,7 +333,7 @@ def anal_packed_ref(dw_pk, maps, x, pmm_pk, pms_pk, *, l_max: int,
     out = torch.zeros(n_slots, s_len, K2, dtype=torch.float32,
                       device=d_all.device)
     for g, val, seg1, odd in _stream(maps, x, pmm_pk, pms_pk, l_max=l_max,
-                                     s_len=s_len):
+                                     s_len=s_len, spin=spin):
         d = torch.where(seg1[:, :, None, None], d_all[:, 1], d_all[:, 0])
         d = torch.where(odd[..., None], d[:, -1], d[:, 0])        # (s, R, 2K)
         out[:, g] = torch.einsum("sr,src->sc", val, d)
@@ -261,7 +347,8 @@ def _rotate(tab, re, im):
 
 
 def synth_fused_ref(a_pk, maps, x, pmm_pk, pms_pk, tab_pk=None, *,
-                    l_max: int, fold: bool = False, layout: str = "mxu"):
+                    l_max: int, fold: bool = False, layout: str = "mxu",
+                    spin: bool = False):
     """Plain version of the fused synthesis kernels.
 
     Operands as :func:`synth_packed_ref`, and tab_pk (n_slots, 2, n_pl, 4,
@@ -273,7 +360,7 @@ def synth_fused_ref(a_pk, maps, x, pmm_pk, pms_pk, tab_pk=None, *,
     n_slots, _, K2 = a_pk.shape
     R, K = x.shape[0], K2 // 2
     acc = synth_packed_ref(a_pk, maps, x, pmm_pk, pms_pk, l_max=l_max,
-                           fold=fold).reshape(n_slots, 2, -1, R, K2)
+                           fold=fold, spin=spin).reshape(n_slots, 2, -1, R, K2)
     if fold:
         acc = torch.stack([acc[:, :, 0] + acc[:, :, 1],
                            acc[:, :, 0] - acc[:, :, 1]], dim=2)
@@ -284,7 +371,8 @@ def synth_fused_ref(a_pk, maps, x, pmm_pk, pms_pk, tab_pk=None, *,
 
 
 def anal_fused_ref(f_pk, maps, x, pmm_pk, pms_pk, tab_pk=None, *,
-                   l_max: int, s_len: int, layout: str = "mxu"):
+                   l_max: int, s_len: int, layout: str = "mxu",
+                   spin: bool = False):
     """Plain version of the fused analysis kernels.
 
     f_pk (n_slots, 2, n_pl, R, 2K) (``layout="mxu"``) or (n_slots, 2, n_pl,
@@ -303,4 +391,4 @@ def anal_fused_ref(f_pk, maps, x, pmm_pk, pms_pk, tab_pk=None, *,
         f = torch.stack([f[:, :, 0] + f[:, :, 1], f[:, :, 0] - f[:, :, 1]],
                         dim=2)
     return anal_packed_ref(f.reshape(n_slots, 2 * P, R, K2), maps, x, pmm_pk,
-                           pms_pk, l_max=l_max, s_len=s_len)
+                           pms_pk, l_max=l_max, s_len=s_len, spin=spin)

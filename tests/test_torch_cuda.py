@@ -2,7 +2,8 @@
 version, determinism of the analysis reduction, and the launch counters
 of a plan's main path, for the staged (``legendre_cuda``), the fused and
 the packed (``fused_cuda``) kernels, and gradients through the plans of
-every layout.  Skipped without a CUDA device; run on the GPU with
+every layout; then the same for the spin branch of every kernel and the
+spin-2 plans.  Skipped without a CUDA device; run on the GPU with
 ``python -m pytest -m cuda tests/test_torch_cuda.py``.
 
 Tolerance 5e-5 x max|plain|: kernel and plain version compute the
@@ -289,4 +290,180 @@ def test_gradients_on_card(dev, mode, K, layout):
     launched = {k: c for k, c in {**lc.launches, **fused_cuda.launches}
                 .items() if c}
     assert launched == {names[0]: 1}
+    assert abs(lhs.item() - float((t * g).sum())) < 2e-3 * abs(lhs.item())
+
+
+# ---------------------------------------------------------------------------
+# the spin branch (spin-2 plans): every kernel's Wigner-d rows
+# ---------------------------------------------------------------------------
+
+
+def spin_operands(l_max, K, dev, seed=0):
+    """The 2M spin rows of l_max, the last made a padding row (so the live
+    row count is odd), their seeds, and coefficients zero below
+    l0 = max(m, |m'|); weighted Delta rows."""
+    g = grids.make_grid("gl", l_max=l_max)
+    m2, mp2 = ops.spin_rows(np.arange(l_max + 1))
+    m2[-1] = -1
+    pmm, pms = kref.prepare_seeds_spin(m2, mp2, g.cos_theta, g.sin_theta,
+                                       m_max=l_max)
+    gen = torch.Generator().manual_seed(seed)
+    L, Mp, R = l_max + 1, len(m2), g.n_rings
+    l0 = np.maximum(m2, np.abs(mp2))
+    keep = torch.as_tensor((np.arange(L)[None, :] >= l0[:, None])
+                           & (m2 >= 0)[:, None])
+    a = (torch.rand((Mp, L, 2 * K), generator=gen) * 2 - 1) * keep[..., None]
+    dw = torch.rand((Mp, 1, R, 2 * K), generator=gen) * 2 - 1
+    t = lambda v, dt: torch.as_tensor(v, dtype=dt, device=dev)
+    return dict(m=t(m2, torch.int32), mp=t(mp2, torch.int32),
+                x=t(g.cos_theta, torch.float32), pmm=t(pmm, torch.float32),
+                pms=t(pms, torch.int32), a=a.to(dev), dw=dw.to(dev),
+                below=torch.as_tensor(np.arange(L)[None, :] < l0[:, None],
+                                      device=dev), m2=m2, mp2=mp2)
+
+
+@pytest.mark.parametrize("K", [1, 3, 8, 12])
+@pytest.mark.parametrize("variant", ["vpu", "mxu"])
+def test_spin_kernels_match_plain_versions(dev, variant, K):
+    """Kernels 1-4's spin branch against the plain versions with mp_vals;
+    the analysis rows below l0 and the padding row exactly zero, and only
+    the spin counters move."""
+    l_max = 150
+    c = spin_operands(l_max, K, dev, seed=K)
+    args = (c["m"], c["x"], c["pmm"], c["pms"])
+    kw = dict(l_max=l_max, mp_vals=c["mp"])
+    lc.reset_launches()
+    got = getattr(lc, f"synth_{variant}")(c["a"], *args, **kw)
+    want = kref.synth_ref(c["a"], *args, **kw)
+    assert rel(got, want) < TOL and bool((got[-1] == 0).all())
+    got = getattr(lc, f"anal_{variant}")(c["dw"], *args, **kw)
+    want = kref.anal_ref(c["dw"], *args, **kw)
+    assert rel(got, want) < TOL and bool((got[-1] == 0).all())
+    assert bool((got[c["below"]] == 0).all())
+    assert {k: n for k, n in lc.launches.items() if n} == {
+        f"synth_{variant}_spin": 1, f"anal_{variant}_spin": 1,
+        "anal_reduce": 1}
+    with pytest.raises(ValueError, match="fold"):
+        lc.synth_vpu(c["a"], *args, fold=True, **kw)
+
+
+@pytest.mark.parametrize("K", [1, 8])
+@pytest.mark.parametrize("variant", ["vpu", "mxu"])
+def test_spin_slot_kernels_match_plain_versions(dev, variant, K):
+    """Kernels 9-12 (random tables and none) and 5-8 on the spin slot
+    layout against their plain versions; empty segments and dead stream
+    positions exactly zero; packed spin = fused spin without tables, bit
+    for bit."""
+    l_max = 150
+    c = spin_operands(l_max, K, dev, seed=K + 1)
+    lo = pack.build_layout(c["m2"], l_max, mp_vals=c["mp2"])
+    assert lo.slot_seed.max() == lo.S            # the odd row: one empty seg
+    maps, x, pmm_pk, pms_pk = ops._prep(lo, c["x"], c["pmm"], c["pms"])
+    a_pk = ops._pack_a(c["a"], lo).contiguous()
+    R = x.shape[0]
+    gen = torch.Generator().manual_seed(K)
+    tab = (torch.rand((lo.n_slots, 2, 1, 4, R), generator=gen) * 2 - 1).to(dev)
+    f = (torch.rand((lo.n_slots, 2, 1, R, 2 * K), generator=gen) * 2
+         - 1).to(dev)
+    fk = f.movedim(-1, 3).contiguous() if variant == "vpu" else f
+    empty = torch.as_tensor(lo.slot_seed == lo.S, device=dev)
+    dead = torch.as_tensor(lo.a_row < 0, device=dev)
+    skw = dict(l_max=l_max, spin=True)
+    synth = getattr(fused_cuda, f"synth_fused_{variant}")
+    anal = getattr(fused_cuda, f"anal_fused_{variant}")
+    for t in (tab, None):
+        got = synth(a_pk, maps, x, pmm_pk, pms_pk, t, **skw)
+        want = kref.synth_fused_ref(a_pk, maps, x, pmm_pk, pms_pk, t,
+                                    layout=variant, **skw)
+        assert rel(got, want) < TOL and bool((got[empty, 1] == 0).all())
+        got = anal(fk, maps, x, pmm_pk, pms_pk, t, s_len=lo.S, **skw)
+        want = kref.anal_fused_ref(fk, maps, x, pmm_pk, pms_pk, t,
+                                   s_len=lo.S, layout=variant, **skw)
+        assert rel(got, want) < TOL and bool((got[dead] == 0).all())
+    got_s = getattr(fused_cuda, f"synth_packed_{variant}")(
+        a_pk, maps, x, pmm_pk, pms_pk, **skw)
+    assert rel(got_s, kref.synth_packed_ref(
+        a_pk, maps, x, pmm_pk, pms_pk, layout=variant, **skw)) < TOL
+    assert torch.equal(got_s, synth(a_pk, maps, x, pmm_pk, pms_pk, None,
+                                    **skw).reshape(got_s.shape))
+    dk = fk.reshape(lo.n_slots, 2, *fk.shape[3:])
+    got_a = getattr(fused_cuda, f"anal_packed_{variant}")(
+        dk, maps, x, pmm_pk, pms_pk, s_len=lo.S, **skw)
+    assert rel(got_a, kref.anal_packed_ref(
+        dk, maps, x, pmm_pk, pms_pk, s_len=lo.S, layout=variant, **skw)) < TOL
+    assert torch.equal(got_a, anal(fk, maps, x, pmm_pk, pms_pk, None,
+                                   s_len=lo.S, **skw))
+
+
+@pytest.mark.parametrize("layout", ["fused", "plain", "packed"])
+@pytest.mark.parametrize("mode,K", [("cuda_vpu", 1), ("cuda_mxu", 8)])
+def test_spin_plan_round_trip_anchor_and_launches(dev, mode, K, layout):
+    """make_plan(spin=2) on the card: its round trip launches the spin
+    branch of its layout's kernels and anal_reduce, once each and nothing
+    else; d_err < 1e-4; within 1e-3 of the float64 torch spin plan."""
+    var = mode[5:]
+    l_max = 96
+    plan = repro_torch.make_plan("gl", l_max, K=K, dtype="float32",
+                                 mode=mode, spin=2,
+                                 layout=None if layout == "fused" else layout)
+    assert plan.layouts == {"synth": layout, "anal": layout}
+    from repro_torch.core import sht
+    gen = torch.Generator().manual_seed(4)
+    alm = sht.random_alm_spin(gen, l_max, l_max, K, device=dev)
+    lc.reset_launches()
+    fused_cuda.reset_launches()
+    maps = plan.alm2map(alm.to(torch.complex64))
+    back = plan.map2alm(maps)
+    torch.cuda.synchronize()
+    stem = {"plain": "", "packed": "_packed", "fused": "_fused"}[layout]
+    launched = {k: c for k, c in {**lc.launches, **fused_cuda.launches}
+                .items() if c}
+    assert launched == {f"synth{stem}_{var}_spin": 1,
+                        f"anal{stem}_{var}_spin": 1, "anal_reduce": 1}
+    assert back.device.type == "cuda" and back.shape == alm.shape
+    assert spectra.d_err(alm, back) < 1e-4
+    p64 = repro_torch.make_plan("gl", l_max, K=K, dtype="float64",
+                                mode="torch", spin=2)
+    want = p64.alm2map(alm)
+    assert rel(maps, want) < 1e-3
+    assert rel(plan.map2alm(want.to(torch.float32)), p64.map2alm(want)) < 1e-3
+
+
+@pytest.mark.parametrize("layout", ["plain", "packed", "fused"])
+@pytest.mark.parametrize("mode,K", [("cuda_vpu", 1), ("cuda_mxu", 8)])
+def test_spin_gradients_on_card(dev, mode, K, layout):
+    """The spin-2 dot identity through autograd within 2e-3, and the
+    backward of each direction launches the spin branch of the other
+    direction's kernels of the same layout, once."""
+    var = mode[5:]
+    plan = repro_torch.make_plan("gl", 96, K=K, dtype="float32", mode=mode,
+                                 layout=layout, spin=2)
+    from repro_torch.core import sht
+    gen = torch.Generator().manual_seed(5)
+    stem = {"plain": "", "packed": "_packed", "fused": "_fused"}[layout]
+    a = sht.random_alm_spin(gen, 96, 96, K, dtype=torch.float32,
+                            device=dev).requires_grad_(True)
+    t = torch.randn(plan._maps_shape, generator=gen).to(dev)
+    lhs = (plan.alm2map(a) * t).sum()
+    lc.reset_launches()
+    fused_cuda.reset_launches()
+    (g,) = torch.autograd.grad(lhs, a)
+    torch.cuda.synchronize()
+    launched = {k: c for k, c in {**lc.launches, **fused_cuda.launches}
+                .items() if c}
+    assert launched == {f"anal{stem}_{var}_spin": 1, "anal_reduce": 1}
+    a = a.detach()
+    rhs = float((a.real * g.real + a.imag * g.imag).sum())
+    assert abs(lhs.item() - rhs) < 2e-3 * abs(rhs)
+    maps = t.clone().requires_grad_(True)
+    b = sht.random_alm_spin(gen, 96, 96, K, dtype=torch.float32, device=dev)
+    out = plan.map2alm(maps)
+    lhs = (out.real * b.real + out.imag * b.imag).sum()
+    lc.reset_launches()
+    fused_cuda.reset_launches()
+    (g,) = torch.autograd.grad(lhs, maps)
+    torch.cuda.synchronize()
+    launched = {k: c for k, c in {**lc.launches, **fused_cuda.launches}
+                .items() if c}
+    assert launched == {f"synth{stem}_{var}_spin": 1}
     assert abs(lhs.item() - float((t * g).sum())) < 2e-3 * abs(lhs.item())

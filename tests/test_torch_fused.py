@@ -220,8 +220,21 @@ def test_unported_fused_options_name_their_roadmap_item():
     a = t(c["a"]).requires_grad_(True)
     fused.fused_synth(a, *args, **c["kw"]).sum().backward()
     assert a.grad.shape == a.shape and bool(torch.isfinite(a.grad).all())
-    with pytest.raises(ValueError, match="item 7"):
-        fused.fused_synth(t(c["a"]), *args, mp_vals=c["m_vals"], **c["kw"])
+    # the spin-2 row set (item 7) is ported: a spin layout's rows run the
+    # spin chain, Q|U out as 2K channels; the fold stays refused for spin
+    m2, mp2 = ops.spin_rows(c["m_vals"])
+    g = c["g"]
+    pmm2, pms2 = kref.prepare_seeds_spin(m2, mp2, g.cos_theta, g.sin_theta)
+    a2 = np.concatenate([c["a"], c["a"]]) * (np.arange(9)[None, :] >= 2)[
+        ..., None]
+    qu = fused.fused_synth(t(a2.astype(np.float32)), m2, args[1], t(pmm2),
+                           t(pms2), mp_vals=mp2, **c["kw"])
+    assert qu.shape == (g.n_rings, c["kw"]["n"], 2)
+    assert bool(torch.isfinite(qu).all()) and float(qu.abs().max()) > 0
+    with pytest.raises(ValueError, match="fold"):
+        fused.fused_synth(t(a2.astype(np.float32)), m2, args[1], t(pmm2),
+                          t(pms2), mp_vals=mp2,
+                          **dict(c["kw"], fold_rings=g.n_rings))
     with pytest.raises(ValueError, match="item 6"):
         fused.fused_anal(t(c["maps"]), c["g"].weights, *args, bf16=True,
                          **c["kw"])

@@ -9,7 +9,7 @@ import repro
 from repro.core import grids as rgrids
 
 import repro_torch
-from repro_torch.core import cache, grids, spectra, transform
+from repro_torch.core import cache, grids, sht, spectra, transform
 
 
 def alm_for(plan, seed=0):
@@ -66,8 +66,9 @@ def test_default_mode_follows_the_static_variant_rule(dtype, K, want):
 
 @pytest.mark.parametrize("kwargs,item", [
     (dict(mode="auto"), "item 9"), (dict(mode="model"), "item 9"),
-    (dict(mode="dist"), "item 11"), (dict(layout="packed", spin=2), "item 7"),
-    (dict(layout="fused", spin=2), "item 7"), (dict(spin=2), "item 7"),
+    (dict(mode="dist"), "item 11"), (dict(mode="auto", spin=2), "item 9"),
+    (dict(mode="dist", spin=2), "item 11"),
+    (dict(grid="healpix", spin=2), "item 8"),
     (dict(grid="healpix"), "item 8"), (dict(grid="ecp"), "item 8")])
 def test_unported_requests_name_their_roadmap_item(kwargs, item):
     kwargs = dict(dict(grid="gl", l_max=8, device="cpu"), **kwargs)
@@ -75,12 +76,42 @@ def test_unported_requests_name_their_roadmap_item(kwargs, item):
         repro_torch.make_plan(**kwargs)
 
 
+@pytest.mark.parametrize("kwargs,layout", [
+    (dict(layout="packed"), "packed"), (dict(layout="fused"), "fused"),
+    (dict(), "fused")])
+def test_spin2_requests_build_spin_plans(kwargs, layout):
+    """make_plan(spin=2) on the kernel backends: the fused default as the
+    reference planner picks it, or the layout asked for; (E, B) alm in,
+    (Q, U) maps out, against the float64 torch spin plan."""
+    plan = repro_torch.make_plan("gl", 8, K=2, dtype="float32", spin=2,
+                                 device="cpu", **kwargs)
+    assert plan.spin == 2 and plan.layouts == {"synth": layout,
+                                               "anal": layout}
+    ref = repro_torch.make_plan("gl", 8, K=2, dtype="float64", spin=2,
+                                device="cpu")
+    alm = sht.random_alm_spin(torch.Generator().manual_seed(1), 8, 8, 2,
+                              device="cpu")
+    maps = plan.alm2map(alm.to(torch.complex64))
+    want = ref.alm2map(alm)
+    assert maps.shape == want.shape == (2, 9, 18, 2)
+    assert float((maps - want).abs().max() / want.abs().max()) < 1e-5
+    back = plan.map2alm(maps)
+    assert back.shape == alm.shape
+    assert spectra.d_err(alm, back) < 1e-5
+
+
 @pytest.mark.parametrize("kwargs", [
     dict(mode="jnp"), dict(mode="pallas_vpu"), dict(layout="banded"),
-    dict(dtype="float16"), dict(m_max=9)])
+    dict(dtype="float16"), dict(m_max=9), dict(spin=1),
+    dict(spin=2, fold=True), dict(spin=-2)])
 def test_invalid_requests_raise(kwargs):
     with pytest.raises(ValueError):
         repro_torch.make_plan("gl", 8, device="cpu", **kwargs)
+
+
+def test_spin2_needs_l_max_2():
+    with pytest.raises(ValueError, match="l_max >= 2"):
+        repro_torch.make_plan("gl", 1, spin=2, device="cpu")
 
 
 def test_device_defaults_to_cuda_and_raises_without_a_card(monkeypatch):
