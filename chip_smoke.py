@@ -7,8 +7,8 @@ per source, started together), holds each against its plain PyTorch
 version on the card, drives the port's main paths at the repo's full
 widths (``make_plan("gl", ...)`` then ``alm2map`` then ``map2alm``, the
 ``sht_cmb`` shapes l_max 2048 K 8 and l_max 4096 K 1, on the fused layout
-the plans pick by default, on the staged plain layout and on the packed
-staged layout), checks that every kernel of each path launched, prints a
+the plans pick by default and on the staged plain layout, and the packed
+staged layout at l_max 1024), checks that every kernel of each path launched, prints a
 digest of each kernel's output and holds the bits equal where two layouts
 run the same code, times each kernel beside its bound, anchors every
 kernel plan to the float64 ``torch`` plan, and takes gradients through
@@ -16,7 +16,14 @@ the plans on the card (dot identities on every layout, one full-width
 step whose backward must run the other direction's kernels).  Every phase
 runs twice: for the spin-0 transform pair and for the spin-2 one
 (``make_plan(..., spin=2)``: (E, B) alm <-> (Q, U) maps), whose paths
-launch the spin branch of every kernel.
+launch the spin branch of every kernel.  The ragged-grid paths follow the
+GL ones: HEALPix (nside 1024, K 8, fused and plain, spin 0 and 2; nside
+2048, K 1, fused), ring-uniform HEALPix (nside 1024) and ECP (l_max 2048)
+through the ring-bucket or uniform phase stage, each synthesis and
+analysis rerun for identical bits; then the bfloat16 branch of the fused
+mxu kernels (``Plan._make_fused_synth/_make_fused_anal("mxu",
+bf16=True)``) at GL 2048/K8 and HEALPix 1024/K8, held to the reference's
+band against float32 and to its plain version.
 Prints the card's name and power limit, one JSON line of per-kernel
 numbers, and as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -46,8 +53,10 @@ from repro_torch.kernels import legendre_cuda as lc  # noqa: E402
 from repro_torch.kernels import ref as kref  # noqa: E402
 from repro_torch.core import grids, legendre  # noqa: E402
 
-#: H100 SXM datasheet peaks (dense, 700 W): float32 on the CUDA cores and HBM3
+#: H100 SXM datasheet peaks (dense, 700 W): float32 on the CUDA cores, bf16
+#: on the tensor cores, and HBM3
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_S = 3.35e12
 
 #: kernel vs plain version on the card, relative to max|plain|: the limit
@@ -60,6 +69,25 @@ KERNEL_TOL = 5e-5
 ROUNDTRIP_TOL = 1e-3
 #: float32 kernel plans vs the float64 torch plan at l_max 512
 ANCHOR_TOL = 1e-3
+#: float32 kernel plans vs the float64 torch plan on the ragged grids at
+#: l_max 512: the max-norm error of the float32 scheme itself sits at the
+#: GL limit there (the reference's own float32 plan: 0.98e-3 on HEALPix
+#: nside 256 spin 0 and 1.04e-3 on GL l_max 512 for a uniform draw; the
+#: port's float32 schedule 1.47e-3 and 1.29e-3, kernels' plain versions on
+#: the CPU), so these anchors take twice the GL limit
+RAGGED_ANCHOR_TOL = 2e-3
+#: round trip with one Jacobi pass on the approximate-quadrature grids
+#: (HEALPix, ring-uniform HEALPix, ECP), 10x the GL band: their theta
+#: quadrature is approximate (float64 at nside 256, iters=1: ~5e-5), and a
+#: broken kernel gives O(1)
+QUAD_ROUNDTRIP_TOL = 1e-2
+#: bf16 kernels vs their bf16 plain versions: both round the same float32
+#: panel and rows to bfloat16 and form exact float32 products, so only the
+#: order of the float32 sums differs
+BF16_KERNEL_TOL = 1e-5
+#: the reference's band for bf16 against float32 (tests/test_fused.py):
+#: 0 < err < 1e-2; err > 0 catches a path that stays in float32
+BF16_GATE = 1e-2
 #: l_max of the kernel checks (phase 2) and the dot identities (phase 5),
 #: of the float64 anchor (phase 4), and (l_max, K) of the full-width
 #: gradient step (phase 5): the sht_cmb main shape of the mxu variant
@@ -80,6 +108,8 @@ TPU_KERNELS = {
     "synth_fused_mxu": "src/repro/kernels/fused.py:385",
     "anal_fused_vpu": "src/repro/kernels/fused.py:526",
     "anal_fused_mxu": "src/repro/kernels/fused.py:666",
+    "synth_fused_mxu_bf16": "src/repro/kernels/fused.py:385",
+    "anal_fused_mxu_bf16": "src/repro/kernels/fused.py:666",
     "synth_packed_vpu": "src/repro/kernels/legendre_pallas.py:591",
     "synth_packed_mxu": "src/repro/kernels/legendre_pallas.py:698",
     "anal_packed_vpu": "src/repro/kernels/legendre_pallas.py:814",
@@ -103,8 +133,16 @@ def tag(spin: bool) -> str:
     return "_spin" if spin else ""
 
 
+_T0 = time.perf_counter()
+
+
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def elapsed() -> str:
+    """Seconds since the script started, for the log's landmarks."""
+    return f"[{time.perf_counter() - _T0:.1f} s]"
 
 
 def cuda_time_ms(fn, reps: int = 5) -> float:
@@ -185,8 +223,10 @@ def legendre_work(m_vals, l_end: int, rings: int, K2: int,
     return triples, triples * ((4 if mp_vals is None else 5) + 2 * K2)
 
 
-def bound_ms(flops: float, nbytes: float) -> tuple:
-    t_ops = flops / PEAK_F32_FLOPS * 1e3
+def bound_ms(flops: float, nbytes: float, bf16_flops: float = 0.0) -> tuple:
+    """The larger of the operations time (float32 ``flops`` on the CUDA
+    cores plus ``bf16_flops`` on the tensor cores) and the bytes time."""
+    t_ops = (flops / PEAK_F32_FLOPS + bf16_flops / PEAK_BF16_FLOPS) * 1e3
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
     return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes")
 
@@ -214,8 +254,8 @@ def digest(t: torch.Tensor) -> str:
 
 
 def held(name: str, got: torch.Tensor, want: torch.Tensor, what: str,
-         pad=None) -> float:
-    """Hold a kernel's output against its plain version's at KERNEL_TOL
+         pad=None, tol: float = KERNEL_TOL) -> float:
+    """Hold a kernel's output against its plain version's at ``tol``
     (relative to max|plain|), padding rows exactly zero; log the gap and
     both outputs' digests, and return max|difference|."""
     torch.cuda.synchronize()
@@ -225,7 +265,7 @@ def held(name: str, got: torch.Tensor, want: torch.Tensor, what: str,
     log(f"  {name:15s} {what}: max|d|/max|plain| = {rel:.3e}"
         + ("" if pad is None else f"  padding zero: {zero_pad}")
         + f"  digest {digest(got)} (plain {digest(want)})")
-    if not (rel < KERNEL_TOL and zero_pad):
+    if not (rel < tol and zero_pad):
         raise AssertionError(f"{name} disagrees with its plain version "
                              f"({what})")
     return err
@@ -463,17 +503,127 @@ def check_packed_kernels(dev, spin: bool = False) -> None:
                             f"version {pl:.1f} ms")
 
 
+def check_bf16_kernels(dev, spin: bool = False) -> None:
+    """Hold the bfloat16 branch of kernels 10 and 12 against its bf16 plain
+    version at l_max 256, K 1 and 8, fold off and on (spin: off), with
+    random tables and without, at BF16_KERNEL_TOL; the empty segment and
+    dead positions exactly zero; each differs from the float32 kernel
+    within the reference's band.  Logs kernel and plain times at K 8,
+    fold off, random tables, beside the float32 kernel's."""
+    l_max = CHECK_L_MAX
+    gen = torch.Generator().manual_seed(5 + 100 * spin)
+    m_vals, mp_vals, lo = test_layout(l_max, spin)
+    empty = torch.as_tensor(lo.slot_seed == lo.S, device=dev)
+    dead = torch.as_tensor(lo.a_row < 0, device=dev)
+    sfx = tag(spin)
+    for fold in ((False,) if spin else (False, True)):
+        _, x, pmm, pms = seeds_for(l_max, m_vals, fold, dev, mp_vals)
+        maps, x, pmm_pk, pms_pk = ops._prep(lo, x, pmm, pms)
+        R, P = x.shape[0], (2 if fold else 1)
+        for K in (1, 8):
+            K2 = 2 * K
+            a_pk = ops._pack_a(random_a(gen, m_vals, l_max + 1, K2, dev,
+                                        mp_vals), lo).contiguous()
+            f = (torch.rand((lo.n_slots, 2, P, R, K2), generator=gen) * 2
+                 - 1).to(dev)
+            tab = (torch.rand((lo.n_slots, 2, P, 4, R), generator=gen) * 2
+                   - 1).to(dev)
+            for t, tname in ((tab, "random tables"), (None, "no tables")):
+                what = f"l_max {l_max} fold={fold!s:5s} K={K} {tname}"
+                want_s, plain_s = plain_ms(lambda: kref.synth_fused_ref(
+                    a_pk, maps, x, pmm_pk, pms_pk, t, l_max=l_max, fold=fold,
+                    spin=spin, bf16=True))
+                want_a, plain_a = plain_ms(lambda: kref.anal_fused_ref(
+                    f, maps, x, pmm_pk, pms_pk, t, l_max=l_max, s_len=lo.S,
+                    spin=spin, bf16=True))
+
+                def run_s(bf16=True):
+                    return fused_cuda.synth_fused_mxu(
+                        a_pk, maps, x, pmm_pk, pms_pk, t, l_max=l_max,
+                        fold=fold, spin=spin, bf16=bf16)
+
+                def run_a(bf16=True):
+                    return fused_cuda.anal_fused_mxu(
+                        f, maps, x, pmm_pk, pms_pk, t, l_max=l_max,
+                        s_len=lo.S, spin=spin, bf16=bf16)
+
+                for d, run, want, pad in (("synth", run_s, want_s,
+                                           (empty, 1)),
+                                          ("anal", run_a, want_a, dead)):
+                    out = run()
+                    held(f"{d}_fused_mxu_bf16{sfx}", out, want, what, pad,
+                         tol=BF16_KERNEL_TOL)
+                    f32 = run(False)
+                    gap = float((out - f32).abs().max() / f32.abs().max())
+                    log(f"  {d}_fused_mxu_bf16{sfx} vs float32 kernel: "
+                        f"{gap:.3e} (band (0, {BF16_GATE:g}))")
+                    if not 0 < gap < BF16_GATE:
+                        raise AssertionError(f"{d}_fused_mxu_bf16{sfx}: "
+                                             f"{gap} against float32")
+                if not fold and K == 8 and t is tab:
+                    for d, fn, pl in (("synth", run_s, plain_s),
+                                      ("anal", run_a, plain_a)):
+                        log(f"  {d}_fused_mxu_bf16{sfx} {what}: kernel "
+                            f"{cuda_time_ms(fn):.3f} ms (float32 "
+                            f"{cuda_time_ms(lambda: fn(False)):.3f} ms), "
+                            f"plain version {pl:.1f} ms")
+
+
+#: (nside, K, mode) of the fused bucket chains against their plain versions
+BUCKET_CHECKS = ((64, 8, "cuda_mxu"), (64, 1, "cuda_vpu"))
+
+
+def check_bucket_chains(dev, spin: int = 0) -> None:
+    """The fused bucket chains of a small HEALPix plan on the card (bucket
+    tables through the fused kernels, the bucket FFTs and the order-fixed
+    alias fold) against the same plan on the CPU, which runs the kernels'
+    plain versions, both directions, at KERNEL_TOL; each direction rerun
+    for identical bits."""
+    for nside, K, mode in BUCKET_CHECKS:
+        kw = dict(nside=nside, K=K, dtype="float32", mode=mode, spin=spin)
+        plan = repro_torch.make_plan("healpix", **kw)
+        cpu = repro_torch.make_plan("healpix", device="cpu", **kw)
+        if plan.layouts != {"synth": "fused", "anal": "fused"}:
+            raise AssertionError(f"healpix {nside}: layouts {plan.layouts}")
+        gen = torch.Generator().manual_seed(21 + spin)
+        alm = random_alm_for(gen, plan, torch.float32, torch.device("cpu"))
+        maps = plan.alm2map(alm.to(dev))
+        back = plan.map2alm(maps)
+        what = (f"healpix nside {nside} K {K} {mode} spin {spin}, "
+                f"{plan.phase.layout.n_buckets} buckets")
+        held(f"fused bucket synthesis", maps.cpu(), cpu.alm2map(alm), what)
+        held(f"fused bucket analysis", back.cpu(), cpu.map2alm(maps.cpu()),
+             what)
+        rerun_same("bucket synthesis", digest(maps),
+                   lambda: plan.alm2map(alm.to(dev)))
+        rerun_same("bucket analysis", digest(back),
+                   lambda: plan.map2alm(maps))
+
+
 # ---------------------------------------------------------------------------
 # phase 3: the main paths at full width, then each kernel at its shapes
 # ---------------------------------------------------------------------------
 
 #: (mode, l_max, K, layout): the sht_cmb shapes, first on the fused layout
-#: the plans pick by default, then on the staged plain and packed layouts;
-#: each runs as the spin-0 pair and as the spin-2 (E, B) <-> (Q, U) pair
+#: the plans pick by default, then on the staged plain layout, and the
+#: packed layout at l_max 1024 (cut from the sht_cmb depth to keep the
+#: script's time in bounds once the ragged paths joined); each runs as the
+#: spin-0 pair and as the spin-2 (E, B) <-> (Q, U) pair
 MAIN_PATH = (("cuda_mxu", 2048, 8, "fused"), ("cuda_vpu", 4096, 1, "fused"),
              ("cuda_mxu", 2048, 8, "plain"), ("cuda_vpu", 4096, 1, "plain"),
-             ("cuda_mxu", 2048, 8, "packed"), ("cuda_vpu", 4096, 1, "packed"))
+             ("cuda_mxu", 1024, 8, "packed"), ("cuda_vpu", 1024, 1, "packed"))
 SPINS = (0, 2)
+#: (grid, size, mode, K, layout, spins): the ragged-grid paths at full width
+#: (size: nside of the HEALPix family, l_max of ECP; l_max = 2 nside)
+RAGGED_PATHS = (
+    ("healpix", 1024, "cuda_mxu", 8, "fused", (0, 2)),
+    ("healpix", 1024, "cuda_mxu", 8, "plain", (0, 2)),
+    ("healpix", 2048, "cuda_vpu", 1, "fused", (0,)),
+    ("healpix_ring", 1024, "cuda_mxu", 8, "fused", (0,)),
+    ("ecp", 2048, "cuda_mxu", 8, "fused", (0,)),
+)
+#: (grid, size, K, spin) of the bf16 paths (mxu, the fused default layout)
+BF16_PATHS = (("gl", 2048, 8, 0), ("gl", 2048, 8, 2), ("healpix", 1024, 8, 0))
 
 #: the kernels each layout's path must launch, for a variant and spin (the
 #: spin-2 paths launch each kernel's spin branch, and anal_reduce)
@@ -496,26 +646,39 @@ def read_launches() -> dict:
     return {**lc.launches, **fused_cuda.launches}
 
 
+def make_grid_plan(grid: str, size: int, **kw):
+    """make_plan on ``grid``: ``size`` is l_max for gl/ecp, nside for the
+    HEALPix family (l_max = 2 nside)."""
+    if grid in ("gl", "ecp"):
+        return repro_torch.make_plan(grid, size, **kw)
+    return repro_torch.make_plan(grid, nside=size, **kw)
+
+
 def run_main_path(dev, mode: str, l_max: int, K: int, layout: str,
-                  spin: int = 0) -> tuple:
-    """One sht_cmb round trip through make_plan/alm2map/map2alm (spin 2:
-    (E, B) alm -> (Q, U) maps -> (E, B) alm)."""
-    gen = torch.Generator().manual_seed(l_max + K + spin)
-    if spin:
-        alm = sht.random_alm_spin(gen, l_max, l_max, K, dtype=torch.float32,
-                                  device=dev)
-    else:
-        alm = sht.random_alm(gen, l_max, l_max, K, dtype=torch.float32,
-                             device=dev)
+                  spin: int = 0, grid: str = "gl") -> tuple:
+    """One full-width round trip through make_plan/alm2map/map2alm (spin 2:
+    (E, B) alm -> (Q, U) maps -> (E, B) alm).  ``l_max`` is the grid's
+    size (nside on the HEALPix family); the approximate-quadrature grids
+    take one Jacobi pass (``map2alm(iters=1)``)."""
     t0 = time.perf_counter()
     # the fused paths are the plans' default layout: called as a user would
-    plan = repro_torch.make_plan("gl", l_max, K=K, dtype="float32",
-                                 mode=mode, spin=spin,
-                                 layout=None if layout == "fused" else layout)
+    plan = make_grid_plan(grid, l_max, K=K, dtype="float32", mode=mode,
+                          spin=spin,
+                          layout=None if layout == "fused" else layout)
     if plan.layouts != {"synth": layout, "anal": layout}:
         raise AssertionError(f"{mode}: layouts {plan.layouts}")
+    L = plan.l_max
+    gen = torch.Generator().manual_seed(
+        l_max + K + spin + (0 if grid == "gl" else 7))
+    if spin:
+        alm = sht.random_alm_spin(gen, L, L, K, dtype=torch.float32,
+                                  device=dev)
+    else:
+        alm = sht.random_alm(gen, L, L, K, dtype=torch.float32, device=dev)
+    iters, tol = (0, ROUNDTRIP_TOL) if grid == "gl" else \
+        (1, QUAD_ROUNDTRIP_TOL)
     maps = plan.alm2map(alm)
-    alm2 = plan.map2alm(maps)
+    alm2 = plan.map2alm(maps, iters=iters)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     g = plan.grid
@@ -526,12 +689,21 @@ def run_main_path(dev, mode: str, l_max: int, K: int, layout: str,
             not bool(torch.isfinite(torch.view_as_real(alm2)).all()):
         raise AssertionError(f"{mode}: non-finite or misshapen output")
     err = spectra.d_err(alm, alm2)
-    log(f"  {mode} [{layout}] spin {spin} l_max={l_max} K={K}: maps "
-        f"{tuple(maps.shape)}, round-trip d_err = {err:.3e} (limit "
-        f"{ROUNDTRIP_TOL:g}), {secs:.2f} s with plan build")
-    if not err < ROUNDTRIP_TOL:
+    log(f"  {mode} [{layout}] spin {spin} {where(plan)} K={K}: maps "
+        f"{tuple(maps.shape)}, round-trip d_err = {err:.3e} (iters={iters}, "
+        f"limit {tol:g}), {secs:.2f} s with plan build")
+    if not err < tol:
         raise AssertionError(f"{mode} spin {spin} round trip d_err {err}")
     return plan, alm, maps
+
+
+def where(plan) -> str:
+    """The grid and shape of a plan, for the log."""
+    g = plan.grid
+    size = f"nside={g.nside} " if g.nside else ""
+    return (f"{g.name} {size}l_max={plan.l_max} ({g.n_rings} rings"
+            + (f", {plan.phase.layout.n_buckets} buckets"
+               if plan.phase.kind == "bucket" else "") + ")")
 
 
 def path_rows(plan, alm, maps) -> tuple:
@@ -574,6 +746,7 @@ def time_kernels(mode: str, l_max: int, K: int, run: tuple) -> dict:
     version time, bound, and the library call where one exists."""
     var = mode[5:]
     plan, alm, maps = run
+    l_max = plan.l_max
     m_t, x, pmm, pms, mp_t = plan._row_seeds()
     sfx = tag(plan.spin)
     a, dw = path_rows(plan, alm, maps)
@@ -658,14 +831,22 @@ def identity_tables(var: str, out_a, want_a, f_pk, prep, l_max: int,
         f"{gap:.3e}")
 
 
-def time_fused_kernels(mode: str, l_max: int, K: int, run: tuple) -> dict:
+def time_fused_kernels(mode: str, l_max: int, K: int, run: tuple,
+                       bf16: bool = False) -> dict:
     """Each kernel of one fused main path at the shapes that path gave it
-    (the plan's own packed seeds and tables), as :func:`time_kernels`."""
+    (the plan's own packed seeds and tables), as :func:`time_kernels`;
+    ``bf16`` the bfloat16 branch of the mxu kernels, held at
+    BF16_KERNEL_TOL, its bound the contraction at the tensor cores' rate
+    plus the float32 recurrence."""
     var = mode[5:]
     plan, alm, maps = run
+    l_max = plan.l_max
     spin = bool(plan.spin)
     sfx = tag(spin)
-    _, kw = plan._fused_parts(var)
+    bf = "_bf16" if bf16 else ""
+    bkw = {"bf16": True} if bf16 else {}
+    tol = BF16_KERNEL_TOL if bf16 else KERNEL_TOL
+    _, kw, _ = plan._fused_parts(var, bf16)
     lo, store = kw["lo"], kw["store"]
     rows, mp_rows = plan._rows
     pmaps, x, pmm_pk, pms_pk = store["prep"]
@@ -676,71 +857,79 @@ def time_fused_kernels(mode: str, l_max: int, K: int, run: tuple) -> dict:
     a_pk = ops._pack_a(a_rows, lo).contiguous()
     w = torch.as_tensor(plan.grid.weights, dtype=torch.float32, device=x.device)
     fp = fused._anal_rows(path_maps(plan, maps) * w[:, None, None], rows,
-                          n=plan.phase.n, fold_rings=None, n_half=x.shape[0],
-                          spin=spin)
+                          n=getattr(plan.phase, "n", None), fold_rings=None,
+                          n_half=x.shape[0], spin=spin,
+                          bucket=getattr(plan.phase, "index", None))
     f_pk = ops._pack_rows(fp, lo)
     f_pk = (f_pk.movedim(-1, 3) if var == "vpu" else f_pk).contiguous()
     del fp
     K2, R, L, S = 2 * K, x.shape[0], l_max + 1, lo.S
     zeros = torch.zeros(lo.n_slots, dtype=torch.int32, device=x.device)
-    what = f"l_max {l_max}, K {K} (fused main path)"
+    what = (f"{where(plan)}, K {K} (fused main path"
+            + (", bf16)" if bf16 else ")"))
     triples, flops = legendre_work(rows, L, R, K2, mp_rows)
     synth = getattr(fused_cuda, f"synth_fused_{var}")
 
     def run_s():
         return synth(a_pk, pmaps, x, pmm_pk, pms_pk, tab_s, l_max=l_max,
-                     spin=spin)
+                     spin=spin, **bkw)
 
     def run_a():
         return fused_cuda.anal_fused_partials(var, f_pk, pmaps, x, pmm_pk,
                                               pms_pk, tab_a, l_max=l_max,
-                                              s_len=S, spin=spin)
+                                              s_len=S, spin=spin, **bkw)
 
     out_s, part = run_s(), run_a()
     out_a = lc.anal_reduce(part, zeros, l_max=S - 1)
     want_s, plain_s = plain_ms(lambda: kref.synth_fused_ref(
         a_pk, pmaps, x, pmm_pk, pms_pk, tab_s, l_max=l_max, layout=var,
-        spin=spin))
+        spin=spin, bf16=bf16))
     want_a, plain_a = plain_ms(lambda: kref.anal_fused_ref(
         f_pk, pmaps, x, pmm_pk, pms_pk, tab_a, l_max=l_max, s_len=S,
-        layout=var, spin=spin))
+        layout=var, spin=spin, bf16=bf16))
     want_r, plain_r = plain_ms(lambda: kref.anal_reduce_ref(part, zeros,
                                                             l_max=S - 1))
     empty = torch.as_tensor(lo.slot_seed == S, device=x.device)
     dead = torch.as_tensor(lo.a_row < 0, device=x.device)
-    err_s = held(f"synth_fused_{var}{sfx}", out_s, want_s, what, (empty, 1))
-    err_a = held(f"anal_fused_{var}{sfx}", out_a, want_a, what, dead)
+    err_s = held(f"synth_fused_{var}{bf}{sfx}", out_s, want_s, what,
+                 (empty, 1), tol=tol)
+    err_a = held(f"anal_fused_{var}{bf}{sfx}", out_a, want_a, what, dead,
+                 tol=tol)
     err_r = held("anal_reduce", out_a, want_r, what)
     dig_a = digest(out_a)
-    if tab_a is None:
+    if tab_a is None and not bf16:
         identity_tables(var, out_a, want_a, f_pk, (pmaps, x, pmm_pk, pms_pk),
                         l_max, S, what, spin)
     del want_s, want_a, want_r, out_s, out_a
     ms_s, ms_a = cuda_time_ms(run_s), cuda_time_ms(run_a)
     ms_r = cuda_time_ms(lambda: lc.anal_reduce(part, zeros, l_max=S - 1))
-    rerun_same(f"anal_fused_{var}{sfx}", dig_a,
+    rerun_same(f"anal_fused_{var}{bf}{sfx}", dig_a,
                lambda: lc.anal_reduce(run_a(), zeros, l_max=S - 1))
     lib_r = cuda_time_ms(lambda: part.sum(dim=1))
     seeds = nbytes(x, pmm_pk, pms_pk, *pmaps)
-    shape = f"l_max {l_max}, K {K}, {lo.n_slots} slots x S {S}"
+    shape = (f"{where(plan)}, K {K}, {lo.n_slots} slots x S {S}"
+             + (", 2M spin rows" if spin else ""))
     # rows: one (slot, segment) each; the reduce reads the live positions
     # of every chunk and writes the full packed output
     live = triples // R
     n_ch = part.shape[1]
     red_bytes = live * n_ch * K2 * 4 + lo.n_slots * S * K2 * 4
     red_ops = live * (n_ch - 1) * K2
+    # bf16: the contraction's 2 operations per channel run on the tensor
+    # cores, the recurrence (4, spin 5, per triple) on the CUDA cores
+    tc_ops = triples * 2 * K2 if bf16 else 0
     return {
-        f"synth_fused_{var}{sfx}": dict(
+        f"synth_fused_{var}{bf}{sfx}": dict(
             ms=ms_s, plain_ms=plain_s, library_ms=None, err=err_s,
             shape=shape, tables=tab_s is not None,
-            bound=bound_ms(flops + rotation_ops(tab_s, K),
+            bound=bound_ms(flops - tc_ops + rotation_ops(tab_s, K),
                            nbytes(a_pk, tab_s) + seeds
-                           + lo.n_slots * 2 * R * K2 * 4)),
-        f"anal_fused_{var}{sfx}": dict(
+                           + lo.n_slots * 2 * R * K2 * 4, tc_ops)),
+        f"anal_fused_{var}{bf}{sfx}": dict(
             ms=ms_a, plain_ms=plain_a, library_ms=None, err=err_a,
             shape=shape, tables=tab_a is not None,
-            bound=bound_ms(flops + rotation_ops(tab_a, K),
-                           nbytes(f_pk, tab_a, part) + seeds)),
+            bound=bound_ms(flops - tc_ops + rotation_ops(tab_a, K),
+                           nbytes(f_pk, tab_a, part) + seeds, tc_ops)),
         "anal_reduce": dict(
             ms=ms_r, plain_ms=plain_r, library_ms=lib_r, err=err_r,
             shape=f"{shape}, {n_ch} chunks",
@@ -765,6 +954,7 @@ def time_packed_kernels(mode: str, l_max: int, K: int, run: tuple) -> dict:
     kernels' code (no tables, fold off) on the same inputs."""
     var = mode[5:]
     plan, alm, maps = run
+    l_max = plan.l_max
     spin = bool(plan.spin)
     sfx = tag(spin)
     store = plan._fused_store
@@ -844,36 +1034,72 @@ def time_packed_kernels(mode: str, l_max: int, K: int, run: tuple) -> dict:
     }
 
 
+def bucket_fft_ms(bidx, C: int, dev) -> tuple:
+    """(inverse, forward) device ms of the bucket FFTs alone: one
+    ``torch.fft`` call per bucket over its rows, as the bucket phase runs
+    them."""
+    spec = torch.zeros((bidx.total, C), dtype=torch.complex64, device=dev)
+    views = [(o, len(sl), B) for B, sl, o in
+             zip(bidx.layout.lengths, bidx.layout.slots,
+                 bidx.offsets.tolist()) if len(sl)]
+
+    def run(fn):
+        for o, rb, B in views:
+            fn(spec[o:o + rb * B].view(rb, B, C), dim=1)
+
+    return (cuda_time_ms(lambda: run(torch.fft.ifft)),
+            cuda_time_ms(lambda: run(torch.fft.fft)))
+
+
 def time_round_trip(mode: str, l_max: int, K: int, layout: str, run: tuple,
                     kernel_ms: dict) -> None:
-    """Steady-state time of each direction of one main path, with its
-    Legendre (or fused) kernel time and its FFT time; the rest is the
-    layout glue (re|im split, packing, scatter/gather)."""
+    """Steady-state time of each direction of one main path (one analysis,
+    no Jacobi pass), with its Legendre (or fused) kernel time and its FFT
+    time: the phase stage on the staged layouts (on a ragged grid the
+    bucket phase, phase factors included), the FFT alone on the fused
+    layout (on a ragged grid the bucket phase: alias fold, one FFT per
+    bucket and the bin gather, the FFTs' share given apart); the rest is
+    the layout glue (re|im split, packing, scatter/gather)."""
     plan, alm, maps = run
     syn = host_ms(lambda: plan.alm2map(alm))
     ana = host_ms(lambda: plan.map2alm(maps))
-    g, n = plan.grid, plan.phase.n
+    g, ph = plan.grid, plan.phase
     pmaps = path_maps(plan, maps)            # Q|U as 2K channels on spin 2
+    C = pmaps.shape[-1]
+    extra = ""
     if layout in ("plain", "packed"):
-        delta = plan.phase.anal(pmaps)
-        fft_s = cuda_time_ms(lambda: plan.phase.synth(delta))
-        fft_a = cuda_time_ms(lambda: plan.phase.anal(pmaps))
-        what = "phase stage"
-    else:
-        H = torch.zeros((g.n_rings, n // 2 + 1, pmaps.shape[-1]),
-                        dtype=torch.complex64, device=maps.device)
+        delta = ph.anal(pmaps)
+        fft_s = cuda_time_ms(lambda: ph.synth(delta))
+        fft_a = cuda_time_ms(lambda: ph.anal(pmaps))
+        what = "phase stage" if ph.kind == "uniform" else "bucket phase"
+    elif ph.kind == "uniform":
+        n = ph.n
+        H = torch.zeros((g.n_rings, n // 2 + 1, C), dtype=torch.complex64,
+                        device=maps.device)
         fft_s = cuda_time_ms(lambda: torch.fft.irfft(H, n=n, dim=1))
         fft_a = cuda_time_ms(lambda: torch.fft.rfft(pmaps, dim=1))
         what = "FFT"
+    else:
+        from repro_torch.core import phase as cphase
+        hc = torch.zeros((plan.m_max + 1, g.n_rings, C),
+                         dtype=torch.complex64, device=maps.device)
+        fft_s = cuda_time_ms(lambda: cphase.bucket_scatter(hc, ph.index))
+        fft_a = cuda_time_ms(lambda: cphase.bucket_gather(pmaps, ph.index))
+        what = "bucket phase"
+    if ph.kind == "bucket":
+        ffts, fftf = bucket_fft_ms(ph.index, C, maps.device)
+        extra = (f"; bucket FFTs alone {ffts:.2f} / {fftf:.2f} ms, "
+                 f"{ph.layout.n_buckets} buckets")
     var = mode[5:]
     names = PATH_KERNELS[layout](var, tag(plan.spin))
     k_s = kernel_ms[names[0]]
     k_a = kernel_ms[names[1]] + kernel_ms["anal_reduce"]
-    log(f"  {mode} [{layout}] spin {plan.spin} l_max={l_max} K={K}: alm2map "
-        f"{syn:.2f} ms "
+    log(f"  {mode} [{layout}] spin {plan.spin} {where(plan)} K={K}: "
+        f"alm2map {syn:.2f} ms "
         f"(kernel {k_s:.2f}, {what} {fft_s:.2f}, rest "
         f"{syn - k_s - fft_s:.2f}), map2alm {ana:.2f} ms (kernels "
-        f"{k_a:.2f}, {what} {fft_a:.2f}, rest {ana - k_a - fft_a:.2f})")
+        f"{k_a:.2f}, {what} {fft_a:.2f}, rest {ana - k_a - fft_a:.2f})"
+        + extra)
 
 
 # ---------------------------------------------------------------------------
@@ -887,28 +1113,38 @@ def random_alm_for(gen, plan, dtype, dev) -> torch.Tensor:
     return draw(gen, plan.l_max, plan.m_max, plan.K, dtype=dtype, device=dev)
 
 
-def f64_anchor(dev, spin: int = 0) -> None:
-    """Every float32 kernel plan (both variants; fused, plain, packed)
-    against the float64 torch plan of the same spin at l_max 512, K 2."""
-    l_max, K = ANCHOR_L_MAX, 2
-    gen = torch.Generator().manual_seed(7 + spin)
-    p64 = repro_torch.make_plan("gl", l_max, K=K, dtype="float64",
-                                mode="torch", spin=spin)
+def f64_anchor(dev, spin: int = 0, grid: str = "gl", size: int = None,
+               layouts=("fused", "plain", "packed")) -> None:
+    """Every float32 kernel plan (both variants; the given layouts) against
+    the float64 torch plan of the same grid and spin, K 2: GL at l_max
+    512, or a ragged grid (``size`` its nside, or ECP's l_max), whose
+    float64 round trip with one Jacobi pass is logged beside it."""
+    size = ANCHOR_L_MAX if size is None else size
+    tol = ANCHOR_TOL if grid == "gl" else RAGGED_ANCHOR_TOL
+    K = 2
+    gen = torch.Generator().manual_seed(7 + spin + (0 if grid == "gl" else 50))
+    p64 = make_grid_plan(grid, size, K=K, dtype="float64", mode="torch",
+                         spin=spin)
     alm = random_alm_for(gen, p64, torch.float64, dev)
     maps64 = p64.alm2map(alm)
     alm64 = p64.map2alm(maps64)
+    if grid != "gl":
+        log(f"  torch float64 {where(p64)} spin {spin}: round trip d_err "
+            f"{spectra.d_err(alm, alm64):.3e} (iters=0), "
+            f"{spectra.d_err(alm, p64.map2alm(maps64, iters=1)):.3e} "
+            f"(iters=1)")
     for mode in ("cuda_vpu", "cuda_mxu"):
-        for layout in ("fused", "plain", "packed"):
-            p32 = repro_torch.make_plan("gl", l_max, K=K, dtype="float32",
-                                        mode=mode, layout=layout, spin=spin)
+        for layout in layouts:
+            p32 = make_grid_plan(grid, size, K=K, dtype="float32", mode=mode,
+                                 layout=layout, spin=spin)
             maps32 = p32.alm2map(alm.to(torch.complex64))
             alm32 = p32.map2alm(maps64.to(torch.float32))
             rel_s = float((maps32 - maps64).abs().max() / maps64.abs().max())
             rel_a = float((alm32 - alm64).abs().max() / alm64.abs().max())
             log(f"  {mode} [{layout}] spin {spin} vs torch float64, "
-                f"l_max={l_max} K={K}: synthesis {rel_s:.3e}, analysis "
-                f"{rel_a:.3e} (limit {ANCHOR_TOL:g})")
-            if not max(rel_s, rel_a) < ANCHOR_TOL:
+                f"{where(p32)} K={K}: synthesis {rel_s:.3e}, analysis "
+                f"{rel_a:.3e} (limit {tol:g})")
+            if not max(rel_s, rel_a) < tol:
                 raise AssertionError(f"{mode} [{layout}] spin {spin} strays "
                                      "from the float64 plan")
 
@@ -1025,17 +1261,18 @@ def check_gradients(dev, spin: int = 0) -> None:
 
 
 def main_path(dev, mode: str, l_max: int, K: int, layout: str,
-              spin: int) -> list:
+              spin: int, grid: str = "gl") -> list:
     """Drive one main path with the launch counters set to 0 just before it
     and read just after; fail if a kernel of the path never launched or
     one outside it did.  Then hold and time each of its kernels at the
     path's own inputs, and time both directions.  Returns the path's
     entries of the ``kernels`` JSON line."""
     reset_launches()
-    run = run_main_path(dev, mode, l_max, K, layout, spin)
+    run = run_main_path(dev, mode, l_max, K, layout, spin, grid)
     torch.cuda.synchronize()
     counts = read_launches()
-    log(f"  launches on the {mode} [{layout}] spin {spin} path: "
+    log(f"  {elapsed()} launches on the {mode} [{layout}] spin {spin} "
+        "path: "
         f"{ {k: c for k, c in counts.items() if c} }")
     var = mode[5:]
     wanted = PATH_KERNELS[layout](var, tag(spin))
@@ -1045,6 +1282,13 @@ def main_path(dev, mode: str, l_max: int, K: int, layout: str,
         raise AssertionError(f"{mode} [{layout}] spin {spin} path: never "
                              f"launched {missing}, launched outside it "
                              f"{stray}")
+    if grid != "gl":
+        # the order-fixed bucket fold and the chunk-order reduce: the same
+        # bits on every call
+        plan, alm, maps = run
+        rerun_same("synthesis", digest(maps), lambda: plan.alm2map(alm))
+        rerun_same("analysis", digest(plan.map2alm(maps)),
+                   lambda: plan.map2alm(maps))
     timed = {"fused": time_fused_kernels, "plain": time_kernels,
              "packed": time_packed_kernels}[layout](mode, l_max, K, run)
     out = []
@@ -1060,7 +1304,8 @@ def main_path(dev, mode: str, l_max: int, K: int, layout: str,
             "name": name, "route": "cuda", "source": SOURCES[base],
             "replaces": TPU_KERNELS[base], "spin": spin,
             "branch": SPIN_STEP if spin and base != name else None,
-            "path": f"{mode} {layout} spin {spin}", "shape": r["shape"],
+            "path": f"{grid} {mode} {layout} spin {spin}",
+            "shape": r["shape"],
             "launches": counts[name], "max_abs_err": r["err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": bms,
             "bound_by": by, "library_ms": r["library_ms"]})
@@ -1069,6 +1314,80 @@ def main_path(dev, mode: str, l_max: int, K: int, layout: str,
     del run
     torch.cuda.empty_cache()
     return out
+
+
+def bf16_path(dev, grid: str, size: int, K: int, spin: int) -> list:
+    """The bfloat16 branch of kernels 10 and 12 as the reference reaches it,
+    ``Plan._make_fused_synth/_make_fused_anal("mxu", bf16=True)`` on the
+    default (fused, mxu) plan: the counters set to 0 just before one
+    synthesis and one analysis and read just after (the bf16 kernels and
+    anal_reduce once each, nothing else); each direction against float32
+    within the reference's band; times beside float32; each bf16 kernel
+    held against its bf16 plain version at the path's own inputs.
+    Returns the path's entries of the ``kernels`` JSON line."""
+    plan = make_grid_plan(grid, size, K=K, dtype="float32", spin=spin)
+    if plan.backends["synth"] != "cuda_mxu" or plan.layouts["synth"] != \
+            "fused":
+        raise AssertionError(f"bf16 path {grid} {size}: {plan.backends} "
+                             f"{plan.layouts}")
+    gen = torch.Generator().manual_seed(31 + spin)
+    alm = random_alm_for(gen, plan, torch.float32, dev)
+    m32 = plan.alm2map(alm)
+    a32 = plan.map2alm(m32)
+    s16 = plan._make_fused_synth("mxu", bf16=True)
+    an16 = plan._make_fused_anal("mxu", bf16=True)
+    sfx = tag(spin)
+    reset_launches()
+    m16 = s16(alm)
+    a16 = an16(m32)
+    torch.cuda.synchronize()
+    counts = read_launches()
+    launched_exactly(f"the bf16 path, {where(plan)} K {K} spin {spin}",
+                     counts, {f"synth_fused_mxu_bf16{sfx}": 1,
+                              f"anal_fused_mxu_bf16{sfx}": 1,
+                              "anal_reduce": 1})
+    e_s = float((m16 - m32).abs().max() / m32.abs().max())
+    e_a = float((a16 - a32).abs().max() / a32.abs().max())
+    rt = spectra.d_err(alm, an16(m16))
+    t = [host_ms(fn) for fn in (lambda: s16(alm), lambda: plan.alm2map(alm),
+                                lambda: an16(m32), lambda: plan.map2alm(m32))]
+    log(f"  bf16 {where(plan)} K {K} spin {spin}: against float32 "
+        f"synthesis {e_s:.3e}, analysis {e_a:.3e} (band (0, {BF16_GATE:g})); "
+        f"bf16 round trip d_err {rt:.3e}; alm2map {t[0]:.2f} ms (float32 "
+        f"{t[1]:.2f}), map2alm {t[2]:.2f} ms (float32 {t[3]:.2f})")
+    if not (0 < e_s < BF16_GATE and 0 < e_a < BF16_GATE):
+        raise AssertionError(f"bf16 {grid} spin {spin}: {e_s}, {e_a}")
+    del m16, a16
+    timed = time_fused_kernels("cuda_mxu", size, K, (plan, alm, m32),
+                               bf16=True)
+    out = []
+    for name, r in timed.items():
+        if "bf16" not in name:
+            continue                   # anal_reduce: timed on every path
+        bms, by = r["bound"]
+        log(f"  {name:15s} {r['shape']}: {r['ms']:.3f} ms, bound "
+            f"{bms:.3f} ms ({by}), plain {r['plain_ms']:.1f} ms, "
+            f"launches {counts[name]}")
+        base = base_name(name)
+        out.append({
+            "name": name, "route": "cuda", "source": SOURCES[base],
+            "replaces": TPU_KERNELS[base], "spin": spin,
+            "branch": SPIN_STEP if spin else None,
+            "path": f"{grid} cuda_mxu fused bf16 spin {spin}",
+            "shape": r["shape"], "launches": counts[name],
+            "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": bms, "bound_by": by, "library_ms": None})
+    torch.cuda.empty_cache()
+    return out
+
+
+#: (grid, size, spins, layouts) of the float64 anchors on the ragged grids
+#: (size: nside, or l_max for ECP; l_max 512 each), both variants
+RAGGED_ANCHORS = (("healpix", 256, (0, 2), ("fused", "plain", "packed")),
+                  ("healpix_ring", 256, (0,), ("fused",)),
+                  ("ecp", 512, (0,), ("fused",)))
+#: nside of the HEALPix dot identities (l_max 256, the GL checks' band)
+DOT_NSIDE = 128
 
 
 def main() -> int:
@@ -1095,7 +1414,7 @@ def main() -> int:
             if "registers" in line or "error" in line.lower():
                 log(f"  ptxas {name}: {line.strip()}")
 
-    log("phase 2: kernels against their plain versions, limit "
+    log(f"{elapsed()} phase 2: kernels against their plain versions, limit "
         f"{KERNEL_TOL:g}")
     for spin in SPINS:
         log(f"  -- spin {spin}" + (": the kernels' spin branch on the 2M "
@@ -1103,21 +1422,47 @@ def main() -> int:
         check_kernels(dev, bool(spin))
         check_fused_kernels(dev, bool(spin))
         check_packed_kernels(dev, bool(spin))
+        check_bf16_kernels(dev, bool(spin))
+        check_bucket_chains(dev, spin)
 
-    log("phase 3: main paths at full width; each kernel against its plain "
-        "version at the shapes the path gave it")
+    log(f"{elapsed()} phase 3: main paths at full width; each kernel "
+        "against its plain version at the shapes the path gave it")
     kernels = []
     for spin in SPINS:
         for mode, l_max, K, layout in MAIN_PATH:
             kernels += main_path(dev, mode, l_max, K, layout, spin)
+    log(f"{elapsed()}   -- the ragged-grid paths: HEALPix, ring-uniform "
+        "HEALPix, ECP")
+    for grid, size, mode, K, layout, spins in RAGGED_PATHS:
+        for spin in spins:
+            kernels += main_path(dev, mode, size, K, layout, spin, grid)
+    log(f"{elapsed()}   -- the bfloat16 branch of kernels 10 and 12")
+    for grid, size, K, spin in BF16_PATHS:
+        kernels += bf16_path(dev, grid, size, K, spin)
 
-    log("phase 4: float64 anchor")
+    log(f"{elapsed()} phase 4: float64 anchor")
     for spin in SPINS:
         f64_anchor(dev, spin)
+    for grid, size, spins, layouts in RAGGED_ANCHORS:
+        for spin in spins:
+            f64_anchor(dev, spin, grid, size, layouts)
 
-    log("phase 5: gradients on the card")
+    log(f"{elapsed()} phase 5: gradients on the card")
     for spin in SPINS:
         check_gradients(dev, spin)
+    for spin in SPINS:
+        for mode, K in (("cuda_vpu", 1), ("cuda_mxu", 8)):
+            for layout in ("fused", "plain"):
+                plan = repro_torch.make_plan("healpix", nside=DOT_NSIDE, K=K,
+                                             dtype="float32", mode=mode,
+                                             layout=layout, spin=spin)
+                err = dot_identity_err(plan, 17 + spin)
+                log(f"  {mode} [{layout}] spin {spin} {where(plan)} K {K}: "
+                    f"<A x, y> vs <x, A^T y> through autograd, rel. gap "
+                    f"{err:.3e} (limit {DOT_TOL:g})")
+                if not err < DOT_TOL:
+                    raise AssertionError(f"healpix {mode} [{layout}] spin "
+                                         f"{spin}: dot identity {err}")
 
     log(f"chip_smoke wall time {time.perf_counter() - t_start:.1f} s "
         "(kernel build included)")

@@ -5,6 +5,7 @@ Counterpart of ``repro.core.transform``::
     import repro_torch
     plan = repro_torch.make_plan("gl", l_max=2048, K=8, dtype="float32",
                                  mode="cuda_mxu")
+    hp = repro_torch.make_plan("healpix", nside=1024, K=8, dtype="float32")
     maps = plan.alm2map(alm)       # inverse (synthesis)
     alm2 = plan.map2alm(maps)      # direct (analysis)
     print(plan.report())
@@ -28,6 +29,13 @@ staged kernels (``kernels.legendre_cuda``) and the phase stage apart;
 ``packed`` runs the packed staged kernels (two m rows per slot,
 ``kernels.fused_cuda``'s ``*_packed_*``) and the phase stage apart.
 Plans run on the CUDA device unless ``device="cpu"`` is passed.
+
+Grids: ``gl`` and ``ecp`` take ``l_max``; ``healpix`` (ragged rings,
+served by the ring-bucket phase stage) and ``healpix_ring`` (HEALPix
+latitudes with a uniform 4 nside samples per ring) take ``nside`` and
+default to ``l_max = 2 nside``.  Every backend and layout runs on every
+grid; the fused layout is the default wherever the reference's two rules
+allow it (:func:`_fusion_eligibility`).
 
 ``spin=2`` plans transform polarisation: (E, B) alm ``(2, M, L, K)`` to
 (Q, U) maps ``(2, R, n_phi, K)`` and back, on every backend and layout.
@@ -415,7 +423,8 @@ class Plan:
 
         See :func:`_fusion_eligibility`.
         """
-        return _fusion_eligibility(self.grid, self.spin, self.m_max)
+        return _fusion_eligibility(self.grid, self.spin, self.m_max,
+                                   self.fold)
 
     def _fused_layout(self):
         """The packed slot layout shared by the fused and packed directions
@@ -427,40 +436,49 @@ class Plan:
         return kops._resolve_layout(rows, "packed", self.l_max,
                                     self._fused_store, mp_vals=mp)
 
-    def _fused_parts(self, variant: str):
-        """(seeds, keyword block) of the fused kernel chains: the uniform
-        phase stage's FFT length and ring offsets, the fold's full ring
-        count, the rows' m' (spin 2), and the plan's store of packed seeds,
-        tables and indices."""
-        g = self.grid
-        _, x32, pmm, pms, _ = self._row_seeds()
-        kw = dict(l_max=self.l_max, variant=variant, lo=self._fused_layout(),
-                  n=self.phase.n, phi0=g.phi0,
-                  fold_rings=g.n_rings if self.fold else None,
-                  mp_vals=self._rows[1], store=self._fused_store)
-        return (x32, pmm, pms), kw
-
-    def _make_fused_synth(self, variant: str):
+    def _fused_parts(self, variant: str, bf16: bool):
+        """(seeds, keyword block, (synthesis chain, analysis chain)) of the
+        fused kernels: the phase stage's flavour (the uniform FFT length and
+        the fold's full ring count, or the bucket index), the ring offsets
+        phi0, the rows' m' (spin 2), the bfloat16 option, and the plan's
+        store of packed seeds, tables and indices."""
         from repro_torch.kernels import fused as kfused
+        g, ph = self.grid, self.phase
+        _, x32, pmm, pms, _ = self._row_seeds()
+        kw = dict(l_max=self.l_max, variant=variant, bf16=bf16,
+                  lo=self._fused_layout(), phi0=g.phi0,
+                  mp_vals=self._rows[1], store=self._fused_store)
+        if ph.kind == "uniform":
+            kw.update(n=ph.n, fold_rings=g.n_rings if self.fold else None)
+            pair = (kfused.fused_synth, kfused.fused_anal)
+        else:
+            kw.update(bucket=ph.index)
+            pair = (kfused.fused_synth_bucket, kfused.fused_anal_bucket)
+        return (x32, pmm, pms), kw, pair
+
+    def _make_fused_synth(self, variant: str, bf16: bool = False):
+        """The fused synthesis alm -> maps; ``bf16=True`` (variant ``mxu``
+        only) runs the bfloat16 contraction of kernel 10, as the
+        reference's ``_make_fused_synth(variant, bf16=True)``."""
         K, rdt = self.K, _DTYPES[self.dtype]
-        (x32, pmm, pms), kw = self._fused_parts(variant)
+        (x32, pmm, pms), kw, (fsynth, _) = self._fused_parts(variant, bf16)
         rows = self._rows[0]
 
         def fn(alm):
             if self.spin:
-                s = kfused.fused_synth(self._eb_rows(alm), rows, x32, pmm,
-                                       pms, **kw).to(rdt)
+                s = fsynth(self._eb_rows(alm), rows, x32, pmm, pms,
+                           **kw).to(rdt)
                 return torch.stack([s[..., :K], s[..., K:]], dim=0)
             a32 = torch.cat([alm.real, alm.imag], dim=-1).to(torch.float32)
-            maps = kfused.fused_synth(a32, rows, x32, pmm, pms, **kw)
-            return maps.to(rdt)
+            return fsynth(a32, rows, x32, pmm, pms, **kw).to(rdt)
 
         return fn
 
-    def _make_fused_anal(self, variant: str):
-        from repro_torch.kernels import fused as kfused
+    def _make_fused_anal(self, variant: str, bf16: bool = False):
+        """The fused analysis maps -> alm; ``bf16`` as in
+        :meth:`_make_fused_synth` (kernel 12)."""
         K, cdt = self.K, _CDTYPES[self.dtype]
-        (x32, pmm, pms), kw = self._fused_parts(variant)
+        (x32, pmm, pms), kw, (_, fanal) = self._fused_parts(variant, bf16)
         rows = self._rows[0]
         mask = torch.as_tensor(alm_mask(self.l_max, self.m_max),
                                device=self.device)[..., None]
@@ -468,12 +486,10 @@ class Plan:
         def fn(maps):
             # the quadrature weights are applied outside the kernel chain
             if self.spin:
-                out = kfused.fused_anal(
-                    torch.cat([maps[0], maps[1]], dim=-1), self.grid.weights,
-                    rows, x32, pmm, pms, **kw)
+                out = fanal(torch.cat([maps[0], maps[1]], dim=-1),
+                            self.grid.weights, rows, x32, pmm, pms, **kw)
                 return self._eb_alm(out)
-            out = kfused.fused_anal(maps, self.grid.weights, rows, x32, pmm,
-                                    pms, **kw)
+            out = fanal(maps, self.grid.weights, rows, x32, pmm, pms, **kw)
             alm = torch.complex(out[..., :K], out[..., K:]).to(cdt)
             return torch.where(mask, alm, torch.zeros((), dtype=cdt,
                                                       device=alm.device))
@@ -517,7 +533,10 @@ class Plan:
                 for d in ("synth", "anal")}
 
     def memory_footprint(self) -> dict:
-        """Estimated working-set bytes per buffer class."""
+        """Estimated working-set bytes per buffer class.  The reference's
+        keys, plus ``partials_bytes``: the float32 per-ring-chunk partial
+        sums the CUDA analysis kernels write before their chunk-order
+        reduce (the TPU accumulates in place and has none)."""
         g = self.grid
         M, L1, K = self.m_max + 1, self.l_max + 1, self.K
         ncomp = 1 if self.spin == 0 else 2
@@ -530,9 +549,31 @@ class Plan:
             "seed_bytes": (ncomp * 2 * M * g.n_rings * 4
                            if any(b.startswith("cuda")
                                   for b in self.backends.values()) else 0),
+            "partials_bytes": self._partials_bytes(),
         }
         out["total_bytes"] = sum(out.values())
         return out
+
+    def _partials_bytes(self) -> int:
+        """Bytes of the analysis partials buffer of the plan's analysis
+        backend and layout: (rows, n_chunks, l_max + 1, 2K) on the plain
+        layout, (n_slots, n_chunks, S, 2K) on the slot layouts, float32;
+        0 on the ``torch`` backend."""
+        backend = self.backends.get("anal", "torch")
+        if backend == "torch":
+            return 0
+        variant = backend[5:]
+        n_k = (self.grid.n_rings + 1) // 2 if self.fold else self.grid.n_rings
+        if self.layouts.get("anal") == "plain":
+            from repro_torch.kernels import legendre_cuda
+            shape = legendre_cuda.partials_shape(
+                variant, len(self._rows[0]), n_k, self.l_max, 2 * self.K)
+        else:
+            from repro_torch.kernels import fused_cuda
+            lo = self._fused_layout()
+            shape = fused_cuda.partials_shape(variant, lo.n_slots, n_k, lo.S,
+                                              2 * self.K)
+        return 4 * int(np.prod(shape))
 
     def describe(self) -> dict:
         """Structured report: signature, chosen kernels, layouts, fusion,
@@ -591,6 +632,12 @@ class Plan:
             f"  rings={s['n_rings']} n_phi={s['n_phi']} "
             f"memory ~{d['memory']['total_bytes'] / 1e6:.2f} MB",
         ]
+        ph = d["phase"]
+        if ph["kind"] != "uniform":
+            lines.append(
+                f"  phase: {ph['kind']} x{ph['n_buckets']} buckets "
+                f"{ph['bucket_lengths']} (+{ph['padded_frac'] * 100:.1f}% "
+                f"fft padding)")
         for direction in ("synth", "anal"):
             chosen = d["backends"].get(direction, "?")
             lay = d["layouts"].get(direction)
@@ -610,57 +657,71 @@ class Plan:
                 f"backends={self.backends})")
 
 
-def _fusion_eligibility(grid: RingGrid, spin: int, m_max: int) -> tuple:
+def _fusion_eligibility(grid: RingGrid, spin: int, m_max: int,
+                        fold: bool = False) -> tuple:
     """(eligible, reason) for the fused Legendre+phase pipeline.
 
-    The port's fused kernels cover spin 0 (equator fold on or off) and
-    spin 2 on a uniform phase stage; the fused ring-bucket stage waits for
-    ROADMAP.md Open items section 1, item 8.  As in the reference, spin 2
-    at the uniform Nyquist alias point stays staged: the real-part
-    doubling there is not complex-linear, so it cannot commute with the
+    The reference's two rules: the fused kernels cover spin 0 and 2,
+    folded or not, on the uniform and the bucket phase stage, except (1)
+    the equator fold on a bucket stage (the fold combine lives in the
+    uniform rotation tables; there are no folded bucket tables), and (2)
+    spin 2 at the uniform Nyquist alias point: the real-part doubling
+    there is not complex-linear, so it cannot commute with the
     lambda^{+-} pair unpacking that follows the in-kernel rotation.
     """
-    if not grid.uniform:
-        return False, ("the fused ring-bucket phase stage waits for "
-                       "ROADMAP.md Open items section 1, item 8")
-    if spin != 0 and grid.max_n_phi == 2 * m_max:
+    kind = "uniform" if grid.uniform else "bucket"
+    if fold and kind != "uniform":
+        return False, (f"equator fold on a {kind!r} phase stage is not fused "
+                       "(staged path)")
+    if spin != 0 and kind == "uniform" and grid.max_n_phi == 2 * m_max:
         return False, ("spin-2 at the Nyquist alias point "
                        "(n_phi == 2*m_max) is not fused (staged path)")
     return True, None
 
 
-def _resolve_grid(grid, l_max):
+def _resolve_grid(grid, l_max, nside):
     """Grid spec -> (RingGrid, signature fields); string specs go through
-    the geometry cache."""
+    the geometry cache, keyed on the fields their geometry depends on
+    (``gl``/``ecp`` on l_max, the HEALPix family on nside)."""
     if isinstance(grid, RingGrid):
         return grid, {"grid_cos": grid.cos_theta, "grid_nphi": grid.n_phi,
-                      "grid_w": grid.weights, "grid_name": grid.name}
+                      "grid_w": grid.weights, "grid_name": grid.name,
+                      "grid_phi0": grid.phi0, "grid_uniform": grid.uniform}
     kind = str(grid)
-    spec = {"grid_kind": kind, "grid_l_max": l_max}
+    by_lmax = kind in ("gl", "ecp")
+    spec = {"grid_kind": kind, "grid_l_max": l_max if by_lmax else None,
+            "grid_nside": None if by_lmax else nside}
 
     def build():
-        g = gridlib.make_grid(kind, l_max=l_max)
+        g = gridlib.make_grid(kind, l_max=l_max, nside=nside)
         return {"cos_theta": g.cos_theta, "sin_theta": g.sin_theta,
-                "weights": g.weights, "n_phi": g.n_phi, "phi0": g.phi0}
+                "weights": g.weights, "n_phi": g.n_phi, "phi0": g.phi0,
+                "uniform": np.array(g.uniform),
+                "nside": np.array(-1 if g.nside is None else g.nside)}
 
     p = plancache.get_or_build(plancache.signature_key("geometry", **spec),
                                build)
     g = RingGrid(name=kind, cos_theta=p["cos_theta"],
                  sin_theta=p["sin_theta"], weights=p["weights"],
-                 n_phi=p["n_phi"], phi0=p["phi0"], uniform=True)
+                 n_phi=p["n_phi"], phi0=p["phi0"], uniform=bool(p["uniform"]),
+                 nside=None if int(p["nside"]) < 0 else int(p["nside"]))
     return g, spec
 
 
 def make_plan(grid: Union[str, RingGrid] = "gl", l_max: Optional[int] = None,
-              *, m_max: Optional[int] = None, K: int = 1,
+              *, nside: Optional[int] = None, m_max: Optional[int] = None,
+              K: int = 1,
               dtype: str = "float64", mode: Optional[str] = None,
               fold: bool = False, spin: int = 0,
               layout: Optional[str] = None, device=None) -> Plan:
     """Build (or fetch) the transform plan for a problem signature.
 
-    grid : ``"gl"`` or a prebuilt :class:`RingGrid` (other grid families
-        wait for ROADMAP.md Open items section 1, item 8).
-    l_max, m_max : band limits (``m_max`` defaults to ``l_max``).
+    grid : ``"gl"``, ``"ecp"``, ``"healpix"``, ``"healpix_ring"`` or a
+        prebuilt :class:`RingGrid`.
+    l_max, m_max : band limits (``m_max`` defaults to ``l_max``; ``l_max``
+        to ``2 nside`` on the HEALPix family, else to ``n_rings - 1`` of a
+        prebuilt grid).
+    nside : HEALPix resolution (required for the HEALPix family).
     K : number of maps transformed together.
     dtype : ``"float64"`` or ``"float32"``.
     mode : a backend name (``"torch"``, ``"cuda_vpu"``, ``"cuda_mxu"``), or
@@ -695,12 +756,16 @@ def make_plan(grid: Union[str, RingGrid] = "gl", l_max: Optional[int] = None,
         raise ValueError("fold is not supported for spin transforms")
     if dtype not in _DTYPES:
         raise ValueError(f"dtype must be 'float64' or 'float32', got {dtype!r}")
-    if isinstance(grid, str) and l_max is None:
-        raise ValueError(f"make_plan({grid!r}, ...) requires l_max")
+    if isinstance(grid, str):
+        if grid in ("gl", "ecp") and l_max is None:
+            raise ValueError(f"make_plan({grid!r}, ...) requires l_max")
+        if grid in ("healpix", "healpix_ring") and nside is None:
+            raise ValueError(f"make_plan({grid!r}, ...) requires nside")
     dev = resolve_device(device)
-    g, grid_sig = _resolve_grid(grid, l_max)
+    g, grid_sig = _resolve_grid(grid, l_max, nside)
     if l_max is None:
-        l_max = g.n_rings - 1
+        # the HEALPix rule of thumb, as the reference
+        l_max = 2 * g.nside if g.nside else g.n_rings - 1
     m_max = l_max if m_max is None else m_max
     if m_max > l_max:
         raise ValueError(f"m_max {m_max} > l_max {l_max}")
@@ -718,7 +783,7 @@ def make_plan(grid: Union[str, RingGrid] = "gl", l_max: Optional[int] = None,
             raise ValueError(f"layout {layout!r} applies to the cuda_* "
                              "backends, not to 'torch'")
     else:
-        fusion_ok, reason = _fusion_eligibility(g, spin, m_max)
+        fusion_ok, reason = _fusion_eligibility(g, spin, m_max, fold)
         if layout == "fused" and not fusion_ok:
             raise ValueError(f"fused layout unavailable: {reason}")
         layout = layout or ("fused" if fusion_ok else "plain")

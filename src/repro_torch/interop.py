@@ -10,6 +10,11 @@ tiles becomes the port's unpadded ring axis of ``n_rings``.  The spin-2
 fields are the same names with a leading component axis of 2: (E, B) alm
 and (Q, U) maps; their seeds are the ``pmm``/``pms`` fields over the 2M
 spin rows.
+
+:func:`grid_from_reference` and :func:`layout_from_reference` carry a
+reference ``RingGrid`` and ``BucketLayout`` (host numpy geometry) across
+as the port's own, for plans and bucket indices built on the reference's
+exact geometry.
 """
 
 from __future__ import annotations
@@ -19,9 +24,10 @@ from typing import Mapping, Optional
 import numpy as np
 import torch
 
+from repro_torch.core.grids import BucketLayout, RingGrid
 from repro_torch.core.transform import resolve_device
 
-__all__ = ["from_reference"]
+__all__ = ["from_reference", "grid_from_reference", "layout_from_reference"]
 
 #: field -> (dtype, ndim) in the port; ``None`` keeps the array's own
 #: (float or complex) precision; ``alm`` and ``maps`` also take the spin-2
@@ -92,3 +98,27 @@ def from_reference(arrays: Mapping[str, np.ndarray], device=None,
             t = t.flatten(-2)[..., :n_rings].contiguous()
         out[name] = (t if dtype is None else t.to(dtype)).to(device)
     return out
+
+
+def grid_from_reference(grid) -> RingGrid:
+    """A reference ``RingGrid`` as the port's, its arrays copied (float64
+    geometry, int64 ring lengths) and validated."""
+    g = RingGrid(
+        name=str(grid.name),
+        cos_theta=np.array(grid.cos_theta, dtype=np.float64),
+        sin_theta=np.array(grid.sin_theta, dtype=np.float64),
+        weights=np.array(grid.weights, dtype=np.float64),
+        n_phi=np.array(grid.n_phi, dtype=np.int64),
+        phi0=np.array(grid.phi0, dtype=np.float64),
+        uniform=bool(grid.uniform),
+        nside=None if grid.nside is None else int(grid.nside))
+    g.validate()
+    return g
+
+
+def layout_from_reference(layout) -> BucketLayout:
+    """A reference ``BucketLayout`` (bucket lengths and ring slots) as the
+    port's."""
+    return BucketLayout(tuple(int(b) for b in layout.lengths),
+                        tuple(np.array(s, dtype=np.int64)
+                              for s in layout.slots))

@@ -88,12 +88,33 @@
 //                    2 l_max - m_max + 2 steps, so no block idles on the
 //                    triangle's short rows.
 //
+// bfloat16 branch (BF16 = true, the reference's bf16=True option of kernels
+// 10 and 12; fused mxu kernels only, fold on or off, spin 0 and 2): the
+// float32 recurrence and the float32 shared-memory panel are untouched; the
+// panel entries and the coefficient rows (synthesis) or the rotated Delta
+// rows (analysis) are rounded to bfloat16 (__float2bfloat16_rn) as the
+// fragments are loaded, and each warp contracts them with
+// mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 into float32
+// accumulators.  A product of two bfloat16 values is exact in float32, so
+// the kernels differ from their plain versions (kernels/ref.py, bf16=True)
+// only in the order of the float32 sums.  The fold's even and odd (l + m)
+// rows are the two halves of the N axis ([even | odd] coefficient columns in
+// synthesis, [plane 0 | plane 1] Delta columns in analysis, each row taking
+// the half of its parity).  Bound: the contraction at the tensor cores' bf16
+// rate (989 TFLOP/s) plus the float32 recurrence at 67 TFLOP/s; the first
+// tiling is one warp per 32 rings (synthesis) or per 32-ring slice of each
+// ring tile (analysis), fragments loaded straight from shared memory.
+//
 // The TPU analysis kernels add into one output block across ring blocks in
 // sequential grid order (fused.py:477, :600; legendre_pallas.py:844, :955);
 // CUDA blocks run in no order, so the analysis kernels write per-ring-chunk
 // partials (n_slots, n_chunks, S, 2K), dead positions zero, and the
 // chunk-order second pass anal_reduce (legendre.cu) sums them: no atomics,
 // identical bits on every run.
+
+#include <cuda_bf16.h>
+
+#include <cstdint>
 
 #include "recurrence.cuh"
 
@@ -175,6 +196,28 @@ __device__ __forceinline__ void zero_tail(float* __restrict__ part,
     if (c % KM < nk)
       part[(chunk_row + g) * 2 * K + channel<KM>(c, k0, K)] = 0.0f;
   }
+}
+
+// Two float32 values rounded to bfloat16 and packed into one register, lo in
+// the low half (the element of the smaller k or column index).
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  return static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16_rn(lo))) |
+         (static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16_rn(hi)))
+          << 16);
+}
+
+// d += a b on the tensor cores: a 16 x 16 row-major bf16 fragment, b a
+// 16 x 8 column-major bf16 fragment, d the 16 x 8 float32 accumulator.
+// Lane layout (g = lane / 4, q = lane % 4): a {(g, 2q..2q+1), (g + 8, 2q..),
+// (g, 2q+8..), (g + 8, 2q+8..)}, b {(2q..2q+1, g), (2q+8.., g)}, d {(g, 2q),
+// (g, 2q+1), (g + 8, 2q), (g + 8, 2q+1)}.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
 // ---------------------------------------------------------------------------
@@ -269,9 +312,11 @@ synth_fused_vpu_kernel(const float* __restrict__ a_pk,
 // synth_fused_mxu: grid (ceil(R / 128), n_slots, ceil(K / KM)), block 128.
 // Thread t owns TR consecutive rings x TC local channels of the (128 x 2KM)
 // sums; the epilogue stages them in shared memory and rotates with one
-// thread per ring.  out (n_slots, 2, P, R, 2K).
+// thread per ring.  out (n_slots, 2, P, R, 2K).  BF16: warp w contracts
+// rings 32 w .. 32 w + 31 (two m16 tiles) against NT n8 tiles of the
+// [even | odd] coefficient columns on the tensor cores.
 // ---------------------------------------------------------------------------
-template <int KM, bool FOLD, bool COMBINE, bool SPIN>
+template <int KM, bool FOLD, bool COMBINE, bool SPIN, bool BF16 = false>
 __global__ void __launch_bounds__(kTile)
 synth_fused_mxu_kernel(const float* __restrict__ a_pk,
                        const SlotMaps sm,
@@ -299,6 +344,9 @@ synth_fused_mxu_kernel(const float* __restrict__ a_pk,
   const int r = tile0 + t;                // this thread's recurrence ring
   const bool live = r < R;
   const float xr = live ? x[r] : 0.0f;
+  constexpr int NC = P * CC;              // BF16: [even | odd] columns
+  constexpr int NT = (NC + 7) / 8;        // BF16: n8 tiles
+  const int warp = t / 32, lg = (t % 32) / 4, lq = t % 4;
 
   for (int seg = 0; seg < 2; ++seg) {
     const Seg sg = segment<SPIN>(sm, si, seg, S, l_max);
@@ -308,12 +356,19 @@ synth_fused_mxu_kernel(const float* __restrict__ a_pk,
     const float p1 = p_first_coef(sg.m);
     const int l_end = sg.lz + sg.len;
     float acc[P][TR][TC];
+    float dacc[2][NT][4];
 #pragma unroll
     for (int p = 0; p < P; ++p)
 #pragma unroll
       for (int i = 0; i < TR; ++i)
 #pragma unroll
         for (int k = 0; k < TC; ++k) acc[p][i][k] = 0.0f;
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int k = 0; k < 4; ++k) dacc[i][j][k] = 0.0f;
     Rec s;
     for (int l0 = sg.lz; l0 < l_end; l0 += kLT) {  // block-uniform
       const int n = min(kLT, l_end - l0);
@@ -331,6 +386,40 @@ synth_fused_mxu_kernel(const float* __restrict__ a_pk,
         panel_s[j][t] = rec_step<SPIN>(&s, l0 + j, sg.lz, xr, bl_s, ratio_s,
                                        c_s, j, p1, pmm_r, pms_r);
       __syncthreads();
+      if constexpr (BF16) {                        // contract on the tensor cores
+        // panel rows past n are stale: read as zero
+        auto pv = [&](int j, int ring) {
+          return j < n ? panel_s[j][ring] : 0.0f;
+        };
+        auto cv = [&](int j, int col) {
+          const bool on = col < NC &&
+              (!FOLD || ((l0 + j + sg.m) & 1) == col / CC);
+          return on ? coef_s[j][col % CC] : 0.0f;
+        };
+#pragma unroll
+        for (int ks = 0; ks < kLT / 16; ++ks) {
+          const int lk = ks * 16 + 2 * lq;
+          uint32_t a[2][4];
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt) {
+            const int rr = warp * 32 + mt * 16 + lg;
+            a[mt][0] = pack_bf16(pv(lk, rr), pv(lk + 1, rr));
+            a[mt][1] = pack_bf16(pv(lk, rr + 8), pv(lk + 1, rr + 8));
+            a[mt][2] = pack_bf16(pv(lk + 8, rr), pv(lk + 9, rr));
+            a[mt][3] = pack_bf16(pv(lk + 8, rr + 8), pv(lk + 9, rr + 8));
+          }
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt) {
+            const int col = nt * 8 + lg;
+            const uint32_t b[2] = {pack_bf16(cv(lk, col), cv(lk + 1, col)),
+                                   pack_bf16(cv(lk + 8, col),
+                                             cv(lk + 9, col))};
+#pragma unroll
+            for (int mt = 0; mt < 2; ++mt) mma_bf16(dacc[mt][nt], a[mt], b);
+          }
+        }
+        continue;
+      }
       for (int j = 0; j < n; ++j) {                // contract over l
         float pv[TR], cv[TC];
 #pragma unroll
@@ -353,13 +442,26 @@ synth_fused_mxu_kernel(const float* __restrict__ a_pk,
       }
     }
     __syncthreads();                               // stage_s consumed
+    if constexpr (BF16) {
 #pragma unroll
-    for (int p = 0; p < P; ++p)
+      for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-      for (int i = 0; i < TR; ++i)
+        for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-        for (int k = 0; k < TC; ++k)
-          stage_s[p][rg * TR + i][cg * TC + k] = acc[p][i][k];
+          for (int e = 0; e < 4; ++e) {
+            const int ring = warp * 32 + mt * 16 + lg + 8 * (e / 2);
+            const int col = nt * 8 + 2 * lq + e % 2;
+            if (col < NC) stage_s[col / CC][ring][col % CC] = dacc[mt][nt][e];
+          }
+    } else {
+#pragma unroll
+      for (int p = 0; p < P; ++p)
+#pragma unroll
+        for (int i = 0; i < TR; ++i)
+#pragma unroll
+          for (int k = 0; k < TC; ++k)
+            stage_s[p][rg * TR + i][cg * TC + k] = acc[p][i][k];
+    }
     __syncthreads();
     if (!live) continue;
     for (int k = 0; k < nk; ++k) {
@@ -533,7 +635,9 @@ anal_fused_vpu_kernel(const float* __restrict__ f_pk,
 // t = q * (8 * CG) + jg * CG + cg owns output rows jg*4 .. jg*4+3, local
 // channels cg*TC .. +TC, over ring split q of each tile.  f_pk (n_slots, 2,
 // P, R, 2K).  grid (n_chunks, n_slots, ceil(K / KM)), block 128, dynamic
-// shared memory.
+// shared memory.  BF16: warp w contracts rings 32 w .. 32 w + 31 of each
+// ring tile on the tensor cores (two m16 tiles of l, NT n8 tiles of the
+// [plane 0 | plane 1] Delta columns); its sums land in red_s row w.
 // ---------------------------------------------------------------------------
 template <int KM, bool FOLD, bool SPIN>
 struct AnalFusedMxuShape {
@@ -555,7 +659,7 @@ struct AnalFusedMxuShape {
       (dw_floats + panel_floats + red_floats + coef_floats) * sizeof(float);
 };
 
-template <int KM, bool FOLD, bool COMBINE, bool SPIN>
+template <int KM, bool FOLD, bool COMBINE, bool SPIN, bool BF16 = false>
 __global__ void __launch_bounds__(kTile)
 anal_fused_mxu_kernel(const float* __restrict__ f_pk,
                       const SlotMaps sm,
@@ -585,6 +689,10 @@ anal_fused_mxu_kernel(const float* __restrict__ f_pk,
   const int cg = t % CG, jg = (t / CG) % Sh::JG, q = t / (CG * Sh::JG);
   const int ntile = min(kMxuAnalTiles, (R - base + kTile - 1) / kTile);
   const size_t chunk_row = (static_cast<size_t>(si) * gridDim.x + chunk) * S;
+  constexpr int NC = P * CC;              // BF16: [plane 0 | plane 1] columns
+  constexpr int NT = (NC + 7) / 8;        // BF16: n8 tiles
+  constexpr int NQ = BF16 ? kTile / 32 : Q;   // partial rows in red_s
+  const int warp = t / 32, lg = (t % 32) / 4, lq = t % 4;
 
   float xr[kMxuAnalTiles];
 #pragma unroll
@@ -648,10 +756,17 @@ anal_fused_mxu_kernel(const float* __restrict__ f_pk,
       __syncthreads();
       const int pb = FOLD ? ((l0 + sg.m) & 1) : 0;  // plane of even rows
       float acc[TJ][TC];
+      float dacc[2][NT][4];
 #pragma unroll
       for (int i = 0; i < TJ; ++i)
 #pragma unroll
         for (int k = 0; k < TC; ++k) acc[i][k] = 0.0f;
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int k = 0; k < 4; ++k) dacc[i][j][k] = 0.0f;
 #pragma unroll
       for (int k = 0; k < kMxuAnalTiles; ++k) {
         if (k >= ntile) break;                     // block-uniform
@@ -661,6 +776,41 @@ anal_fused_mxu_kernel(const float* __restrict__ f_pk,
                                      ratio_s, c_s, j, p1, pmm_r[k], pms_r[k])
                     : 0.0f;
         __syncthreads();
+        if constexpr (BF16) {                      // contract on the tensor cores
+          auto pv = [&](int j, int ring) {
+            return panel_s[j * Sh::kPanelStride + ring];
+          };
+          auto dv = [&](int ring, int col) {
+            return col < NC
+                ? dw_s[(static_cast<size_t>(col / CC) * Sh::kChunk +
+                        k * kTile + ring) * CC + col % CC]
+                : 0.0f;
+          };
+#pragma unroll
+          for (int ks = 0; ks < 2; ++ks) {
+            const int rk = warp * 32 + ks * 16 + 2 * lq;
+            uint32_t a[2][4];
+#pragma unroll
+            for (int mt = 0; mt < 2; ++mt) {
+              const int j = mt * 16 + lg;
+              a[mt][0] = pack_bf16(pv(j, rk), pv(j, rk + 1));
+              a[mt][1] = pack_bf16(pv(j + 8, rk), pv(j + 8, rk + 1));
+              a[mt][2] = pack_bf16(pv(j, rk + 8), pv(j, rk + 9));
+              a[mt][3] = pack_bf16(pv(j + 8, rk + 8), pv(j + 8, rk + 9));
+            }
+#pragma unroll
+            for (int nt = 0; nt < NT; ++nt) {
+              const int col = nt * 8 + lg;
+              const uint32_t b[2] = {pack_bf16(dv(rk, col), dv(rk + 1, col)),
+                                     pack_bf16(dv(rk + 8, col),
+                                               dv(rk + 9, col))};
+#pragma unroll
+              for (int mt = 0; mt < 2; ++mt) mma_bf16(dacc[mt][nt], a[mt], b);
+            }
+          }
+          __syncthreads();                         // panel reused next tile
+          continue;
+        }
         const float* d0 = dw_s + (static_cast<size_t>(pb) * Sh::kChunk +
                                   k * kTile) * CC;
         const float* d1 = dw_s + (static_cast<size_t>(FOLD ? 1 - pb : 0) *
@@ -684,18 +834,34 @@ anal_fused_mxu_kernel(const float* __restrict__ f_pk,
         }
         __syncthreads();                           // panel reused next tile
       }
+      if constexpr (BF16) {
+        // each row keeps the columns of its parity's plane
 #pragma unroll
-      for (int i = 0; i < TJ; ++i)
+        for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-        for (int c = 0; c < TC; ++c)
-          red_s[(q * kLT + jg * TJ + i) * CC + cg * TC + c] = acc[i][c];
+          for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int j = mt * 16 + lg + 8 * (e / 2);
+              const int col = nt * 8 + 2 * lq + e % 2;
+              if (col < NC && (!FOLD || col / CC == (pb ^ (j & 1))))
+                red_s[(warp * kLT + j) * CC + col % CC] = dacc[mt][nt][e];
+            }
+      } else {
+#pragma unroll
+        for (int i = 0; i < TJ; ++i)
+#pragma unroll
+          for (int c = 0; c < TC; ++c)
+            red_s[(q * kLT + jg * TJ + i) * CC + cg * TC + c] = acc[i][c];
+      }
       __syncthreads();
       for (int i = t; i < n * CC; i += kTile) {
         const int j = i / CC, c = i % CC;
         if (c % KM < nk) {
           float total = 0.0f;
 #pragma unroll
-          for (int qq = 0; qq < Q; ++qq) total += red_s[(qq * kLT + j) * CC + c];
+          for (int qq = 0; qq < NQ; ++qq)
+            total += red_s[(qq * kLT + j) * CC + c];
           part[(chunk_row + sg.g0 + l0 - sg.lz + j) * K2 +
                channel<KM>(c, k0, K)] = total;
         }
@@ -771,6 +937,17 @@ struct LaunchSynthMxu {
 };
 
 template <int KM, bool FOLD, bool COMBINE, bool SPIN>
+struct LaunchSynthMxuBf16 {
+  static int run(const FusedArgs& g) {
+    dim3 grid((g.R + kTile - 1) / kTile, g.n_slots, (g.K + KM - 1) / KM);
+    synth_fused_mxu_kernel<KM, FOLD, COMBINE, SPIN, true>
+        <<<grid, kTile, 0, g.stream>>>(g.in, g.sm, g.x, g.pmm, g.pms, g.tab,
+                                       g.out, g.S, g.K, g.R, g.l_max);
+    return static_cast<int>(cudaGetLastError());
+  }
+};
+
+template <int KM, bool FOLD, bool COMBINE, bool SPIN>
 struct LaunchAnalVpu {
   static int run(const FusedArgs& g) {
     dim3 grid(g.n_chunks, g.n_slots, (g.K + KM - 1) / KM);
@@ -792,6 +969,24 @@ struct LaunchAnalMxu {
     if (err != cudaSuccess) return static_cast<int>(err);
     dim3 grid(g.n_chunks, g.n_slots, (g.K + KM - 1) / KM);
     anal_fused_mxu_kernel<KM, FOLD, COMBINE, SPIN>
+        <<<grid, kTile, Sh::smem_bytes, g.stream>>>(
+            g.in, g.sm, g.x, g.pmm, g.pms, g.tab, g.out, g.S, g.K, g.R,
+            g.l_max);
+    return static_cast<int>(cudaGetLastError());
+  }
+};
+
+template <int KM, bool FOLD, bool COMBINE, bool SPIN>
+struct LaunchAnalMxuBf16 {
+  static int run(const FusedArgs& g) {
+    using Sh = AnalFusedMxuShape<KM, FOLD, SPIN>;
+    cudaError_t err = cudaFuncSetAttribute(
+        anal_fused_mxu_kernel<KM, FOLD, COMBINE, SPIN, true>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(Sh::smem_bytes));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    dim3 grid(g.n_chunks, g.n_slots, (g.K + KM - 1) / KM);
+    anal_fused_mxu_kernel<KM, FOLD, COMBINE, SPIN, true>
         <<<grid, kTile, Sh::smem_bytes, g.stream>>>(
             g.in, g.sm, g.x, g.pmm, g.pms, g.tab, g.out, g.S, g.K, g.R,
             g.l_max);
@@ -879,6 +1074,28 @@ int fused_anal_mxu(const float* f_pk, const int* m0, const int* m1,
                    const float* tab, float* part, int n_slots, int S, int K,
                    int R, int l_max, int n_chunks, int fold, void* stream) {
   return anal_entry<LaunchAnalMxu, 8, kMxuAnalTiles>(
+      f_pk, {m0, m1, mp0, mp1, seed}, x, pmm, pms, tab, part, n_slots, S, K,
+      R, l_max, n_chunks, fold, 1, stream);
+}
+
+// The bfloat16 branch of the fused mxu kernels (tensor-core contraction).
+int fused_synth_mxu_bf16(const float* a_pk, const int* m0, const int* m1,
+                         const int* mp0, const int* mp1, const int* seed,
+                         const float* x, const float* pmm, const int* pms,
+                         const float* tab, float* out, int n_slots, int S,
+                         int K, int R, int l_max, int fold, void* stream) {
+  return synth_entry<LaunchSynthMxuBf16>(a_pk, {m0, m1, mp0, mp1, seed}, x,
+                                         pmm, pms, tab, out, n_slots, S, K, R,
+                                         l_max, fold, 1, stream);
+}
+
+int fused_anal_mxu_bf16(const float* f_pk, const int* m0, const int* m1,
+                        const int* mp0, const int* mp1, const int* seed,
+                        const float* x, const float* pmm, const int* pms,
+                        const float* tab, float* part, int n_slots, int S,
+                        int K, int R, int l_max, int n_chunks, int fold,
+                        void* stream) {
+  return anal_entry<LaunchAnalMxuBf16, 8, kMxuAnalTiles>(
       f_pk, {m0, m1, mp0, mp1, seed}, x, pmm, pms, tab, part, n_slots, S, K,
       R, l_max, n_chunks, fold, 1, stream);
 }

@@ -31,9 +31,20 @@ channels (``core.legendre.spin_unpack_delta``) before the bins, which come
 from the first M rows (both halves share one m), and the analysis packs
 the gathered Q|U bins into Delta^{+-} rows (``spin_pack_delta``).  The
 pair packing adds a net 1/2 to the synthesis adjoint (``bsc``) and 2 to
-the analysis adjoint.  What is not ported yet raises, naming the
-ROADMAP.md item it waits on: ring buckets (item 8) and the bfloat16
-contraction (item 6).
+the analysis adjoint.
+
+Ragged grids (``fused_synth_bucket`` / ``fused_anal_bucket``): the tables
+are one plane of ``core.phase.bucket_rotation_tables`` (e^{+-i m phi0}
+only), and the bucket engine's alias-fold scatter and bin gather
+(``core.phase.bucket_scatter`` / ``bucket_gather``, one FFT per bucket)
+run around the kernels in place of the half-spectrum scatter and gather.
+
+``bf16=True`` (the mxu variant only, as in the reference) rounds the
+recurrence panel and the coefficient rows (synthesis) or the rotated Delta
+rows (analysis) to bfloat16 and contracts them on the tensor cores with
+float32 accumulation; the recurrence stays float32.  The vpu variant has
+no bfloat16 contraction: the reference ignores ``bf16`` there, the port
+raises.
 """
 
 from __future__ import annotations
@@ -46,7 +57,8 @@ from repro_torch.core.autodiff import linear_pair
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
 
-__all__ = ["fused_synth", "fused_anal", "FUSED_LP_SIZE"]
+__all__ = ["fused_synth", "fused_anal", "fused_synth_bucket",
+           "fused_anal_bucket", "FUSED_LP_SIZE"]
 
 #: the packed layout's panel length: the reference planner's choice at both
 #: sht_cmb shapes, shared with the packed staged layout.  The CUDA kernels
@@ -54,11 +66,6 @@ __all__ = ["fused_synth", "fused_anal", "FUSED_LP_SIZE"]
 #: length S up; a second value waits for a measured choice (ROADMAP.md Open
 #: items section 1, item 9).
 FUSED_LP_SIZE = kops.PACK_LP_SIZE
-
-
-def _waits(what: str, item: int) -> ValueError:
-    return ValueError(f"{what} is not ported yet: it waits for ROADMAP.md "
-                      f"Open items section 1, item {item}")
 
 
 def _tables_identity(tabs) -> bool:
@@ -78,12 +85,16 @@ def _rotation_tables(m_vals, direction, *, phase_kind, n, phi0, fold_rings,
                      n_half):
     """(M, n_pl, 4, R_kernel) f64 tables.
 
-    Unfolded: one plane of ``uniform_rotation_tables``.  Fold: north plane
-    = rings [0, nh), south plane row i = full-grid ring R-1-i (the staged
-    combine's reversal baked into the table order); rows past the southern
-    count stay zero, since the odd-R equator has no mirror."""
+    Uniform unfolded: one plane of ``uniform_rotation_tables``.  Fold:
+    north plane = rings [0, nh), south plane row i = full-grid ring R-1-i
+    (the staged combine's reversal baked into the table order); rows past
+    the southern count stay zero, since the odd-R equator has no mirror.
+    Bucket: one plane of ``bucket_rotation_tables``; the alias fold is the
+    host-side scatter and gather."""
+    if phase_kind == "bucket":
+        return phase.bucket_rotation_tables(m_vals, phi0, direction)[:, None]
     if phase_kind != "uniform":
-        raise _waits("the fused ring-bucket phase stage", 8)
+        raise ValueError(f"unknown phase kind {phase_kind!r}")
     full = phase.uniform_rotation_tables(m_vals, phi0, n, direction)
     if fold_rings is None:
         return full[:, None]
@@ -101,12 +112,12 @@ def _pack_tables(tabs, lo, device, store=None):
     return kops._pack_rows(t, lo, cache=store).contiguous()
 
 
-def _tables(store, direction, m_vals, lo, device, *, n, phi0, fold_rings,
-            n_half):
+def _tables(store, direction, m_vals, lo, device, *, phase_kind, n, phi0,
+            fold_rings, n_half):
     """Packed rotation tables for ``direction``, or None where they are the
     identity and the kernels skip them."""
     def build():
-        tabs = _rotation_tables(m_vals, direction, phase_kind="uniform",
+        tabs = _rotation_tables(m_vals, direction, phase_kind=phase_kind,
                                 n=n, phi0=phi0, fold_rings=fold_rings,
                                 n_half=n_half)
         if _tables_identity(tabs):
@@ -115,7 +126,7 @@ def _tables(store, direction, m_vals, lo, device, *, n, phi0, fold_rings,
     return kops._stored(store, ("tables", direction), build)
 
 
-def _kernel_synth(a, tab_pk, prep, *, l_max, var, lo, fold, store):
+def _kernel_synth(a, tab_pk, prep, *, l_max, var, bf16, lo, fold, store):
     """Packed fused kernel leg: a (Mr, L1, 2K) -> rotated per-plane rows
     h (Mr, n_pl, R, 2K); the spin branch on a spin layout."""
     maps, x, pmm_pk, pms_pk = prep
@@ -125,19 +136,20 @@ def _kernel_synth(a, tab_pk, prep, *, l_max, var, lo, fold, store):
     if kops._route(a.device) == "cpu":
         out = kref.synth_fused_ref(a_pk, maps, x, pmm_pk, pms_pk, tab_pk,
                                    l_max=l_max, fold=fold, layout=var,
-                                   spin=lo.spin)
+                                   spin=lo.spin, bf16=bf16)
     else:
         from repro_torch.kernels import fused_cuda
         kernel = getattr(fused_cuda, f"synth_fused_{var}")
         out = kernel(a_pk, maps, x, pmm_pk, pms_pk, tab_pk, l_max=l_max,
-                     fold=fold, spin=lo.spin)
+                     fold=fold, spin=lo.spin,
+                     **({"bf16": bf16} if var == "mxu" else {}))
     if var == "vpu":
         out = out.movedim(3, -1)              # (n_slots, 2, n_pl, R, 2K)
     seg = out.reshape(lo.n_slots * 2, 2 if fold else 1, R, K2)
     return kops._unpack_rows(seg, lo, Mr, cache=store)
 
 
-def _kernel_anal(fp, tab_pk, prep, *, l_max, var, lo, store):
+def _kernel_anal(fp, tab_pk, prep, *, l_max, var, bf16, lo, store):
     """Packed fused kernel leg: per-plane unrotated rows fp (Mr, n_pl, R,
     2K) -> a (Mr, l_max + 1, 2K)."""
     maps, x, pmm_pk, pms_pk = prep
@@ -148,25 +160,28 @@ def _kernel_anal(fp, tab_pk, prep, *, l_max, var, lo, store):
     if kops._route(fp.device) == "cpu":
         out = kref.anal_fused_ref(f_pk, maps, x, pmm_pk, pms_pk, tab_pk,
                                   l_max=l_max, s_len=lo.S, layout=var,
-                                  spin=lo.spin)
+                                  spin=lo.spin, bf16=bf16)
     else:
         from repro_torch.kernels import fused_cuda
         kernel = getattr(fused_cuda, f"anal_fused_{var}")
         out = kernel(f_pk, maps, x, pmm_pk, pms_pk, tab_pk, l_max=l_max,
-                     s_len=lo.S, spin=lo.spin)
+                     s_len=lo.S, spin=lo.spin,
+                     **({"bf16": bf16} if var == "mxu" else {}))
     return kops._unpack_alm(out, lo, cache=store)
 
 
-def _synth_chain(a, m_vals, x, pmm, pms, *, l_max, var, lo, n, phi0,
-                 fold_rings, store):
-    """Weight-free fused synthesis: a (Mr, L1, 2K) f32 -> maps (R, n, C).
-    ``Mr`` is the kernel row count: M, or the 2M lambda^{+-} rows of a spin
-    layout, whose Q|U maps come out as C = 2K channels (else C = K)."""
+def _synth_chain(a, m_vals, x, pmm, pms, *, l_max, var, bf16, lo, store,
+                 phase_kind="uniform", n=None, phi0=None, fold_rings=None,
+                 bucket=None):
+    """Weight-free fused synthesis: a (Mr, L1, 2K) f32 -> maps (R, n, C)
+    (uniform; (R, width, C) on a bucketed grid).  ``Mr`` is the kernel row
+    count: M, or the 2M lambda^{+-} rows of a spin layout, whose Q|U maps
+    come out as C = 2K channels (else C = K)."""
     prep = kops._prep(lo, x, pmm, pms, store)
     nh = prep[1].shape[0]
-    tab = _tables(store, "synth", m_vals, lo, a.device, n=n, phi0=phi0,
-                  fold_rings=fold_rings, n_half=nh)
-    h = _kernel_synth(a, tab, prep, l_max=l_max, var=var, lo=lo,
+    tab = _tables(store, "synth", m_vals, lo, a.device, phase_kind=phase_kind,
+                  n=n, phi0=phi0, fold_rings=fold_rings, n_half=nh)
+    h = _kernel_synth(a, tab, prep, l_max=l_max, var=var, bf16=bf16, lo=lo,
                       fold=fold_rings is not None, store=store)
     if fold_rings is not None:
         # the kernel's combine produced (north | south) planes; the south
@@ -185,6 +200,8 @@ def _synth_chain(a, m_vals, x, pmm, pms, *, l_max, var, lo, n, phi0,
         mv = mv[:mv.shape[0] // 2]
     else:
         hc = torch.complex(flat[..., :K], flat[..., K:])    # (M, R, K)
+    if phase_kind == "bucket":
+        return phase.bucket_scatter(hc, bucket)
     bins, _, _ = phase.uniform_bin_maps(mv, n)
     H = torch.zeros((n // 2 + 1,) + tuple(hc.shape[1:]), dtype=hc.dtype,
                     device=hc.device)
@@ -192,19 +209,24 @@ def _synth_chain(a, m_vals, x, pmm, pms, *, l_max, var, lo, n, phi0,
     return torch.fft.irfft(H.movedim(0, 1), n=n, dim=1) * n
 
 
-def _anal_rows(maps_w, m_vals, *, n, fold_rings, n_half, spin=False):
+def _anal_rows(maps_w, m_vals, *, n, fold_rings, n_half, spin=False,
+               bucket=None):
     """The analysis kernels' input: ring-weighted maps (R, n, C) f32 ->
     gathered, unrotated FFT rows (Mr, n_pl, R_kernel, 2K) f32, with the
     fold as north rings and reversed south rings (zero past the southern
     count).  With ``spin`` the C = 2K channels are Q|U and ``m_vals`` the
     2M spin rows: the bins of the first M rows are packed into the
-    Delta^{+-} rows (Mr = 2M); else C = K and Mr = M."""
+    Delta^{+-} rows (Mr = 2M); else C = K and Mr = M.  With ``bucket`` (a
+    ``core.phase.BucketIndex``) the bins come from the bucket FFTs."""
     dev = maps_w.device
     mv = np.asarray(m_vals)
     mv = mv[:mv.shape[0] // 2] if spin else mv
-    F = torch.fft.rfft(maps_w, dim=1)                       # (R, half, C)
-    bins, _, _ = phase.uniform_bin_maps(mv, n)
-    Fm = F[:, torch.as_tensor(bins, device=dev)].movedim(1, 0)   # (M, R, C)
+    if bucket is not None:
+        Fm = phase.bucket_gather(maps_w, bucket)            # (M, R, C)
+    else:
+        F = torch.fft.rfft(maps_w, dim=1)                   # (R, half, C)
+        bins, _, _ = phase.uniform_bin_maps(mv, n)
+        Fm = F[:, torch.as_tensor(bins, device=dev)].movedim(1, 0)
     if spin:
         K = Fm.shape[-1] // 2
         f_re, f_im = legendre.spin_pack_delta(
@@ -222,26 +244,31 @@ def _anal_rows(maps_w, m_vals, *, n, fold_rings, n_half, spin=False):
     return torch.stack([f_n, f_s], dim=1)     # (M, 2, nh, 2K)
 
 
-def _anal_chain(maps_w, m_vals, x, pmm, pms, *, l_max, var, lo, n, phi0,
-                fold_rings, store):
+def _anal_chain(maps_w, m_vals, x, pmm, pms, *, l_max, var, bf16, lo,
+                store, phase_kind="uniform", n=None, phi0=None,
+                fold_rings=None, bucket=None):
     """Weight-free fused analysis core: ring-weighted maps (R, n, C) f32
     -> a (Mr, l_max + 1, 2K) f32 (rows and channels as
     :func:`_synth_chain`)."""
     prep = kops._prep(lo, x, pmm, pms, store)
     nh = prep[1].shape[0]
     fp = _anal_rows(maps_w, m_vals, n=n, fold_rings=fold_rings, n_half=nh,
-                    spin=lo.spin)
-    tab = _tables(store, "anal", m_vals, lo, maps_w.device, n=n, phi0=phi0,
+                    spin=lo.spin, bucket=bucket)
+    tab = _tables(store, "anal", m_vals, lo, maps_w.device,
+                  phase_kind=phase_kind, n=n, phi0=phi0,
                   fold_rings=fold_rings, n_half=nh)
-    return _kernel_anal(fp, tab, prep, l_max=l_max, var=var, lo=lo,
-                        store=store)
+    return _kernel_anal(fp, tab, prep, l_max=l_max, var=var, bf16=bf16,
+                        lo=lo, store=store)
 
 
-def _resolve(m_vals, l_max, lo, mp_vals, bf16, fold_rings):
+def _resolve(m_vals, l_max, lo, mp_vals, bf16, fold_rings, variant="vpu"):
     """The slot layout of the rows (the spin layout with ``mp_vals``),
     checked against the request."""
-    if bf16:
-        raise _waits("the bfloat16 fused contraction (bf16=True)", 6)
+    if bf16 and variant != "mxu":
+        raise ValueError(
+            f"the {variant} variant has no bfloat16 contraction: bf16=True "
+            "applies to the mxu variant (panel contractions on the tensor "
+            "cores) only")
     if mp_vals is not None and fold_rings is not None:
         raise ValueError("fold is not supported for spin transforms")
     if lo is None:
@@ -278,9 +305,15 @@ def fused_synth(a, m_vals, x, pmm, pms, *, l_max, n, phi0, variant="vpu",
     the backward is fac_m (and 1/2 for spin) times the fused analysis
     chain of the cotangent.
     """
-    lo = _resolve(m_vals, l_max, lo, mp_vals, bf16, fold_rings)
-    kw = dict(l_max=l_max, var=variant, lo=lo, n=n, phi0=phi0,
+    lo = _resolve(m_vals, l_max, lo, mp_vals, bf16, fold_rings, variant)
+    kw = dict(l_max=l_max, var=variant, bf16=bf16, lo=lo, n=n, phi0=phi0,
               fold_rings=fold_rings, store=store)
+    return _synth_pair(a, m_vals, x, pmm, pms, lo, kw)
+
+
+def _synth_pair(a, m_vals, x, pmm, pms, lo, kw):
+    """The fused synthesis chain as a linear pair: backward = fac_m (and
+    1/2 for spin) times the analysis chain of the cotangent."""
     fac = _fac(m_vals, a.device)
     bsc = 0.5 if lo.spin else 1.0
 
@@ -306,12 +339,19 @@ def fused_anal(maps, weights, m_vals, x, pmm, pms, *, l_max, n, phi0,
     adjoint is the weight-free fused synthesis of the cotangent / fac_m
     (and 2 for spin).  Other arguments as :func:`fused_synth`.
     """
-    lo = _resolve(m_vals, l_max, lo, mp_vals, bf16, fold_rings)
+    lo = _resolve(m_vals, l_max, lo, mp_vals, bf16, fold_rings, variant)
+    kw = dict(l_max=l_max, var=variant, bf16=bf16, lo=lo, n=n, phi0=phi0,
+              fold_rings=fold_rings, store=store)
+    return _anal_pair(maps, weights, m_vals, x, pmm, pms, lo, kw)
+
+
+def _anal_pair(maps, weights, m_vals, x, pmm, pms, lo, kw):
+    """The fused analysis chain as a linear pair on the ring-weighted maps:
+    backward = the synthesis chain of the cotangent / fac_m (and / 2 for
+    spin)."""
     maps = torch.as_tensor(maps)
     w = torch.as_tensor(np.asarray(weights), dtype=torch.float32,
                         device=maps.device)
-    kw = dict(l_max=l_max, var=variant, lo=lo, n=n, phi0=phi0,
-              fold_rings=fold_rings, store=store)
     fac = _fac(m_vals, maps.device)
     bsc = 0.5 if lo.spin else 1.0
 
@@ -323,3 +363,48 @@ def fused_anal(maps, weights, m_vals, x, pmm, pms, *, l_max, n, phi0,
 
     return linear_pair(fwd, bwd, {"x": x, "pmm": pmm, "pms": pms},
                        maps.to(torch.float32) * w[:, None, None])
+
+
+def _bucket_of(bucket, m_vals, spin):
+    """Check that the bucket index serves the rows' m (the first half of a
+    spin row set)."""
+    mv = np.asarray(m_vals)
+    mv = mv[:mv.shape[0] // 2] if spin else mv
+    if not np.array_equal(bucket.m_vals, mv):
+        raise ValueError("the bucket index was built for other m rows")
+    return bucket
+
+
+def fused_synth_bucket(a, m_vals, x, pmm, pms, *, l_max, bucket, phi0,
+                       variant="vpu", bf16=False, lo=None, mp_vals=None,
+                       store=None):
+    """Fused synthesis on a ragged (bucketed) grid: a (Mr, L1, 2K) f32 ->
+    maps (R, width, C) f32, zero past each ring's n_phi.
+
+    ``bucket`` is the grid's ``core.phase.BucketIndex`` (the plan's
+    ``phase.index``: bucket layout, bin maps and the order-fixed fold); the
+    kernel rotates the rows by e^{+i m phi0(r)} (``phi0`` per ring) and the
+    bucket scatter and inverse FFTs run after it.  Rows, spin and
+    ``store`` as :func:`fused_synth`; no fold.  Differentiable: the
+    backward is fac_m (and 1/2 for spin) times :func:`fused_anal_bucket`'s
+    chain."""
+    lo = _resolve(m_vals, l_max, lo, mp_vals, bf16, None, variant)
+    kw = dict(l_max=l_max, var=variant, bf16=bf16, lo=lo, phi0=phi0,
+              store=store, phase_kind="bucket",
+              bucket=_bucket_of(bucket, m_vals, lo.spin))
+    return _synth_pair(a, m_vals, x, pmm, pms, lo, kw)
+
+
+def fused_anal_bucket(maps, weights, m_vals, x, pmm, pms, *, l_max, bucket,
+                      phi0, variant="vpu", bf16=False, lo=None, mp_vals=None,
+                      store=None):
+    """Fused analysis on a ragged grid: maps (R, width, C) -> a (Mr,
+    l_max + 1, 2K) f32.  The bucket FFTs and bin gather feed unrotated rows
+    to the kernel, which rotates them by e^{-i m phi0(r)}; samples past
+    each ring's n_phi are masked.  Other arguments as
+    :func:`fused_synth_bucket` and :func:`fused_anal`."""
+    lo = _resolve(m_vals, l_max, lo, mp_vals, bf16, None, variant)
+    kw = dict(l_max=l_max, var=variant, bf16=bf16, lo=lo, phi0=phi0,
+              store=store, phase_kind="bucket",
+              bucket=_bucket_of(bucket, m_vals, lo.spin))
+    return _anal_pair(maps, weights, m_vals, x, pmm, pms, lo, kw)

@@ -32,7 +32,9 @@ Analysis writes per-ring-chunk partials and sums them in chunk order with
 ``spin=True`` launches each kernel's spin branch on a spin slot layout (the
 Wigner-d rows (m, m') of the spin-2 plans, each segment starting at
 l0 = max(m, |m'|); fold off only), counted under the kernel's name with
-``_spin`` appended.
+``_spin`` appended.  ``bf16=True`` on the fused mxu kernels launches their
+bfloat16 instantiation (tensor-core contraction of bfloat16-rounded panels,
+float32 accumulation), counted as ``<kernel>_bf16`` (``_bf16_spin``).
 """
 
 from __future__ import annotations
@@ -49,13 +51,16 @@ from repro_torch.kernels.ops import _pad_to
 __all__ = ["synth_fused_vpu", "synth_fused_mxu", "anal_fused_vpu",
            "anal_fused_mxu", "anal_fused_partials", "synth_packed_vpu",
            "synth_packed_mxu", "anal_packed_vpu", "anal_packed_mxu",
-           "anal_packed_partials", "launches", "reset_launches"]
+           "anal_packed_partials", "partials_shape", "launches",
+           "reset_launches"]
 
 #: kernel name -> launches since the last :func:`reset_launches`; the spin
 #: branch of a kernel counts under its name with ``_spin`` appended
 launches = {f"{d}_{kind}_{v}{b}": 0 for d in ("synth", "anal")
             for kind in ("fused", "packed") for v in ("vpu", "mxu")
             for b in ("", "_spin")}
+launches.update({f"{d}_fused_mxu_bf16{b}": 0 for d in ("synth", "anal")
+                 for b in ("", "_spin")})
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -64,6 +69,8 @@ _SIGNATURES = {
     "fused_synth_mxu": [_P] * 11 + [_I] * 6 + [_P],
     "fused_anal_vpu": [_P] * 11 + [_I] * 7 + [_P],
     "fused_anal_mxu": [_P] * 11 + [_I] * 7 + [_P],
+    "fused_synth_mxu_bf16": [_P] * 11 + [_I] * 6 + [_P],
+    "fused_anal_mxu_bf16": [_P] * 11 + [_I] * 7 + [_P],
     "packed_synth_vpu": [_P] * 10 + [_I] * 6 + [_P],
     "packed_synth_mxu": [_P] * 10 + [_I] * 6 + [_P],
     "packed_anal_vpu": [_P] * 10 + [_I] * 7 + [_P],
@@ -114,21 +121,22 @@ def _operands(maps, x, pmm_pk, pms_pk, tab_pk, n_slots, P, device, spin):
 
 
 def _synth(kernel, a_pk, maps, x, pmm_pk, pms_pk, tab_pk, *, l_max, fold,
-           spin):
+           spin, bf16=False):
     """Launch synthesis ``kernel`` (``synth_{fused,packed}_{vpu,mxu}``); the
     packed ones take no table and return their planes as (n_slots, Q,
     ...)."""
     n_slots, S, K2 = a_pk.shape
     R, P = x.shape[0], (2 if fold else 1)
     _, kind, var = kernel.split("_")
-    name = kernel + ("_spin" if spin else "")
+    bf = "_bf16" if bf16 else ""
+    name = kernel + bf + ("_spin" if spin else "")
     lc._check("a_pk", a_pk, torch.float32, (n_slots, S, K2))
     ptrs, tab = _operands(maps, x, pmm_pk, pms_pk, tab_pk, n_slots, P,
                           a_pk.device, spin)
     shape = ((n_slots, 2, P, K2, R) if var == "vpu"
              else (n_slots, 2, P, R, K2))
     out = torch.empty(shape, dtype=torch.float32, device=a_pk.device)
-    fn = getattr(_lib(), f"{kind}_synth_{var}")
+    fn = getattr(_lib(), f"{kind}_synth_{var}{bf}")
     tab = [tab] if kind == "fused" else []
     with torch.cuda.device(a_pk.device):
         err = fn(a_pk.data_ptr(), *ptrs, *tab, out.data_ptr(), n_slots, S,
@@ -147,10 +155,12 @@ def synth_fused_vpu(a_pk, maps, x, pmm_pk, pms_pk, tab_pk=None, *,
 
 
 def synth_fused_mxu(a_pk, maps, x, pmm_pk, pms_pk, tab_pk=None, *,
-                    l_max: int, fold: bool = False, spin: bool = False):
-    """Fused synthesis as (l x ring) P panels contracted in float32."""
+                    l_max: int, fold: bool = False, spin: bool = False,
+                    bf16: bool = False):
+    """Fused synthesis as (l x ring) P panels contracted in float32, or with
+    ``bf16`` in bfloat16 on the tensor cores (float32 accumulation)."""
     return _synth("synth_fused_mxu", a_pk, maps, x, pmm_pk, pms_pk, tab_pk,
-                  l_max=l_max, fold=fold, spin=spin)
+                  l_max=l_max, fold=fold, spin=spin, bf16=bf16)
 
 
 def synth_packed_vpu(a_pk, maps, x, pmm_pk, pms_pk, *, l_max: int,
@@ -169,8 +179,17 @@ def synth_packed_mxu(a_pk, maps, x, pmm_pk, pms_pk, *, l_max: int,
                   l_max=l_max, fold=fold, spin=spin)
 
 
+def partials_shape(variant: str, n_slots: int, R: int, s_len: int,
+                   K2: int) -> tuple:
+    """(n_slots, n_chunks, S, 2K): the float32 partials buffer of the slot
+    analysis kernels of ``variant`` on R rings (ring chunks of
+    ``legendre_cuda.ANAL_CHUNK``)."""
+    chunk = lc.ANAL_CHUNK[variant]
+    return (n_slots, _pad_to(R, chunk) // chunk, s_len, K2)
+
+
 def _partials(kernel, f, maps, x, pmm_pk, pms_pk, tab_pk, *, l_max, s_len,
-              spin):
+              spin, bf16=False):
     """Launch analysis ``kernel`` (``anal_{fused,packed}_{vpu,mxu}``) on its
     per-slot rows ``f`` (n_slots, 2 x P, ...): per-ring-chunk partial sums
     (n_slots, n_chunks, S, 2K), dead stream positions zero."""
@@ -185,14 +204,14 @@ def _partials(kernel, f, maps, x, pmm_pk, pms_pk, tab_pk, *, l_max, s_len,
         raise ValueError(f"rows {tuple(f.shape)} do not fit x "
                          f"({x.shape[0]} rings) and 1 or 2 planes")
     P = Q // 2
-    name = kernel + ("_spin" if spin else "")
+    bf = "_bf16" if bf16 else ""
+    name = kernel + bf + ("_spin" if spin else "")
     ptrs, tab = _operands(maps, x, pmm_pk, pms_pk, tab_pk, n_slots, P,
                           f.device, spin)
-    chunk = lc.ANAL_CHUNK[var]
-    n_chunks = _pad_to(R, chunk) // chunk
-    part = torch.empty((n_slots, n_chunks, s_len, K2), dtype=torch.float32,
-                       device=f.device)
-    fn = getattr(_lib(), f"{kind}_anal_{var}")
+    part = torch.empty(partials_shape(var, n_slots, R, s_len, K2),
+                       dtype=torch.float32, device=f.device)
+    n_chunks = part.shape[1]
+    fn = getattr(_lib(), f"{kind}_anal_{var}{bf}")
     tab = [tab] if kind == "fused" else []
     with torch.cuda.device(f.device):
         err = fn(f.data_ptr(), *ptrs, *tab, part.data_ptr(), n_slots, s_len,
@@ -204,11 +223,14 @@ def _partials(kernel, f, maps, x, pmm_pk, pms_pk, tab_pk, *, l_max, s_len,
 
 def anal_fused_partials(variant: str, f_pk, maps, x, pmm_pk, pms_pk,
                         tab_pk=None, *, l_max: int, s_len: int,
-                        spin: bool = False):
+                        spin: bool = False, bf16: bool = False):
     """First pass of ``anal_fused_<variant>``: per-ring-chunk partial sums
-    (n_slots, n_chunks, S, 2K), dead stream positions zero."""
+    (n_slots, n_chunks, S, 2K), dead stream positions zero; ``bf16`` (mxu
+    only) launches the bfloat16 instantiation."""
+    if bf16 and variant != "mxu":
+        raise ValueError("only the mxu variant has a bfloat16 contraction")
     return _partials(f"anal_fused_{variant}", f_pk, maps, x, pmm_pk, pms_pk,
-                     tab_pk, l_max=l_max, s_len=s_len, spin=spin)
+                     tab_pk, l_max=l_max, s_len=s_len, spin=spin, bf16=bf16)
 
 
 def anal_packed_partials(variant: str, dw_pk, maps, x, pmm_pk, pms_pk, *,
@@ -237,12 +259,14 @@ def anal_fused_vpu(f_pk, maps, x, pmm_pk, pms_pk, tab_pk=None, *,
 
 
 def anal_fused_mxu(f_pk, maps, x, pmm_pk, pms_pk, tab_pk=None, *,
-                   l_max: int, s_len: int, spin: bool = False):
+                   l_max: int, s_len: int, spin: bool = False,
+                   bf16: bool = False):
     """Fused analysis as (l x ring) P panels contracted against the rotated
-    Delta resident in shared memory."""
+    Delta resident in shared memory, in float32 or with ``bf16`` in
+    bfloat16 on the tensor cores (float32 accumulation)."""
     return _reduce(anal_fused_partials("mxu", f_pk, maps, x, pmm_pk, pms_pk,
                                        tab_pk, l_max=l_max, s_len=s_len,
-                                       spin=spin))
+                                       spin=spin, bf16=bf16))
 
 
 def anal_packed_vpu(dw_pk, maps, x, pmm_pk, pms_pk, *, l_max: int,

@@ -30,7 +30,8 @@ import torch
 from repro_torch.kernels import build
 
 __all__ = ["synth_vpu", "synth_mxu", "anal_vpu", "anal_mxu", "anal_partials",
-           "anal_reduce", "launches", "reset_launches", "ANAL_CHUNK"]
+           "anal_reduce", "partials_shape", "launches", "reset_launches",
+           "ANAL_CHUNK"]
 
 #: kernel name -> launches since the last :func:`reset_launches`; the spin
 #: branch of a kernel counts under its name with ``_spin`` appended
@@ -153,6 +154,13 @@ def synth_mxu(a, m_vals, x, pmm, pms, *, l_max: int, fold: bool = False,
                   mp_vals=mp_vals)
 
 
+def partials_shape(variant: str, Mp: int, R: int, l_max: int,
+                   K2: int) -> tuple:
+    """(Mp, n_chunks, l_max + 1, 2K): the float32 partials buffer of
+    ``anal_<variant>`` on R rings (ring chunks of ``ANAL_CHUNK``)."""
+    return (Mp, -(-R // ANAL_CHUNK[variant]), l_max + 1, K2)
+
+
 def anal_partials(variant: str, dw, m_vals, x, pmm, pms, *, l_max: int,
                   fold: bool = False, mp_vals=None):
     """First analysis pass of ``anal_<variant>``: per-ring-chunk partial
@@ -166,9 +174,9 @@ def anal_partials(variant: str, dw, m_vals, x, pmm, pms, *, l_max: int,
     _check("dw", dw, torch.float32, (Mp, P, R, K2))
     _check_seeds(m_vals, x, pmm, pms, Mp, R, dw.device, mp_vals)
     L = l_max + 1
-    n_chunks = -(-R // ANAL_CHUNK[variant])
-    part = torch.empty((Mp, n_chunks, L, K2), dtype=torch.float32,
-                       device=dw.device)
+    part = torch.empty(partials_shape(variant, Mp, R, l_max, K2),
+                       dtype=torch.float32, device=dw.device)
+    n_chunks = part.shape[1]
     fn = getattr(_lib(), f"legendre_{kernel}")
     with torch.cuda.device(dw.device):
         err = fn(dw.data_ptr(), m_vals.data_ptr(), _ptr(mp_vals),

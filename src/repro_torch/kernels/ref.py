@@ -287,6 +287,11 @@ def _stream(maps, x, pmm_pk, pms_pk, *, l_max: int, s_len: int,
         yield g, val, seg1, ((l + m) % 2 == 1)
 
 
+def _bf16(t: torch.Tensor) -> torch.Tensor:
+    """Round float32 values to bfloat16 and back (round to nearest even)."""
+    return t.to(torch.bfloat16).to(torch.float32)
+
+
 def synth_packed_ref(a_pk, maps, x, pmm_pk, pms_pk, *, l_max: int,
                      fold: bool = False, layout: str = "mxu",
                      spin: bool = False):
@@ -300,21 +305,34 @@ def synth_packed_ref(a_pk, maps, x, pmm_pk, pms_pk, *, l_max: int,
     (n_slots, Q, R, 2K), Q = 2 x P, plane q = segment x P + parity, in
     ``layout``'s order.
     """
+    acc = _synth_planes(a_pk, maps, x, pmm_pk, pms_pk, l_max=l_max,
+                        fold=fold, spin=spin)
+    return acc.movedim(-1, 2).contiguous() if layout == "vpu" else acc
+
+
+def _synth_planes(a_pk, maps, x, pmm_pk, pms_pk, *, l_max, fold, spin,
+                  bf16=False):
+    """The packed synthesis sums (n_slots, Q, R, 2K); with ``bf16`` the
+    recurrence values and the coefficients are rounded to bfloat16 before
+    their (exact) float32 products are summed."""
     n_slots, S, K2 = a_pk.shape
     R = x.shape[0]
     P = 2 if fold else 1
+    if bf16:
+        a_pk = _bf16(a_pk)
     acc = torch.zeros(n_slots, 2, P, R, K2, dtype=torch.float32,
                       device=a_pk.device)
     zero = torch.zeros((), dtype=torch.float32, device=a_pk.device)
     for g, val, seg1, odd in _stream(maps, x, pmm_pk, pms_pk, l_max=l_max,
                                      s_len=S, spin=spin):
+        if bf16:
+            val = _bf16(val)
         contrib = val[:, :, None] * a_pk[:, g][:, None, :]   # (n_slots, R, 2K)
         for seg, in_seg in ((0, ~seg1), (1, seg1)):
             for p in range(P):
                 keep = in_seg & (odd if p else ~odd) if fold else in_seg
                 acc[:, seg, p] += torch.where(keep[..., None], contrib, zero)
-    acc = acc.reshape(n_slots, 2 * P, R, K2)
-    return acc.movedim(-1, 2).contiguous() if layout == "vpu" else acc
+    return acc.reshape(n_slots, 2 * P, R, K2)
 
 
 def anal_packed_ref(dw_pk, maps, x, pmm_pk, pms_pk, *, l_max: int,
@@ -328,6 +346,17 @@ def anal_packed_ref(dw_pk, maps, x, pmm_pk, pms_pk, *, l_max: int,
     against the recurrence over the rings.  Returns (n_slots, s_len, 2K).
     """
     d_all = dw_pk.movedim(2, -1) if layout == "vpu" else dw_pk
+    return _anal_planes(d_all, maps, x, pmm_pk, pms_pk, l_max=l_max,
+                        s_len=s_len, spin=spin)
+
+
+def _anal_planes(d_all, maps, x, pmm_pk, pms_pk, *, l_max, s_len, spin,
+                 bf16=False):
+    """The packed analysis contraction of (n_slots, Q, R, 2K) rows; with
+    ``bf16`` the recurrence values and the rows are rounded to bfloat16
+    before their (exact) float32 products are summed."""
+    if bf16:
+        d_all = _bf16(d_all)
     n_slots, Q, R, K2 = d_all.shape
     d_all = d_all.reshape(n_slots, 2, Q // 2, R, K2)
     out = torch.zeros(n_slots, s_len, K2, dtype=torch.float32,
@@ -336,7 +365,8 @@ def anal_packed_ref(dw_pk, maps, x, pmm_pk, pms_pk, *, l_max: int,
                                      s_len=s_len, spin=spin):
         d = torch.where(seg1[:, :, None, None], d_all[:, 1], d_all[:, 0])
         d = torch.where(odd[..., None], d[:, -1], d[:, 0])        # (s, R, 2K)
-        out[:, g] = torch.einsum("sr,src->sc", val, d)
+        out[:, g] = torch.einsum("sr,src->sc", _bf16(val) if bf16 else val,
+                                 d)
     return out
 
 
@@ -348,19 +378,22 @@ def _rotate(tab, re, im):
 
 def synth_fused_ref(a_pk, maps, x, pmm_pk, pms_pk, tab_pk=None, *,
                     l_max: int, fold: bool = False, layout: str = "mxu",
-                    spin: bool = False):
+                    spin: bool = False, bf16: bool = False):
     """Plain version of the fused synthesis kernels.
 
     Operands as :func:`synth_packed_ref`, and tab_pk (n_slots, 2, n_pl, 4,
     R) f32 rotation tables, or None for the identity.  Each segment's
     Delta (the packed planes, even/odd (l+m) combined into north = e + o,
     south = e - o with ``fold``) is rotated by its table and returned in
-    ``layout``'s order.
+    ``layout``'s order.  ``bf16`` (``synth_fused_mxu``'s bfloat16 branch)
+    rounds the recurrence values and the coefficients to bfloat16 before
+    the float32 contraction; the combine and rotation stay float32.
     """
     n_slots, _, K2 = a_pk.shape
     R, K = x.shape[0], K2 // 2
-    acc = synth_packed_ref(a_pk, maps, x, pmm_pk, pms_pk, l_max=l_max,
-                           fold=fold, spin=spin).reshape(n_slots, 2, -1, R, K2)
+    acc = _synth_planes(a_pk, maps, x, pmm_pk, pms_pk, l_max=l_max,
+                        fold=fold, spin=spin,
+                        bf16=bf16).reshape(n_slots, 2, -1, R, K2)
     if fold:
         acc = torch.stack([acc[:, :, 0] + acc[:, :, 1],
                            acc[:, :, 0] - acc[:, :, 1]], dim=2)
@@ -372,7 +405,7 @@ def synth_fused_ref(a_pk, maps, x, pmm_pk, pms_pk, tab_pk=None, *,
 
 def anal_fused_ref(f_pk, maps, x, pmm_pk, pms_pk, tab_pk=None, *,
                    l_max: int, s_len: int, layout: str = "mxu",
-                   spin: bool = False):
+                   spin: bool = False, bf16: bool = False):
     """Plain version of the fused analysis kernels.
 
     f_pk (n_slots, 2, n_pl, R, 2K) (``layout="mxu"``) or (n_slots, 2, n_pl,
@@ -380,6 +413,9 @@ def anal_fused_ref(f_pk, maps, x, pmm_pk, pms_pk, tab_pk=None, *,
     the rest as :func:`synth_fused_ref`.  Each segment's rows are rotated
     into Delta (with two planes: even = N + S, odd = N - S), then contracted
     against the recurrence over the rings.  Returns (n_slots, s_len, 2K).
+    ``bf16`` (``anal_fused_mxu``'s bfloat16 branch) rounds the rotated,
+    combined rows and the recurrence values to bfloat16 before the float32
+    contraction.
     """
     f = f_pk.movedim(3, -1) if layout == "vpu" else f_pk
     n_slots, _, P, R, K2 = f.shape
@@ -390,5 +426,6 @@ def anal_fused_ref(f_pk, maps, x, pmm_pk, pms_pk, tab_pk=None, *,
     if P == 2:
         f = torch.stack([f[:, :, 0] + f[:, :, 1], f[:, :, 0] - f[:, :, 1]],
                         dim=2)
-    return anal_packed_ref(f.reshape(n_slots, 2 * P, R, K2), maps, x, pmm_pk,
-                           pms_pk, l_max=l_max, s_len=s_len, spin=spin)
+    return _anal_planes(f.reshape(n_slots, 2 * P, R, K2), maps, x, pmm_pk,
+                        pms_pk, l_max=l_max, s_len=s_len, spin=spin,
+                        bf16=bf16)

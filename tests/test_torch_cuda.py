@@ -467,3 +467,123 @@ def test_spin_gradients_on_card(dev, mode, K, layout):
                 .items() if c}
     assert launched == {f"synth{stem}_{var}_spin": 1}
     assert abs(lhs.item() - float((t * g).sum())) < 2e-3 * abs(lhs.item())
+
+
+# ---------------------------------------------------------------------------
+# the bfloat16 branch of kernels 10 and 12, and the ragged-grid paths
+# ---------------------------------------------------------------------------
+
+#: bf16 kernels vs their bf16 plain versions: both round the same float32
+#: panel and rows to bfloat16 and form exact float32 products, so they
+#: differ only in the order of the float32 sums (tensor-core accumulation
+#: against a sequential one)
+BF16_TOL = 1e-5
+
+
+@pytest.mark.parametrize("spin", [False, True])
+@pytest.mark.parametrize("K", [1, 3, 8, 12])
+def test_bf16_kernels_match_plain_versions(dev, K, spin):
+    """Kernels 10 and 12 with bf16=True against their bf16 plain versions
+    at l_max 256, random tables and none, fold on and off (spin: off);
+    the empty segment and dead stream positions exactly zero; only the
+    bf16 counters move; the result differs from the float32 kernel."""
+    l_max = 256
+    sfx = "_spin" if spin else ""
+    for fold in ((False,) if spin else (False, True)):
+        if spin:
+            c = spin_operands(l_max, K, dev, seed=K)
+            lo = pack.build_layout(c["m2"], l_max, mp_vals=c["mp2"])
+            maps, x, pmm_pk, pms_pk = ops._prep(lo, c["x"], c["pmm"],
+                                                c["pms"])
+            a_pk = ops._pack_a(c["a"], lo).contiguous()
+            gen = torch.Generator().manual_seed(K)
+            R = x.shape[0]
+            tab = (torch.rand((lo.n_slots, 2, 1, 4, R), generator=gen) * 2
+                   - 1).to(dev)
+            f = (torch.rand((lo.n_slots, 2, 1, R, 2 * K), generator=gen) * 2
+                 - 1).to(dev)
+        else:
+            lo, maps, x, pmm_pk, pms_pk, a_pk, tab, f = fused_operands(
+                l_max, K, fold, dev, seed=K)
+        empty = torch.as_tensor(lo.slot_seed == lo.S, device=dev)
+        dead = torch.as_tensor(lo.a_row < 0, device=dev)
+        kw = dict(l_max=l_max, spin=spin)
+        for t in (tab, None):
+            lc.reset_launches()
+            fused_cuda.reset_launches()
+            got = fused_cuda.synth_fused_mxu(a_pk, maps, x, pmm_pk, pms_pk,
+                                             t, fold=fold, bf16=True, **kw)
+            want = kref.synth_fused_ref(a_pk, maps, x, pmm_pk, pms_pk, t,
+                                        fold=fold, bf16=True, **kw)
+            assert rel(got, want) < BF16_TOL
+            assert bool((got[empty, 1] == 0).all())
+            f32 = fused_cuda.synth_fused_mxu(a_pk, maps, x, pmm_pk, pms_pk,
+                                             t, fold=fold, **kw)
+            assert 0 < rel(got, f32) < 1e-2
+            got = fused_cuda.anal_fused_mxu(f, maps, x, pmm_pk, pms_pk, t,
+                                            s_len=lo.S, bf16=True, **kw)
+            want = kref.anal_fused_ref(f, maps, x, pmm_pk, pms_pk, t,
+                                       s_len=lo.S, bf16=True, **kw)
+            assert rel(got, want) < BF16_TOL
+            assert bool((got[dead] == 0).all())
+            torch.cuda.synchronize()
+            launched = {k: c for k, c in {**lc.launches,
+                                          **fused_cuda.launches}.items()
+                        if c}
+            assert launched == {f"synth_fused_mxu_bf16{sfx}": 1,
+                                f"synth_fused_mxu{sfx}": 1,
+                                f"anal_fused_mxu_bf16{sfx}": 1,
+                                "anal_reduce": 1}
+
+
+@pytest.mark.parametrize("spin", [0, 2])
+def test_bf16_plan_gate_on_card(dev, spin):
+    """The reference's gate on the card: 0 < err < 1e-2 against bf16=False,
+    both directions, through Plan._make_fused_*("mxu", bf16=True)."""
+    from repro_torch.core import sht
+    plan = repro_torch.make_plan("gl", 256, K=8, dtype="float32", spin=spin)
+    gen = torch.Generator().manual_seed(6)
+    draw = sht.random_alm_spin if spin else sht.random_alm
+    alm = draw(gen, 256, 256, 8, dtype=torch.float32, device=dev)
+    m32 = plan._make_fused_synth("mxu")(alm)
+    m16 = plan._make_fused_synth("mxu", bf16=True)(alm)
+    assert 0 < rel(m16, m32) < 1e-2
+    a32 = plan._make_fused_anal("mxu")(m32)
+    a16 = plan._make_fused_anal("mxu", bf16=True)(m32)
+    assert 0 < rel(a16, a32) < 1e-2
+
+
+@pytest.mark.parametrize("layout", ["fused", "plain", "packed"])
+@pytest.mark.parametrize("spin", [0, 2])
+@pytest.mark.parametrize("mode,K", [("cuda_vpu", 1), ("cuda_mxu", 8)])
+def test_healpix_plan_on_card(dev, mode, K, spin, layout):
+    """A HEALPix plan (nside 64) on the card against the same plan on the
+    CPU (the kernels' plain versions, same bucket engine) within 5e-5,
+    both directions; the same bits on a second call; its layout's kernels
+    and anal_reduce launched once each, nothing else."""
+    var = mode[5:]
+    kw = dict(nside=64, K=K, dtype="float32", mode=mode, spin=spin,
+              layout=layout)
+    plan = repro_torch.make_plan("healpix", **kw)
+    cpu = repro_torch.make_plan("healpix", device="cpu", **kw)
+    rng = np.random.default_rng(spin)
+    shp = plan._alm_shape
+    a = (rng.uniform(-1, 1, shp) + 1j * rng.uniform(-1, 1, shp)) \
+        * (np.arange(plan.l_max + 1)[None, :] >= np.maximum(
+            np.arange(plan.m_max + 1), spin)[:, None])[..., None]
+    a = torch.as_tensor(a.astype(np.complex64))
+    lc.reset_launches()
+    fused_cuda.reset_launches()
+    maps = plan.alm2map(a.to(dev))
+    back = plan.map2alm(maps)
+    torch.cuda.synchronize()
+    stem = {"plain": "", "packed": "_packed", "fused": "_fused"}[layout]
+    sfx = "_spin" if spin else ""
+    launched = {k: c for k, c in {**lc.launches, **fused_cuda.launches}
+                .items() if c}
+    assert launched == {f"synth{stem}_{var}{sfx}": 1,
+                        f"anal{stem}_{var}{sfx}": 1, "anal_reduce": 1}
+    assert rel(maps.cpu(), cpu.alm2map(a)) < TOL
+    assert rel(back.cpu(), cpu.map2alm(maps.cpu())) < TOL
+    assert torch.equal(plan.alm2map(a.to(dev)), maps)
+    assert torch.equal(plan.map2alm(maps), back)

@@ -235,12 +235,25 @@ def test_unported_fused_options_name_their_roadmap_item():
         fused.fused_synth(t(a2.astype(np.float32)), m2, args[1], t(pmm2),
                           t(pms2), mp_vals=mp2,
                           **dict(c["kw"], fold_rings=g.n_rings))
-    with pytest.raises(ValueError, match="item 6"):
+    # the bfloat16 contraction (item 6) is ported for the mxu variant; the
+    # vpu variant has none and raises (ROADMAP check A)
+    with pytest.raises(ValueError, match="no bfloat16 contraction"):
         fused.fused_anal(t(c["maps"]), c["g"].weights, *args, bf16=True,
                          **c["kw"])
-    with pytest.raises(ValueError, match="item 8"):
-        fused._rotation_tables(c["m_vals"], "synth", phase_kind="bucket",
-                               n=None, phi0=None, fold_rings=None, n_half=0)
+    a32, a16 = (fused.fused_anal(t(c["maps"]), c["g"].weights, *args,
+                                 variant="mxu", bf16=b, **c["kw"])
+                for b in (False, True))
+    assert 0 < rel(a16, a32) < 1e-2
+    # the bucket rotation tables (item 8) are ported: one plane of
+    # e^{+-i m phi0}, as the reference's
+    tabs = fused._rotation_tables(c["m_vals"], "synth", phase_kind="bucket",
+                                  n=None, phi0=c["kw"]["phi0"],
+                                  fold_rings=None, n_half=0)
+    np.testing.assert_array_equal(
+        tabs, rfused._rotation_tables(c["m_vals"], "synth",
+                                      phase_kind="bucket", n=None,
+                                      phi0=c["kw"]["phi0"], fold_rings=None,
+                                      n_half=0))
 
 
 def test_fused_plan_lp_size_and_describe():

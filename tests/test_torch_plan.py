@@ -71,9 +71,27 @@ def test_default_mode_follows_the_static_variant_rule(dtype, K, want):
     (dict(grid="healpix", spin=2), "item 8"),
     (dict(grid="healpix"), "item 8"), (dict(grid="ecp"), "item 8")])
 def test_unported_requests_name_their_roadmap_item(kwargs, item):
+    """Requests waiting on a ROADMAP item raise naming it (modes auto and
+    model: item 9, dist: item 11).  The grid requests item 8 named while
+    it was open (ECP and the HEALPix family, spin 0 and 2) are ported and
+    now build plans on every kernel layout (the cases keep their IDs)."""
     kwargs = dict(dict(grid="gl", l_max=8, device="cpu"), **kwargs)
-    with pytest.raises(ValueError, match=item):
-        repro_torch.make_plan(**kwargs)
+    if item != "item 8":
+        with pytest.raises(ValueError, match=item):
+            repro_torch.make_plan(**kwargs)
+        return
+    kwargs.setdefault("nside", 4)
+    plan = repro_torch.make_plan(**kwargs)
+    assert plan.grid.name == kwargs["grid"] and plan.l_max == 8
+    assert plan.backends == {"synth": "torch", "anal": "torch"}
+    alm = torch.as_tensor(alm_for(plan))
+    maps = plan.alm2map(alm)
+    assert tuple(maps.shape) == plan._maps_shape
+    assert bool(torch.isfinite(maps).all())
+    kern = repro_torch.make_plan(**dict(kwargs, dtype="float32"))
+    assert kern.layouts == {"synth": "fused", "anal": "fused"}
+    got = kern.alm2map(alm.to(torch.complex64))
+    assert float((got - maps).abs().max()) < 1e-4 * float(maps.abs().max())
 
 
 @pytest.mark.parametrize("kwargs,layout", [
