@@ -20,7 +20,9 @@ launch the spin branch of every kernel.  The ragged-grid paths follow the
 GL ones: HEALPix (nside 1024, K 8, fused and plain, spin 0 and 2; nside
 2048, K 1, fused), ring-uniform HEALPix (nside 1024) and ECP (l_max 2048)
 through the ring-bucket or uniform phase stage, each synthesis and
-analysis rerun for identical bits; then the bfloat16 branch of the fused
+analysis rerun for identical bits (as is the analysis of the GL vpu fused
+paths, whose template sums its rings in a fixed order of its own); then
+the bfloat16 branch of the fused
 mxu kernels (``Plan._make_fused_synth/_make_fused_anal("mxu",
 bf16=True)``) at GL 2048/K8 and HEALPix 1024/K8, held to the reference's
 band against float32 and to its plain version.
@@ -864,7 +866,6 @@ def time_fused_kernels(mode: str, l_max: int, K: int, run: tuple,
     f_pk = (f_pk.movedim(-1, 3) if var == "vpu" else f_pk).contiguous()
     del fp
     K2, R, L, S = 2 * K, x.shape[0], l_max + 1, lo.S
-    zeros = torch.zeros(lo.n_slots, dtype=torch.int32, device=x.device)
     what = (f"{where(plan)}, K {K} (fused main path"
             + (", bf16)" if bf16 else ")"))
     triples, flops = legendre_work(rows, L, R, K2, mp_rows)
@@ -879,16 +880,21 @@ def time_fused_kernels(mode: str, l_max: int, K: int, run: tuple,
                                               pms_pk, tab_a, l_max=l_max,
                                               s_len=S, spin=spin, **bkw)
 
+    sm = fused_cuda.slot_maps(pmaps, spin)
+
+    def reduce(p):
+        return lc.anal_reduce(p, None, l_max=l_max, slot_maps=sm)
+
     out_s, part = run_s(), run_a()
-    out_a = lc.anal_reduce(part, zeros, l_max=S - 1)
+    out_a = reduce(part)
     want_s, plain_s = plain_ms(lambda: kref.synth_fused_ref(
         a_pk, pmaps, x, pmm_pk, pms_pk, tab_s, l_max=l_max, layout=var,
         spin=spin, bf16=bf16))
     want_a, plain_a = plain_ms(lambda: kref.anal_fused_ref(
         f_pk, pmaps, x, pmm_pk, pms_pk, tab_a, l_max=l_max, s_len=S,
         layout=var, spin=spin, bf16=bf16))
-    want_r, plain_r = plain_ms(lambda: kref.anal_reduce_ref(part, zeros,
-                                                            l_max=S - 1))
+    want_r, plain_r = plain_ms(lambda: kref.anal_reduce_ref(
+        part, None, l_max=l_max, slot_maps=sm))
     empty = torch.as_tensor(lo.slot_seed == S, device=x.device)
     dead = torch.as_tensor(lo.a_row < 0, device=x.device)
     err_s = held(f"synth_fused_{var}{bf}{sfx}", out_s, want_s, what,
@@ -902,9 +908,8 @@ def time_fused_kernels(mode: str, l_max: int, K: int, run: tuple,
                         l_max, S, what, spin)
     del want_s, want_a, want_r, out_s, out_a
     ms_s, ms_a = cuda_time_ms(run_s), cuda_time_ms(run_a)
-    ms_r = cuda_time_ms(lambda: lc.anal_reduce(part, zeros, l_max=S - 1))
-    rerun_same(f"anal_fused_{var}{bf}{sfx}", dig_a,
-               lambda: lc.anal_reduce(run_a(), zeros, l_max=S - 1))
+    ms_r = cuda_time_ms(lambda: reduce(part))
+    rerun_same(f"anal_fused_{var}{bf}{sfx}", dig_a, lambda: reduce(run_a()))
     lib_r = cuda_time_ms(lambda: part.sum(dim=1))
     seeds = nbytes(x, pmm_pk, pms_pk, *pmaps)
     shape = (f"{where(plan)}, K {K}, {lo.n_slots} slots x S {S}"
@@ -968,7 +973,6 @@ def time_packed_kernels(mode: str, l_max: int, K: int, run: tuple) -> dict:
     dk = ops._pack_rows(dw, lo).reshape(lo.n_slots, 2, R, K2)
     del dw
     dk = (dk.movedim(-1, 2) if var == "vpu" else dk).contiguous()
-    zeros = torch.zeros(lo.n_slots, dtype=torch.int32, device=x.device)
     what = f"l_max {l_max}, K {K} (packed main path)"
     triples, flops = legendre_work(rows, L, R, K2, mp_rows)
     synth = getattr(fused_cuda, f"synth_packed_{var}")
@@ -981,15 +985,20 @@ def time_packed_kernels(mode: str, l_max: int, K: int, run: tuple) -> dict:
                                                pms_pk, l_max=l_max, s_len=S,
                                                spin=spin)
 
+    sm = fused_cuda.slot_maps(pmaps, spin)
+
+    def reduce(p):
+        return lc.anal_reduce(p, None, l_max=l_max, slot_maps=sm)
+
     out_s, part = run_s(), run_a()
-    out_a = lc.anal_reduce(part, zeros, l_max=S - 1)
+    out_a = reduce(part)
     want_s, plain_s = plain_ms(lambda: kref.synth_packed_ref(
         a_pk, pmaps, x, pmm_pk, pms_pk, l_max=l_max, layout=var, spin=spin))
     want_a, plain_a = plain_ms(lambda: kref.anal_packed_ref(
         dk, pmaps, x, pmm_pk, pms_pk, l_max=l_max, s_len=S, layout=var,
         spin=spin))
-    want_r, plain_r = plain_ms(lambda: kref.anal_reduce_ref(part, zeros,
-                                                            l_max=S - 1))
+    want_r, plain_r = plain_ms(lambda: kref.anal_reduce_ref(
+        part, None, l_max=l_max, slot_maps=sm))
     empty = torch.as_tensor(lo.slot_seed == S, device=x.device)
     dead = torch.as_tensor(lo.a_row < 0, device=x.device)
     err_s = held(f"synth_packed_{var}{sfx}", out_s, want_s, what, (empty, 1))
@@ -1009,10 +1018,9 @@ def time_packed_kernels(mode: str, l_max: int, K: int, run: tuple) -> dict:
     dig_a = digest(out_a)
     del fused_part, out_a
     ms_s, ms_a = cuda_time_ms(run_s), cuda_time_ms(run_a)
-    ms_r = cuda_time_ms(lambda: lc.anal_reduce(part, zeros, l_max=S - 1))
+    ms_r = cuda_time_ms(lambda: reduce(part))
     lib_r = cuda_time_ms(lambda: part.sum(dim=1))
-    rerun_same(f"anal_packed_{var}{sfx}", dig_a,
-               lambda: lc.anal_reduce(run_a(), zeros, l_max=S - 1))
+    rerun_same(f"anal_packed_{var}{sfx}", dig_a, lambda: reduce(run_a()))
     seeds = nbytes(x, pmm_pk, pms_pk, *pmaps)
     shape = f"l_max {l_max}, K {K}, {lo.n_slots} slots x S {S}"
     live = triples // R
@@ -1282,11 +1290,14 @@ def main_path(dev, mode: str, l_max: int, K: int, layout: str,
         raise AssertionError(f"{mode} [{layout}] spin {spin} path: never "
                              f"launched {missing}, launched outside it "
                              f"{stray}")
+    plan, alm, maps = run
     if grid != "gl":
         # the order-fixed bucket fold and the chunk-order reduce: the same
         # bits on every call
-        plan, alm, maps = run
         rerun_same("synthesis", digest(maps), lambda: plan.alm2map(alm))
+    if grid != "gl" or (layout == "fused" and var == "vpu"):
+        # (GL: the vpu analysis template's full-width runs) the fixed-order
+        # ring reduction and the chunk-order reduce
         rerun_same("analysis", digest(plan.map2alm(maps)),
                    lambda: plan.map2alm(maps))
     timed = {"fused": time_fused_kernels, "plain": time_kernels,
@@ -1314,6 +1325,39 @@ def main_path(dev, mode: str, l_max: int, K: int, layout: str,
     del run
     torch.cuda.empty_cache()
     return out
+
+
+def check_vpu_fold_full_width(dev) -> None:
+    """Kernels 11 and 7 (the vpu analysis template) at full width with the
+    equator fold, which no main path runs: a fold plan's own seeds, slot
+    layout and fold tables (GL l_max 4096, K 1) and random FFT rows, each
+    kernel held against its plain version at KERNEL_TOL (dead positions
+    exactly zero) and rerun for identical bits."""
+    plan = repro_torch.make_plan("gl", 4096, K=1, dtype="float32",
+                                 mode="cuda_vpu", fold=True)
+    gen = torch.Generator().manual_seed(41)
+    alm = random_alm_for(gen, plan, torch.float32, dev)
+    plan.map2alm(plan.alm2map(alm))               # fills the plan's store
+    _, kw, _ = plan._fused_parts("vpu", False)
+    lo, store = kw["lo"], kw["store"]
+    prep = store["prep"]
+    tab = store[("tables", "anal")]
+    R, S = prep[1].shape[0], lo.S
+    f = (torch.rand((lo.n_slots, 2, 2, 2, R), generator=gen) * 2 - 1).to(dev)
+    dead = torch.as_tensor(lo.a_row < 0, device=dev)
+    kw = dict(l_max=plan.l_max, s_len=S)
+    for kind, args in (("fused", (f, *prep, tab)),
+                       ("packed", (f.reshape(lo.n_slots, 4, 2, R), *prep))):
+        anal = getattr(fused_cuda, f"anal_{kind}_vpu")
+        out = anal(*args, **kw)
+        want = getattr(kref, f"anal_{kind}_ref")(*args, layout="vpu", **kw)
+        held(f"anal_{kind}_vpu", out, want,
+             f"{where(plan)} fold, K 1, "
+             + ("fold tables" if kind == "fused" and tab is not None
+                else "no tables"), dead)
+        rerun_same(f"anal_{kind}_vpu", digest(out),
+                   lambda: anal(*args, **kw))
+    torch.cuda.empty_cache()
 
 
 def bf16_path(dev, grid: str, size: int, K: int, spin: int) -> list:
@@ -1431,6 +1475,9 @@ def main() -> int:
     for spin in SPINS:
         for mode, l_max, K, layout in MAIN_PATH:
             kernels += main_path(dev, mode, l_max, K, layout, spin)
+    log(f"{elapsed()}   -- the vpu analysis template at full width with the "
+        "fold")
+    check_vpu_fold_full_width(dev)
     log(f"{elapsed()}   -- the ragged-grid paths: HEALPix, ring-uniform "
         "HEALPix, ECP")
     for grid, size, mode, K, layout, spins in RAGGED_PATHS:

@@ -1,24 +1,53 @@
-"""A short first call on the GPU after a change to the bf16 kernels or the
-bucket phase stage, ahead of the full ``chip_smoke.py``.
+"""Short calls on the GPU ahead of the full ``chip_smoke.py``.
 
-    python3 scripts/chip_probe.py
+    python3 scripts/chip_probe.py                 # bf16 kernels, bucket phase
+    python3 scripts/chip_probe.py --first-calls   # first calls on HEALPix
+    python3 scripts/chip_probe.py --compare       # parent against this tree
 
-Builds the kernels (their ``-Xptxas -v`` logs go to ``chiprun_out/``),
-holds the bfloat16 branch of kernels 10 and 12 against its bf16 plain
-version at l_max 256 (K 1, 2, 3, 8; fold on and off; spin 0 and 2; random
-tables and none) and prints each gap beside the bf16-vs-float32 gap; runs
-HEALPix nside 64 plans on every layout on the card against the same plans
-on the CPU, twice for identical bits; and times the bucket phase stage and
-the fused directions at nside 1024/K8 and 2048/K1.  With
-``--first-calls`` it times only the first calls on a new HEALPix grid
-(plan, bucket index, first bucket FFTs) at nside 1024 and 2048.  Prints
-numbers only;
-the checks that pass or fail are ``chip_smoke.py``'s.
+Every mode builds the kernels (their ``-Xptxas -v`` logs go to
+``chiprun_out/``).  With no option it holds the bfloat16 branch of kernels
+10 and 12 against its bf16 plain version at l_max 256 (K 1, 2, 3, 8; fold
+on and off; spin 0 and 2; random tables and none) and prints each gap
+beside the bf16-vs-float32 gap; runs HEALPix nside 64 plans on every
+layout on the card against the same plans on the CPU, twice for identical
+bits; and times the bucket phase stage and the fused directions at nside
+1024/K8 and 2048/K1.  With ``--first-calls`` it times only the first
+calls on a new HEALPix grid (plan, bucket index, first bucket FFTs) at
+nside 1024 and 2048.
+
+``--compare`` measures a kernel change against the parent commit in one
+call, on one card: unpack the parent first (``git archive <parent> | tar
+-x -C checkouts/parent``; ``/checkouts/`` is git-ignored).  It imports the
+parent's kernel wrappers from there beside this tree's, so each tree is
+called through its own wrappers and builds its own sources into its own
+``_build`` directory (four ``nvcc`` together).  It writes both trees'
+``-Xptxas -v`` logs and the SASS of the vpu slot kernels (``cuobjdump
+-sass``) to ``chiprun_out/``, names every kernel whose SASS differs from
+the parent's, and times, in turns (parent, this tree, this tree, parent;
+``chip_smoke.cuda_time_ms``, mean of 5 each): ``anal_reduce`` on both
+routes (the plain grid's rows with their m, the slot layouts' streams as
+each tree's analyses reduce them) beside ``part.sum(dim=1)`` at every
+shape of the main paths, with each call's host time when calls run back
+to back, holding this tree's output equal to the parent's bit for bit;
+and kernels 9 (``synth_fused_vpu``), 11 (``anal_fused_vpu``) and 7
+(``anal_packed_vpu``) at GL 4096/K1 spin 0 and 2 and HEALPix 2048/K1 spin
+0 on ``chip_smoke.py``'s own main-path inputs, printing both trees'
+analysis digests (those its log prints; also on its packed paths at GL
+1024/K1) and the gap between them; then runs ``chip_smoke.py``'s packed
+main path at GL 4096/K1 (the smoke runs it at l_max 1024) for its
+direction times.  Prints numbers only; the checks that pass or fail are
+``chip_smoke.py``'s.
 """
+import collections
+import functools
+import inspect
 import os
+import re
 import subprocess
 import sys
+import threading
 import time
+import types
 
 import numpy as np
 import torch
@@ -31,17 +60,62 @@ os.makedirs("chiprun_out", exist_ok=True)
 
 import chip_smoke as cs  # noqa: E402
 import repro_torch  # noqa: E402
-from repro_torch.kernels import build, fused_cuda, ops  # noqa: E402
+from repro_torch.kernels import build, fused, fused_cuda, ops  # noqa: E402
+from repro_torch.kernels import legendre_cuda as lc  # noqa: E402
 from repro_torch.kernels import ref as kref  # noqa: E402
 print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                       "--format=csv,noheader"], capture_output=True,
                      text=True).stdout.strip(), flush=True)
+PARENT = os.path.join(ROOT, "checkouts", "parent")
+
+
+def import_parent():
+    """The parent checkout's ``build``, ``legendre_cuda`` and ``fused_cuda``
+    modules, imported beside this tree's: each keeps its own sources,
+    ``_build`` directory, library and launch counters."""
+    def ours():
+        return [k for k in sys.modules
+                if k == "repro_torch" or k.startswith("repro_torch.")]
+
+    mine = {k: sys.modules.pop(k) for k in ours()}
+    sys.path.insert(0, os.path.join(PARENT, "src"))
+    try:
+        from repro_torch.kernels import build as pb
+        from repro_torch.kernels import fused_cuda as pfc
+        from repro_torch.kernels import legendre_cuda as plc
+    finally:
+        sys.path.pop(0)
+        for k in ours():
+            del sys.modules[k]
+        sys.modules.update(mine)
+    return types.SimpleNamespace(build=pb, lc=plc, fc=pfc)
+
+
 t0 = time.time()
-res = build.build()
+trees = {"this tree": types.SimpleNamespace(build=build, lc=lc, fc=fused_cuda)}
+if "--compare" in sys.argv:
+    trees = {"parent": import_parent(), **trees}
+libs = {}                       # tree -> {source: library path}
+
+
+def _build(tag, tree):
+    """Build ``tree``'s sources; its ``-Xptxas -v`` logs to chiprun_out/."""
+    for name, (path, log) in tree.build.build().items():
+        libs.setdefault(tag, {})[name] = path
+        if log:                 # empty for a library built earlier
+            pre = "parent_" if tag == "parent" else ""
+            with open(f"chiprun_out/ptxas_{pre}{name}.log", "w") as fh:
+                fh.write(log)
+
+
+jobs = [threading.Thread(target=_build, args=kv) for kv in trees.items()]
+for j in jobs:
+    j.start()
+for j in jobs:
+    j.join()
+if any(len(libs.get(t, {})) != len(build.SOURCES) for t in trees):
+    sys.exit("a kernel build failed (its error is above)")
 print("build s", time.time() - t0, flush=True)
-for name, (path, log) in res.items():
-    with open(f"chiprun_out/ptxas_{name}.log", "w") as fh:
-        fh.write(log)
 dev = torch.device("cuda")
 
 
@@ -79,6 +153,255 @@ def first_calls(nside, K):
         out.append(f"first ifft of length {n}: {time.time() - t:.4f} s")
     print("\n  ".join(out), flush=True)
 
+
+# ---------------------------------------------------------------------------
+# --compare: the parent's kernels against this tree's, in one call, each
+# tree through its own wrappers
+# ---------------------------------------------------------------------------
+
+
+def _slot_reduce(tree):
+    """``tree``'s slot-route reduce as its own analyses call it (a tree
+    whose ``_reduce`` takes the partials alone passes every slot as m =
+    0)."""
+    if len(inspect.signature(tree.fc._reduce).parameters) == 1:
+        return lambda part, maps, l_max, spin: tree.fc._reduce(part)
+    return tree.fc._reduce
+
+
+def _turns(name, old, new, labels=("parent", "this tree")):
+    """Time ``old`` and ``new`` in turns (old, new, new, old) and print."""
+    t = [cs.cuda_time_ms(fn) for fn in (old, new, new, old)]
+    po, pn = (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
+    print(f"  {name}: {labels[0]} {t[0]:.4f} {t[3]:.4f} ms, {labels[1]} "
+          f"{t[1]:.4f} {t[2]:.4f} ms; means {po:.4f} -> {pn:.4f} "
+          f"({pn / po:.3f}x)", flush=True)
+    return po, pn
+
+
+def host_us(fn, n: int = 200) -> float:
+    """Microseconds a call of ``fn`` when ``n`` calls are queued back to
+    back: its host time wherever that outlasts its kernel."""
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t) / n * 1e6
+
+
+def _sass(path):
+    """{kernel name without its file's namespace: [SASS instructions]} of a
+    built library (``cuobjdump -sass``)."""
+    sass = subprocess.run([os.path.join(os.path.dirname(build._nvcc()),
+                                        "cuobjdump"), "-sass", path],
+                          capture_output=True, text=True).stdout
+    funcs, cur = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            cur = re.sub(r"_GLOBAL__N__\w+?_cu_[0-9a-f]{8}", "",
+                         line.split("Function :")[1].strip())
+            funcs[cur] = []
+        elif cur:
+            m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?);", line)
+            if m:
+                funcs[cur].append((int(m.group(1), 16), m.group(2).strip()))
+    return funcs
+
+
+def _sass_report(old_path, new_path, lib):
+    """Which kernels of a library compiled to other SASS than the parent's;
+    for the vpu slot kernels of the main paths (KM 1, fold off, spin 0 and
+    2), each loop (a backward branch) holding no barrier, by opcode.  The
+    vpu slot kernels' SASS goes to ``chiprun_out/sass_<tree>.txt``."""
+    old, new = _sass(old_path), _sass(new_path)
+    changed = sorted(n for n in new if old.get(n) != new[n])
+    short = [re.search(r"([a-z_]+_kernel)I", n) for n in changed]
+    print(f"  {lib}: {len(changed)} of {len(new)} kernels compile to other "
+          f"SASS than the parent's: "
+          f"{sorted(set(m.group(1) for m in short if m))}", flush=True)
+    if lib != "fused":
+        return
+    for tag, funcs in (("parent", old), ("tree", new)):
+        vpu = {n: b for n, b in funcs.items() if "_fused_vpu_kernel" in n}
+        with open(f"chiprun_out/sass_{tag}.txt", "w") as fh:
+            for n, body in vpu.items():
+                fh.write(f"Function : {n}\n" + "\n".join(
+                    f"/*{a:04x}*/ {t};" for a, t in body) + "\n")
+        for n, ins in vpu.items():
+            if "ILi1ELb0ELb1E" not in n:
+                continue
+            at = {a: i for i, (a, _) in enumerate(ins)}
+            name = re.search(r"(anal|synth)_fused_vpu_kernelI\w+?EE", n)
+            print(f"  {tag} SASS {name.group(0)}: {len(ins)} instructions",
+                  flush=True)
+            for i, (a, txt) in enumerate(ins):
+                m = re.search(r"BRA\s.*0x([0-9a-f]+)", txt)
+                if not (m and int(m.group(1), 16) <= a
+                        and int(m.group(1), 16) in at):
+                    continue
+                loop = ins[at[int(m.group(1), 16)]:i + 1]
+                ops = collections.Counter(
+                    re.sub(r"^@!?U?P\w+\s+", "", t).split()[0].split(".")[0]
+                    for _, t in loop)
+                if "BAR" not in ops:           # the loops inside a tile
+                    print(f"    loop of {len(loop)}: "
+                          f"{dict(ops.most_common())}", flush=True)
+
+
+def _reduce_rows(dev):
+    """(what, part, reduce) of every anal_reduce shape the main paths give
+    it, per (grid, rings, l_max, K, variant, spin): the plain grid's rows
+    and the slot layout's streams (their dead tails zero, as the analysis
+    kernels write them); ``reduce(tree)`` is the call of ``tree``'s own
+    wrapper on that route."""
+    from repro_torch.core import legendre as cleg
+    from repro_torch.kernels import pack as kpack
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for grid, R, l_max, K, var, spins in (
+            ("GL 4096", 4097, 4096, 1, "vpu", (0, 2)),
+            ("GL 2048", 2049, 2048, 8, "mxu", (0, 2)),
+            ("HEALPix 1024", 4095, 2048, 8, "mxu", (0, 2)),
+            ("HEALPix 2048", 8191, 4096, 1, "vpu", (0,)),
+            ("GL 1024", 1025, 1024, 1, "vpu", (0, 2)),
+            ("GL 1024", 1025, 1024, 8, "mxu", (0, 2))):
+        n_ch = -(-R // lc.ANAL_CHUNK[var])
+        m = np.arange(l_max + 1)
+        for spin in spins:
+            rows, mp = (m, None) if spin == 0 else cleg._spin_rows(m)
+            lo = kpack.build_layout(rows, l_max, lp_size=ops.PACK_LP_SIZE,
+                                    mp_vals=mp)
+            m_t = torch.as_tensor(rows, dtype=torch.int32, device=dev)
+            mp_t = None if mp is None else torch.as_tensor(
+                mp, dtype=torch.int32, device=dev)
+            what = f"{grid} K {K} spin {spin}, {n_ch} chunks"
+            plain = torch.rand((len(rows), n_ch, l_max + 1, 2 * K),
+                               generator=gen, device=dev)
+            yield (f"plain {what}", plain, lambda tree: lambda: (
+                tree.lc.anal_reduce(plain, m_t, l_max=l_max, mp_vals=mp_t)))
+            part = torch.rand((lo.n_slots, n_ch, lo.S, 2 * K), generator=gen,
+                              device=dev)
+            dead = torch.as_tensor(lo.a_row < 0, device=dev)
+            part.masked_fill_(dead[:, None, :, None], 0.0)
+            maps = ops._pack_maps(lo, dev)
+            yield (f"slot {what}", part, lambda tree: functools.partial(
+                _slot_reduce(tree), part, maps, l_max, bool(spin)))
+
+
+def _vpu_inputs(grid, size, spin, layout):
+    """``chip_smoke.py``'s own vpu main path on ``layout`` (its seeds, so
+    the analysis digests below are the ones its log prints): (plan, pack
+    operands, analysis tables or None, S, analysis rows as the kernel takes
+    them, packed coefficient rows)."""
+    plan, alm, maps = cs.run_main_path(dev, "cuda_vpu", size, 1, layout,
+                                       spin, grid)
+    if layout == "fused":
+        _, kw, _ = plan._fused_parts("vpu", False)
+        lo, store = kw["lo"], kw["store"]
+        pk = store["prep"]
+        x = pk[1]
+        w = torch.as_tensor(plan.grid.weights, dtype=torch.float32,
+                            device=dev)
+        fp = fused._anal_rows(cs.path_maps(plan, maps) * w[:, None, None],
+                              plan._rows[0], n=getattr(plan.phase, "n", None),
+                              fold_rings=None, n_half=x.shape[0],
+                              spin=bool(spin),
+                              bucket=getattr(plan.phase, "index", None))
+        f = ops._pack_rows(fp, lo).movedim(-1, 3).contiguous()
+        tab = store[("tables", "anal")]
+    else:
+        store = plan._fused_store
+        lo, pk = store["layout"], store["prep"]
+        _, dw = cs.path_rows(plan, alm, maps)
+        f = ops._pack_rows(dw, lo).reshape(lo.n_slots, 2, pk[1].shape[0], 2
+                                           ).movedim(-1, 2).contiguous()
+        tab = None
+    a_rows = plan._eb_rows(alm) if spin else torch.cat([alm.real, alm.imag],
+                                                        dim=-1)
+    return plan, pk, tab, lo.S, f, ops._pack_a(a_rows, lo).contiguous()
+
+
+def compare():
+    old, new = trees["parent"], trees["this tree"]
+    for lib in build.SOURCES:
+        _sass_report(libs["parent"][lib], libs["this tree"][lib], lib)
+    print("anal_reduce, each tree through its own wrapper (bits: this "
+          "tree's output against the parent's; host: us a call, calls "
+          "queued back to back):", flush=True)
+    for what, part, reduce in _reduce_rows(dev):
+        a, b = reduce(old)(), reduce(new)()
+        torch.cuda.synchronize()
+        _turns(f"{what}, {tuple(part.shape)}: bit-equal "
+               f"{torch.equal(a, b)}", reduce(old), reduce(new))
+        lib = lambda: part.sum(dim=1)  # noqa: E731
+        print(f"    part.sum(dim=1) {cs.cuda_time_ms(lib):.4f} ms; host "
+              f"parent {host_us(reduce(old)):.1f}, this tree "
+              f"{host_us(reduce(new)):.1f}, part.sum {host_us(lib):.1f}",
+              flush=True)
+        del part, a, b
+    torch.cuda.empty_cache()
+    print("vpu slot kernels, on chip_smoke.py's main-path inputs (digests "
+          "of the reduced analysis, as its log prints them):", flush=True)
+    for grid, size, spin, layout in (
+            ("gl", 4096, 0, "fused"), ("gl", 4096, 2, "fused"),
+            ("healpix", 2048, 0, "fused"), ("gl", 1024, 0, "packed"),
+            ("gl", 1024, 2, "packed")):
+        plan, pk, tab, S, f, a_pk = _vpu_inputs(grid, size, spin, layout)
+        sp = bool(spin)
+        where = f"{cs.where(plan)} K 1 spin {spin}"
+        # the fused path's rows through both kernels (kernel 7 without
+        # tables), the packed path's through kernel 7
+        for kind in (("fused", "packed") if layout == "fused"
+                     else ("packed",)):
+            t = (tab,) if kind == "fused" else ()
+            kw = dict(l_max=plan.l_max, s_len=S, spin=sp)
+
+            def run(tree, reduced=False):
+                if reduced:
+                    return getattr(tree.fc, f"anal_{kind}_vpu")(f, *pk, *t,
+                                                                **kw)
+                fn = getattr(tree.fc, f"anal_{kind}_partials")
+                return lambda: fn("vpu", f, *pk, *t, **kw)
+
+            ro, rn = run(old, True), run(new, True)
+            torch.cuda.synchronize()
+            gap = float((ro - rn).abs().max() / ro.abs().max())
+            what = (f"anal_{kind}_vpu {layout} path {where}, tables "
+                    f"{'applied' if tab is not None and t else 'none'}: "
+                    f"digests {cs.digest(ro)} -> {cs.digest(rn)}, trees "
+                    f"differ by {gap:.3e} of max|parent|")
+            del ro, rn
+            if layout != "fused":
+                print(f"  {what}", flush=True)
+                continue
+            _turns(what, run(old), run(new))
+            print(f"    SM clock, max: {_clocks()}", flush=True)
+        if layout == "fused":
+            tab_s = plan._fused_store[("tables", "synth")]
+            _turns(f"synth_fused_vpu {where}", *(
+                functools.partial(tree.fc.synth_fused_vpu, a_pk, *pk, tab_s,
+                                  l_max=plan.l_max, spin=sp)
+                for tree in (old, new)))
+        del plan, f, a_pk
+        torch.cuda.empty_cache()
+    print("the packed layout at GL 4096/K1 (chip_smoke.py's main_path, which "
+          "the smoke itself runs at l_max 1024):", flush=True)
+    for spin in (0, 2):
+        cs.main_path(dev, "cuda_vpu", 4096, 1, "packed", spin)
+    print("total s", time.time() - t0, flush=True)
+
+
+def _clocks():
+    """The card's SM clock now and its maximum, as nvidia-smi reports."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True).stdout.strip()
+
+
+if "--compare" in sys.argv:
+    compare()
+    sys.exit(0)
 
 if "--first-calls" in sys.argv:
     print("cufft plan cache max size",

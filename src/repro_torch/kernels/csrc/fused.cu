@@ -57,13 +57,22 @@
 //                    coefficient panel with register tiles (full float32, no
 //                    TF32), then stages the sums in shared memory and rotates
 //                    once per ring tile into (n_slots, 2, P, R, 2K).
-//   anal_fused_vpu   replaces anal_fused_vpu, fused.py:526.  float32
-//                    operations bound: one block per (slot, 1024-ring chunk,
-//                    chunk of <= 2 maps); per segment each thread rotates the
-//                    FFT rows of its 8 rings into Delta in registers, once,
-//                    then carries their recurrences, sums its rings per l, and
-//                    a fixed xor-butterfly warp reduction and a fixed-order
-//                    sum over the 4 warps give the chunk's partial row.
+//   anal_fused_vpu   replaces anal_fused_vpu, fused.py:526.  Bound by
+//                    instruction issue: the bit-faithful step (separately
+//                    rounded operations, two rescale tests, the descale
+//                    select) issues ~23 SASS instructions a triple at K 1,
+//                    of which the float32 flop bound counts 6.  One
+//                    block per (slot, 1024-ring chunk, chunk of <= 2 maps);
+//                    per segment each thread rotates the FFT rows of its 8
+//                    rings into Delta in registers, once.  The seed (its
+//                    seeds read there and dropped) and P_{m+1,m} are peeled
+//                    off the l loop, and full ring chunks run unguarded, so
+//                    the steady step has no branch and loads its two
+//                    coefficients once for all 8 rings, whose dependent
+//                    chains interleave.  Per l each thread stores its
+//                    rings' sum per channel into a shared-memory column; per
+//                    32-l tile every output sums the 128 columns in one fixed
+//                    order: no per-l shuffle chain, the same bits every run.
 //   anal_fused_mxu   replaces anal_fused_mxu, fused.py:666.  float32
 //                    operations bound: one block per (slot, 512-ring chunk,
 //                    chunk of <= 8 maps); per segment the chunk's FFT rows are
@@ -78,7 +87,8 @@
 //                    synth_fused_mxu without combine or rotation,
 //                    (n_slots, Q, R, 2K).
 //   anal_packed_vpu  replaces anal_vpu_packed, legendre_pallas.py:814:
-//                    anal_fused_vpu on the parity planes as given.
+//                    anal_fused_vpu on the parity planes as given (the same
+//                    template and design, COMBINE = false, no tables).
 //   anal_packed_mxu  replaces anal_mxu_packed, legendre_pallas.py:937:
 //                    anal_fused_mxu on the parity planes as given.
 //                    All four are float32 operations bound as their fused
@@ -109,8 +119,12 @@
 // sequential grid order (fused.py:477, :600; legendre_pallas.py:844, :955);
 // CUDA blocks run in no order, so the analysis kernels write per-ring-chunk
 // partials (n_slots, n_chunks, S, 2K), dead positions zero, and the
-// chunk-order second pass anal_reduce (legendre.cu) sums them: no atomics,
-// identical bits on every run.
+// chunk-order second pass anal_reduce (legendre.cu, its slot route: every
+// stream position kept) sums them: no atomics, identical bits on every
+// run.  Within a chunk each kernel sums its rings in one fixed order of its
+// own (the vpu kernels: per thread in ring order, then the 128 threads'
+// columns in four interleaved partial sums), which the plain versions'
+// einsum over rings does not share: they agree within the tolerance.
 
 #include <cuda_bf16.h>
 
@@ -185,13 +199,14 @@ __device__ __forceinline__ size_t tab_row(int si, int seg, int p, int P,
   return ((static_cast<size_t>(si) * 2 + seg) * P + p) * 4 * R + r;
 }
 
-// Zero the partial rows [end, S) of the dead stream tail.
-template <int KM>
+// Zero the partial rows [end, S) of the dead stream tail (a block of
+// kThreads threads).
+template <int KM, int kThreads = kTile>
 __device__ __forceinline__ void zero_tail(float* __restrict__ part,
                                           size_t chunk_row, int end, int S,
                                           int k0, int nk, int K) {
   constexpr int CC = 2 * KM;
-  for (int i = threadIdx.x; i < (S - end) * CC; i += kTile) {
+  for (int i = threadIdx.x; i < (S - end) * CC; i += kThreads) {
     const int g = end + i / CC, c = i % CC;
     if (c % KM < nk)
       part[(chunk_row + g) * 2 * K + channel<KM>(c, k0, K)] = 0.0f;
@@ -494,11 +509,64 @@ synth_fused_mxu_kernel(const float* __restrict__ a_pk,
 // ---------------------------------------------------------------------------
 // anal_fused_vpu partials: part[slot][chunk][g][c] = sum over the chunk's
 // rings of Delta(r) P_lm(r) at stream position g.  Thread t carries rings
-// chunk0 + k * 128 + t, k < 8.  f_pk (n_slots, 2, P, 2K, R).
-// grid (n_chunks, n_slots, ceil(K / KM)), block 128.
+// chunk0 + k * kVpuThreads + t, k < kVpuRings, and per l adds its rings'
+// products in k order into one column of the tile's reduction rows red_s;
+// once per 32-l tile every output (l, c) sums its kVpuThreads columns in a
+// fixed order (four interleaved partial sums, then the H threads of the
+// output by an xor butterfly).  f_pk (n_slots, 2, P, 2K, R).
+// grid (n_chunks, n_slots, ceil(K / KM)), block kVpuThreads, dynamic shared
+// memory (AnalVpuShape).
 // ---------------------------------------------------------------------------
+constexpr int kVpuThreads = 128;
+constexpr int kVpuRings = kVpuAnalTiles * kTile / kVpuThreads;
+
+template <int KM>
+struct AnalVpuShape {
+  static constexpr int CC = 2 * KM;
+  static constexpr int O = kLT * CC;                // outputs of a tile
+  static constexpr int H = kVpuThreads / O;         // threads per output
+  static constexpr int kStride = kVpuThreads + H;   // conflict-free rows
+  static constexpr size_t smem_bytes =
+      (static_cast<size_t>(O) * kStride + 3 * kLT) * sizeof(float);
+  static_assert(H >= 1 && kVpuThreads % O == 0, "one output per H threads");
+};
+
+// The steady steps j0 <= j < n of one tile: each of the thread's rings
+// (those below ntile unless FULL) advances by the three-term recurrence and
+// adds its products into the thread's column of red_s.  With the fold, even
+// j is plane 0 and odd j plane P - 1 (the tile starts at an even l - m).
+template <int KM, int P, bool SPIN, bool FULL>
+__device__ __forceinline__ void vpu_anal_steps(
+    Rec (&s)[kVpuRings], const float (&xr)[kVpuRings],
+    const float (&d)[kVpuRings][P][2 * KM], int ntile, int j, int n,
+    const float* t0, const float* t1, const float* t2, float* red_s) {
+  constexpr int CC = 2 * KM;
+  constexpr int kStride = AnalVpuShape<KM>::kStride;
+  float* col = red_s + threadIdx.x;
+  auto step = [&](int jj, int p) {
+    float sum[CC];
+#pragma unroll
+    for (int c = 0; c < CC; ++c) sum[c] = 0.0f;
+#pragma unroll
+    for (int k = 0; k < kVpuRings; ++k) {
+      if (FULL || k < ntile) {
+        const float v = rec_general<SPIN>(&s[k], xr[k], t0, t1, t2, jj);
+#pragma unroll
+        for (int c = 0; c < CC; ++c) sum[c] = fmaf(v, d[k][p][c], sum[c]);
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < CC; ++c) col[(jj * CC + c) * kStride] = sum[c];
+  };
+  for (; j + 1 < n; j += 2) {
+    step(j, 0);
+    step(j + 1, P - 1);
+  }
+  if (j < n) step(j, 0);
+}
+
 template <int KM, bool FOLD, bool COMBINE, bool SPIN>
-__global__ void __launch_bounds__(kTile)
+__global__ void __launch_bounds__(kVpuThreads)
 anal_fused_vpu_kernel(const float* __restrict__ f_pk,
                       const SlotMaps sm,
                       const float* __restrict__ x,
@@ -506,51 +574,53 @@ anal_fused_vpu_kernel(const float* __restrict__ f_pk,
                       const int* __restrict__ pms_pk,
                       const float* __restrict__ tab, float* __restrict__ part,
                       int S, int K, int R, int l_max) {
+  using Sh = AnalVpuShape<KM>;
   constexpr int P = FOLD ? 2 : 1;
-  constexpr int CC = 2 * KM;
-  constexpr int kWarps = kTile / 32;
-  __shared__ float row_s[kWarps][kLT][CC];
-  __shared__ float bl_s[kLT], ratio_s[kLT], c_s[SPIN ? kLT : 1];
+  constexpr int CC = Sh::CC, H = Sh::H;
+  constexpr int RT = kVpuRings;
+  extern __shared__ __align__(16) float smem[];
+  float* red_s = smem;                                 // [O][kStride]
+  float* t0 = red_s + Sh::O * Sh::kStride;             // [kLT] x 3
+  float* t1 = t0 + kLT;
+  float* t2 = t1 + kLT;
   const int si = blockIdx.y;
   const int chunk = blockIdx.x;
-  const int base = chunk * kVpuAnalTiles * kTile;
+  const int base = chunk * RT * kVpuThreads;
   const int k0 = blockIdx.z * KM;
   const int nk = min(KM, K - k0);
   const int K2 = 2 * K;
-  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
-  const int ntile = min(kVpuAnalTiles, (R - base + kTile - 1) / kTile);
+  const int t = threadIdx.x;
+  const int ntile = min(RT, (R - base + kVpuThreads - 1) / kVpuThreads);
   const size_t chunk_row = (static_cast<size_t>(si) * gridDim.x + chunk) * S;
+  // the output this thread reduces at the end of a tile: (j, c) = o, h-th
+  // of its H threads
+  const int o = t / H, h = t % H;
 
-  float xr[kVpuAnalTiles];
+  float xr[RT];
 #pragma unroll
-  for (int k = 0; k < kVpuAnalTiles; ++k) {
-    const int r = base + k * kTile + t;
+  for (int k = 0; k < RT; ++k) {
+    const int r = base + k * kVpuThreads + t;
     xr[k] = (k < ntile && r < R) ? x[r] : 0.0f;
   }
   for (int seg = 0; seg < 2; ++seg) {
     const Seg sg = segment<SPIN>(sm, si, seg, S, l_max);
     if (sg.len == 0) continue;                     // block-uniform
-    const float p1 = p_first_coef(sg.m);
     const int l_end = sg.lz + sg.len;
-    float pmm_r[kVpuAnalTiles];
-    int pms_r[kVpuAnalTiles];
-    float d[kVpuAnalTiles][P][CC];                 // rotated Delta, planes
+    const size_t srow0 = (static_cast<size_t>(si) * 2 + seg) * R;
+    float d[RT][P][CC];                            // rotated Delta, planes
 #pragma unroll
-    for (int k = 0; k < kVpuAnalTiles; ++k) {
-      const int r = base + k * kTile + t;
+    for (int k = 0; k < RT; ++k) {
+      const int r = base + k * kVpuThreads + t;
       const bool live = k < ntile && r < R;
-      const size_t srow = (static_cast<size_t>(si) * 2 + seg) * R + r;
-      pmm_r[k] = live ? pmm_pk[srow] : 0.0f;
-      pms_r[k] = live ? pms_pk[srow] : 0;
       float re[P][KM], im[P][KM];
 #pragma unroll
       for (int p = 0; p < P; ++p) {
-        const size_t o = ((static_cast<size_t>(si) * 2 + seg) * P + p) * K2;
+        const size_t ofs = ((static_cast<size_t>(si) * 2 + seg) * P + p) * K2;
 #pragma unroll
         for (int c = 0; c < KM; ++c) {
           const bool ok = live && c < nk;
-          re[p][c] = ok ? f_pk[(o + k0 + c) * R + r] : 0.0f;
-          im[p][c] = ok ? f_pk[(o + K + k0 + c) * R + r] : 0.0f;
+          re[p][c] = ok ? f_pk[(ofs + k0 + c) * R + r] : 0.0f;
+          im[p][c] = ok ? f_pk[(ofs + K + k0 + c) * R + r] : 0.0f;
           if (ok && tab != nullptr)
             rotate(tab, tab_row(si, seg, p, P, R, r), R, &re[p][c], &im[p][c]);
         }
@@ -572,60 +642,78 @@ anal_fused_vpu_kernel(const float* __restrict__ f_pk,
       }
     }
 
-    Rec s[kVpuAnalTiles];
+    Rec s[RT];
     for (int l0 = sg.lz; l0 < l_end; l0 += kLT) {  // block-uniform
       const int n = min(kLT, l_end - l0);
-      fill_coef<SPIN>(l0, sg.m, sg.mp, bl_s, ratio_s, c_s);
+      fill_coef<SPIN>(l0, sg.m, sg.mp, t0, t1, t2);
       __syncthreads();
-      for (int j = 0; j < n; ++j) {
-        const int l = l0 + j;
-        const int p = (FOLD && ((l + sg.m) & 1)) ? P - 1 : 0;
+      int j = 0;
+      if (l0 == sg.lz) {
+        // the seed (plane 0: l - m even), its seeds read here and dropped,
+        // then (spin 0) P_{m+1,m} (plane P - 1)
         float sum[CC];
 #pragma unroll
         for (int c = 0; c < CC; ++c) sum[c] = 0.0f;
 #pragma unroll
-        for (int k = 0; k < kVpuAnalTiles; ++k) {
-          if (k < ntile) {                         // block-uniform
-            const float v = rec_step<SPIN>(&s[k], l, sg.lz, xr[k], bl_s,
-                                           ratio_s, c_s, j, p1, pmm_r[k],
-                                           pms_r[k]);
-            if (p) {
+        for (int k = 0; k < RT; ++k) {
+          if (k < ntile) {
+            const int r = base + k * kVpuThreads + t;
+            const bool live = r < R;
+            const float v = rec_seed(&s[k], live ? pmm_pk[srow0 + r] : 0.0f,
+                                     live ? pms_pk[srow0 + r] : 0);
 #pragma unroll
-              for (int c = 0; c < CC; ++c)
-                sum[c] = fmaf(v, d[k][P - 1][c], sum[c]);
-            } else {
-#pragma unroll
-              for (int c = 0; c < CC; ++c) sum[c] = fmaf(v, d[k][0][c], sum[c]);
-            }
+            for (int c = 0; c < CC; ++c) sum[c] = fmaf(v, d[k][0][c], sum[c]);
           }
         }
 #pragma unroll
-        for (int c = 0; c < CC; ++c) {
+        for (int c = 0; c < CC; ++c) red_s[c * Sh::kStride + t] = sum[c];
+        j = 1;
+        if (!SPIN && n > 1) {
+          const float p1 = p_first_coef(sg.m);
 #pragma unroll
-          for (int off = 16; off > 0; off >>= 1)
-            sum[c] += __shfl_xor_sync(0xffffffffu, sum[c], off);
-        }
-        if (lane == 0) {
+          for (int c = 0; c < CC; ++c) sum[c] = 0.0f;
 #pragma unroll
-          for (int c = 0; c < CC; ++c) row_s[warp][j][c] = sum[c];
+          for (int k = 0; k < RT; ++k) {
+            if (k < ntile) {
+              const float v = rec_first(&s[k], xr[k], p1);
+#pragma unroll
+              for (int c = 0; c < CC; ++c)
+                sum[c] = fmaf(v, d[k][P - 1][c], sum[c]);
+            }
+          }
+#pragma unroll
+          for (int c = 0; c < CC; ++c)
+            red_s[(CC + c) * Sh::kStride + t] = sum[c];
+          j = 2;
         }
       }
+      if (ntile == RT)                             // block-uniform
+        vpu_anal_steps<KM, P, SPIN, true>(s, xr, d, ntile, j, n, t0, t1, t2,
+                                          red_s);
+      else
+        vpu_anal_steps<KM, P, SPIN, false>(s, xr, d, ntile, j, n, t0, t1,
+                                           t2, red_s);
       __syncthreads();
-      for (int i = t; i < n * CC; i += kTile) {
-        const int j = i / CC, c = i % CC;
-        if (c % KM < nk) {
-          float total = 0.0f;
+      // every output sums its kVpuThreads columns in one fixed order
+      const float* row = red_s + o * Sh::kStride + h;
+      float q[4] = {0.0f, 0.0f, 0.0f, 0.0f};
 #pragma unroll
-          for (int w = 0; w < kWarps; ++w) total += row_s[w][j][c];
-          part[(chunk_row + sg.g0 + l0 - sg.lz + j) * K2 +
-               channel<KM>(c, k0, K)] = total;
-        }
+      for (int i = 0; i < kVpuThreads / H; i += 4) {
+#pragma unroll
+        for (int u = 0; u < 4; ++u) q[u] += row[(i + u) * H];
       }
-      __syncthreads();                             // row_s / beta reused
+      float total = (q[0] + q[1]) + (q[2] + q[3]);
+#pragma unroll
+      for (int off = 1; off < H; off <<= 1)
+        total += __shfl_xor_sync(0xffffffffu, total, off);
+      const int jo = o / CC, c = o % CC;
+      if (h == 0 && jo < n && c % KM < nk)
+        part[(chunk_row + sg.g0 + l0 - sg.lz + jo) * K2 +
+             channel<KM>(c, k0, K)] = total;
     }
   }
-  zero_tail<KM>(part, chunk_row, live_end<SPIN>(sm, si, S, l_max), S, k0,
-                nk, K);
+  zero_tail<KM, kVpuThreads>(part, chunk_row,
+                             live_end<SPIN>(sm, si, S, l_max), S, k0, nk, K);
 }
 
 // ---------------------------------------------------------------------------
@@ -950,10 +1038,17 @@ struct LaunchSynthMxuBf16 {
 template <int KM, bool FOLD, bool COMBINE, bool SPIN>
 struct LaunchAnalVpu {
   static int run(const FusedArgs& g) {
+    using Sh = AnalVpuShape<KM>;
+    cudaError_t err = cudaFuncSetAttribute(
+        anal_fused_vpu_kernel<KM, FOLD, COMBINE, SPIN>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(Sh::smem_bytes));
+    if (err != cudaSuccess) return static_cast<int>(err);
     dim3 grid(g.n_chunks, g.n_slots, (g.K + KM - 1) / KM);
     anal_fused_vpu_kernel<KM, FOLD, COMBINE, SPIN>
-        <<<grid, kTile, 0, g.stream>>>(g.in, g.sm, g.x, g.pmm, g.pms, g.tab,
-                                       g.out, g.S, g.K, g.R, g.l_max);
+        <<<grid, kVpuThreads, Sh::smem_bytes, g.stream>>>(
+            g.in, g.sm, g.x, g.pmm, g.pms, g.tab, g.out, g.S, g.K, g.R,
+            g.l_max);
     return static_cast<int>(cudaGetLastError());
   }
 };

@@ -65,9 +65,17 @@
 //   anal_reduce replaces the cross-ring-block accumulation the TPU kernels
 //               do in sequential grid order (legendre_pallas.py:430 and
 //               :1035), which has no counterpart across CUDA blocks.  Bytes
-//               bound: one thread per output (m, l, channel) sums the ring
-//               chunks' partials in chunk order, so repeated runs give
-//               identical bits.
+//               bound (each partial read once, each output written once):
+//               one block row per (m or slot) row, 32-bit indices, 16-byte
+//               vectors where the row's (l, c) stretch allows (8- or 4-byte
+//               otherwise), positions below l0 zeroed without reading the
+//               partials, as are the slot streams' dead tails (the slot
+//               layouts pass their maps); each output is the sum of the
+//               ring chunks' partials in chunk order from 0.0f, so repeated
+//               runs give identical bits and the same bits as a plain loop
+//               of adds.
+
+#include <cstdint>
 
 #include "recurrence.cuh"
 
@@ -484,29 +492,81 @@ anal_mxu_kernel(const float* __restrict__ dw, const int* __restrict__ m_vals,
 }
 
 // ---------------------------------------------------------------------------
-// anal_reduce: out[m][l][c] = sum over chunks, in chunk order, of
-// part[m][chunk][l][c]; zero where l < m (l < max(m, |m'|) with mp_vals)
-// or m < 0.
+// anal_reduce: out[row][i] = sum over chunks, in chunk order from 0.0f, of
+// part[row][chunk][i], on each row's contiguous (l, c) stretch i < N = L K2,
+// for i in the row's kept range [z0, z1); outside it exact zeros, written
+// without reading the partials.  Plain rows: z0 = l0 K2 with l0 = m
+// (max(m, |m'|) with mp), z0 = N on a padding row (m < 0), z1 = N.  Slot
+// streams (seed given): z0 = 0 and z1 = the slot's live end times K2, past
+// both segments, whose dead tail the analysis kernels wrote as zeros.
+// Thread t of block (x, row) owns the V consecutive floats from
+// V (256 x + t), read and written as one V-float vector (16, 8 or 4 bytes).
+// grid (ceil(N / (256 V)), rows), block 256.
+// Bound by memory bytes: each kept partial is read once and each output
+// written once.  The vectors, the row per blockIdx.y (the row's l0 or live
+// end read once per warp, no 64-bit index division) and the positions
+// written unread keep it streaming; on small shapes the launch's host work
+// is the time, not the kernel.
 // ---------------------------------------------------------------------------
-__global__ void anal_reduce_kernel(const float* __restrict__ part,
-                                   const int* __restrict__ m_vals,
-                                   const int* __restrict__ mp_vals,
-                                   float* __restrict__ out, int Mp,
-                                   int n_chunks, int L, int K2) {
-  const size_t idx = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  const size_t total = static_cast<size_t>(Mp) * L * K2;
-  if (idx >= total) return;
-  const int c = static_cast<int>(idx % K2);
-  const int l = static_cast<int>((idx / K2) % L);
-  const int mi = static_cast<int>(idx / (static_cast<size_t>(K2) * L));
-  const int m = m_vals[mi];
-  const int lz = mp_vals != nullptr ? max(m, abs(mp_vals[mi])) : m;
-  float sum = 0.0f;
-  if (m >= 0 && l >= lz) {
-    for (int ch = 0; ch < n_chunks; ++ch)
-      sum += part[((static_cast<size_t>(mi) * n_chunks + ch) * L + l) * K2 + c];
+constexpr int kReduceThreads = 256;
+
+// The rows of one reduce: the plain grid's m (and m') per row, or a slot
+// layout's maps (fused.cu's SlotMaps: m, m' of both segments, the position
+// segment 1 starts, S for none) and its band limit.
+struct ReduceRows {
+  const int* m;      // plain: m per row; slots: m of segment 0
+  const int* mp;     // m' of the same (spin), or null
+  const int* m1;     // slots: m, m' of segment 1
+  const int* mp1;
+  const int* seed;   // slots only; null on the plain grid
+  int l_max;         // slots: the band limit
+};
+
+__device__ __forceinline__ int first_l(const int* m, const int* mp, int row) {
+  return mp != nullptr ? max(m[row], abs(mp[row])) : m[row];
+}
+
+template <int V> struct VecOf;
+template <> struct VecOf<4> { using T = float4; };
+template <> struct VecOf<2> { using T = float2; };
+template <> struct VecOf<1> { using T = float; };
+
+template <int V>
+__global__ void __launch_bounds__(kReduceThreads)
+anal_reduce_kernel(const float* __restrict__ part, const ReduceRows rows,
+                   float* __restrict__ out, int n_chunks, int N, int K2) {
+  using Vec = typename VecOf<V>::T;
+  const int row = blockIdx.y;
+  const int i = (blockIdx.x * kReduceThreads + threadIdx.x) * V;
+  if (i >= N) return;
+  const int L = N / K2;
+  int z0 = 0, z1 = N;                      // broadcast loads, one per warp
+  if (rows.seed != nullptr) {
+    const int sd = rows.seed[row];
+    const int len1 =
+        sd < L ? rows.l_max + 1 - first_l(rows.m1, rows.mp1, row) : 0;
+    const int end = len1 > 0 ? sd + len1
+                             : rows.l_max + 1 - first_l(rows.m, rows.mp, row);
+    z1 = min(end, L) * K2;
+  } else {
+    z0 = rows.m[row] < 0 ? N : min(first_l(rows.m, rows.mp, row), L) * K2;
   }
-  out[idx] = sum;
+  union { Vec v; float f[V]; } sum, in;
+#pragma unroll
+  for (int k = 0; k < V; ++k) sum.f[k] = 0.0f;
+  if (i + V > z0 && i < z1) {
+    const float* p = part + static_cast<size_t>(row) * n_chunks * N + i;
+#pragma unroll 4
+    for (int ch = 0; ch < n_chunks; ++ch) {
+      in.v = *reinterpret_cast<const Vec*>(p + static_cast<size_t>(ch) * N);
+#pragma unroll
+      for (int k = 0; k < V; ++k) sum.f[k] += in.f[k];
+    }
+#pragma unroll
+    for (int k = 0; k < V; ++k)             // the vector straddles z0 or z1
+      if (i + k < z0 || i + k >= z1) sum.f[k] = 0.0f;
+  }
+  *reinterpret_cast<Vec*>(out + static_cast<size_t>(row) * N + i) = sum.v;
 }
 
 // ---------------------------------------------------------------------------
@@ -648,14 +708,37 @@ int legendre_anal_mxu(const float* dw, const int* m_vals, const int* mp_vals,
                                  g);
 }
 
+// Plain rows: m_vals (mp_vals null for spin 0), m1 = mp1 = seed = null.
+// Slot streams: m_vals, mp_vals, m1, mp1, seed the slot maps of segment 0
+// and 1 (mp_vals, mp1 null for spin 0) and l_max the band limit.  A null
+// m_vals is refused.
 int legendre_anal_reduce(const float* part, const int* m_vals,
-                         const int* mp_vals, float* out, int Mp, int n_chunks,
-                         int L, int K2, void* stream) {
-  const size_t total = static_cast<size_t>(Mp) * L * K2;
-  const int threads = 256;
-  const unsigned blocks = static_cast<unsigned>((total + threads - 1) / threads);
-  anal_reduce_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      part, m_vals, mp_vals, out, Mp, n_chunks, L, K2);
+                         const int* mp_vals, const int* m1, const int* mp1,
+                         const int* seed, float* out, int Mp, int n_chunks,
+                         int L, int K2, int l_max, void* stream) {
+  const long long n = static_cast<long long>(L) * K2;
+  if (Mp > 65535 || n < 1 || n > (1LL << 30) || n_chunks < 1 ||
+      m_vals == nullptr || (seed != nullptr && m1 == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int N = static_cast<int>(n);
+  const auto aligned = [&](int bytes) {
+    return N % (bytes / 4) == 0 &&
+           reinterpret_cast<uintptr_t>(part) % bytes == 0 &&
+           reinterpret_cast<uintptr_t>(out) % bytes == 0;
+  };
+  const int V = aligned(16) ? 4 : aligned(8) ? 2 : 1;
+  const ReduceRows rows{m_vals, mp_vals, m1, mp1, seed, l_max};
+  const dim3 grid((N / V + kReduceThreads - 1) / kReduceThreads, Mp);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (V == 4)
+    anal_reduce_kernel<4><<<grid, kReduceThreads, 0, s>>>(part, rows, out,
+                                                           n_chunks, N, K2);
+  else if (V == 2)
+    anal_reduce_kernel<2><<<grid, kReduceThreads, 0, s>>>(part, rows, out,
+                                                           n_chunks, N, K2);
+  else
+    anal_reduce_kernel<1><<<grid, kReduceThreads, 0, s>>>(part, rows, out,
+                                                           n_chunks, N, K2);
   return static_cast<int>(cudaGetLastError());
 }
 

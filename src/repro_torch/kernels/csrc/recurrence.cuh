@@ -92,31 +92,61 @@ __device__ __forceinline__ float rec_finish(Rec* s, float c) {
   return sc == 0 ? c : 0.0f;
 }
 
+// The seed at l == lz: the host's (mantissa, scale) pair of P_{lz}.
+__device__ __forceinline__ float rec_seed(Rec* s, float pmm, int pms) {
+  float c = pmm;
+  int sc = pms;
+  if (fabsf(c) > kBig && sc < 0) {
+    c = c * kInvBig2;
+    sc += 1;
+  }
+  s->pp = 0.0f;
+  s->pc = c;
+  s->sc = sc;
+  return sc == 0 ? c : 0.0f;
+}
+
+// The new mantissa of P_{m+1,m} = sqrt(2m+3) x P_mm (p1 = sqrt(2m+3)).
+__device__ __forceinline__ float first_mant(const Rec* s, float x, float p1) {
+  return __fmul_rn(__fmul_rn(p1, x), s->pc);
+}
+
+// The new mantissa of the three-term step at l >= m + 2, with beta_l (bl)
+// and beta_l / beta_{l-1} (ratio).
+__device__ __forceinline__ float next_mant(const Rec* s, float x, float bl,
+                                           float ratio) {
+  return __fsub_rn(__fmul_rn(__fmul_rn(bl, x), s->pc),
+                   __fmul_rn(ratio, s->pp));
+}
+
 // One step at multipole l >= m (block-uniform branches): the seed at l == m,
 // P_{m+1,m} = sqrt(2m+3) x P_mm at l == m + 1, the three-term recurrence
-// after.  Returns the descaled P_{l,m}.
+// after.  Returns the descaled P_{l,m}.  One rec_finish after the branch:
+// a rec_finish in each branch duplicates the rescale in the loop of every
+// kernel that takes this step (kernel 9's loop grew from 94 to 133 SASS
+// instructions and its time by 15% on the H100).
 __device__ __forceinline__ float rec_advance(Rec* s, int l, int m, float x,
                                              float bl, float ratio, float p1,
                                              float pmm, int pms) {
-  if (l == m) {
-    float c = pmm;
-    int sc = pms;
-    if (fabsf(c) > kBig && sc < 0) {
-      c = c * kInvBig2;
-      sc += 1;
-    }
-    s->pp = 0.0f;
-    s->pc = c;
-    s->sc = sc;
-    return sc == 0 ? c : 0.0f;
-  }
+  if (l == m) return rec_seed(s, pmm, pms);
   float c;
   if (l == m + 1) {
-    c = __fmul_rn(__fmul_rn(p1, x), s->pc);
+    c = first_mant(s, x, p1);
   } else {
-    c = __fsub_rn(__fmul_rn(__fmul_rn(bl, x), s->pc), __fmul_rn(ratio, s->pp));
+    c = next_mant(s, x, bl, ratio);
   }
   return rec_finish(s, c);
+}
+
+// The step at l == m + 1 alone, and the three-term step alone (l >= m + 2):
+// rec_advance's two branches, for loops that peel the first steps off.
+__device__ __forceinline__ float rec_first(Rec* s, float x, float p1) {
+  return rec_finish(s, first_mant(s, x, p1));
+}
+
+__device__ __forceinline__ float rec_next(Rec* s, float x, float bl,
+                                          float ratio) {
+  return rec_finish(s, next_mant(s, x, bl, ratio));
 }
 
 __device__ __forceinline__ float p_first_coef(int m) {
@@ -168,6 +198,15 @@ __device__ __forceinline__ void fill_spin(int l0, int m, int mp, float* a_s,
   }
 }
 
+// The Wigner-d step after the seed: lambda_l = (a x + b) lambda_{l-1}
+// - c lambda_{l-2} (at lz + 1, c = 0 and lambda_{l-2} = 0).
+__device__ __forceinline__ float rec_next_spin(Rec* s, float x, float a,
+                                               float b, float c) {
+  return rec_finish(s, __fsub_rn(__fmul_rn(__fadd_rn(__fmul_rn(a, x), b),
+                                           s->pc),
+                                 __fmul_rn(c, s->pp)));
+}
+
 // One Wigner-d step at multipole l >= lz = max(m, |m'|) (block-uniform
 // branches): the seed at l == lz, the three-term recurrence after (at
 // lz + 1 its c is 0).  Returns the descaled lambda_{l,m}.
@@ -175,11 +214,8 @@ __device__ __forceinline__ float rec_advance_spin(Rec* s, int l, int lz,
                                                   float x, float a, float b,
                                                   float c, float seed,
                                                   int seed_scale) {
-  if (l == lz) return rec_advance(s, l, l, x, 0.0f, 0.0f, 0.0f, seed,
-                                  seed_scale);
-  const float p = __fsub_rn(
-      __fmul_rn(__fadd_rn(__fmul_rn(a, x), b), s->pc), __fmul_rn(c, s->pp));
-  return rec_finish(s, p);
+  if (l == lz) return rec_seed(s, seed, seed_scale);
+  return rec_next_spin(s, x, a, b, c);
 }
 
 // The coefficient table of one 32-l tile of a row: beta and the beta ratio
@@ -216,6 +252,20 @@ __device__ __forceinline__ int row_start(int m, int mp) {
     return max(m, abs(mp));
   } else {
     return m;
+  }
+}
+
+// The steady step of row (m, m') at tile entry j: the three-term
+// recurrence past the seed (spin: past lz; spin 0: past m + 1).
+template <bool SPIN>
+__device__ __forceinline__ float rec_general(Rec* s, float x,
+                                             const float* t0,
+                                             const float* t1,
+                                             const float* t2, int j) {
+  if constexpr (SPIN) {
+    return rec_next_spin(s, x, t0[j], t1[j], t2[j]);
+  } else {
+    return rec_next(s, x, t0[j], t1[j]);
   }
 }
 

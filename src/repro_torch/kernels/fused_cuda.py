@@ -27,7 +27,7 @@ S, P = 2 planes with the equator fold, else 1, Q = 2 x P):
 The fused planes are north/south (combined in the kernel), the packed ones
 even/odd (l+m), plane q = segment x P + parity, and take no tables.
 Analysis writes per-ring-chunk partials and sums them in chunk order with
-``legendre_cuda.anal_reduce``.
+``legendre_cuda.anal_reduce``'s slot route (:func:`slot_maps`).
 
 ``spin=True`` launches each kernel's spin branch on a spin slot layout (the
 Wigner-d rows (m, m') of the spin-2 plans, each segment starting at
@@ -51,8 +51,8 @@ from repro_torch.kernels.ops import _pad_to
 __all__ = ["synth_fused_vpu", "synth_fused_mxu", "anal_fused_vpu",
            "anal_fused_mxu", "anal_fused_partials", "synth_packed_vpu",
            "synth_packed_mxu", "anal_packed_vpu", "anal_packed_mxu",
-           "anal_packed_partials", "partials_shape", "launches",
-           "reset_launches"]
+           "anal_packed_partials", "slot_maps", "partials_shape",
+           "launches", "reset_launches"]
 
 #: kernel name -> launches since the last :func:`reset_launches`; the spin
 #: branch of a kernel counts under its name with ``_spin`` appended
@@ -138,7 +138,7 @@ def _synth(kernel, a_pk, maps, x, pmm_pk, pms_pk, tab_pk, *, l_max, fold,
     out = torch.empty(shape, dtype=torch.float32, device=a_pk.device)
     fn = getattr(_lib(), f"{kind}_synth_{var}{bf}")
     tab = [tab] if kind == "fused" else []
-    with torch.cuda.device(a_pk.device):
+    with lc._guard(a_pk):
         err = fn(a_pk.data_ptr(), *ptrs, *tab, out.data_ptr(), n_slots, S,
                  K2 // 2, R, l_max, int(fold), lc._stream())
     lc._raise_on(err, name)
@@ -213,7 +213,7 @@ def _partials(kernel, f, maps, x, pmm_pk, pms_pk, tab_pk, *, l_max, s_len,
     n_chunks = part.shape[1]
     fn = getattr(_lib(), f"{kind}_anal_{var}{bf}")
     tab = [tab] if kind == "fused" else []
-    with torch.cuda.device(f.device):
+    with lc._guard(f):
         err = fn(f.data_ptr(), *ptrs, *tab, part.data_ptr(), n_slots, s_len,
                  K2 // 2, R, l_max, n_chunks, int(P == 2), lc._stream())
     lc._raise_on(err, name)
@@ -241,21 +241,28 @@ def anal_packed_partials(variant: str, dw_pk, maps, x, pmm_pk, pms_pk, *,
                      pms_pk, None, l_max=l_max, s_len=s_len, spin=spin)
 
 
-def _reduce(part):
-    """Chunk-order sum of the partials through ``anal_reduce``, every
-    stream position kept (all slots passed as m = 0)."""
-    n_slots, _, S, _ = part.shape
-    zeros = torch.zeros(n_slots, dtype=torch.int32, device=part.device)
-    return lc.anal_reduce(part, zeros, l_max=S - 1)
+def slot_maps(maps, spin: bool = False) -> tuple:
+    """A slot layout's five maps as ``anal_reduce``'s slot route takes them
+    (m' only on the spin branch)."""
+    m0, m1, mp0, mp1, seed = maps
+    return (m0, m1, mp0 if spin else None, mp1 if spin else None, seed)
+
+
+def _reduce(part, maps, l_max, spin):
+    """Chunk-order sum of slot partials (n_slots, n_chunks, S, 2K) through
+    ``anal_reduce``'s slot route: each slot's dead tail is written as zeros
+    without being read."""
+    return lc.anal_reduce(part, None, l_max=l_max,
+                          slot_maps=slot_maps(maps, spin))
 
 
 def anal_fused_vpu(f_pk, maps, x, pmm_pk, pms_pk, tab_pk=None, *,
                    l_max: int, s_len: int, spin: bool = False):
-    """Fused analysis, rings reduced in registers, warps and a fixed-order
-    pass."""
-    return _reduce(anal_fused_partials("vpu", f_pk, maps, x, pmm_pk, pms_pk,
-                                       tab_pk, l_max=l_max, s_len=s_len,
-                                       spin=spin))
+    """Fused analysis, each thread's rings summed in registers, then the
+    threads in one fixed-order shared-memory pass per 32-l tile."""
+    return _reduce(anal_fused_partials(
+        "vpu", f_pk, maps, x, pmm_pk, pms_pk, tab_pk, l_max=l_max,
+        s_len=s_len, spin=spin), maps, l_max, spin)
 
 
 def anal_fused_mxu(f_pk, maps, x, pmm_pk, pms_pk, tab_pk=None, *,
@@ -264,24 +271,24 @@ def anal_fused_mxu(f_pk, maps, x, pmm_pk, pms_pk, tab_pk=None, *,
     """Fused analysis as (l x ring) P panels contracted against the rotated
     Delta resident in shared memory, in float32 or with ``bf16`` in
     bfloat16 on the tensor cores (float32 accumulation)."""
-    return _reduce(anal_fused_partials("mxu", f_pk, maps, x, pmm_pk, pms_pk,
-                                       tab_pk, l_max=l_max, s_len=s_len,
-                                       spin=spin, bf16=bf16))
+    return _reduce(anal_fused_partials(
+        "mxu", f_pk, maps, x, pmm_pk, pms_pk, tab_pk, l_max=l_max,
+        s_len=s_len, spin=spin, bf16=bf16), maps, l_max, spin)
 
 
 def anal_packed_vpu(dw_pk, maps, x, pmm_pk, pms_pk, *, l_max: int,
                     s_len: int, spin: bool = False):
     """Packed analysis: the fused vpu kernel on the parity planes as given,
     unrotated."""
-    return _reduce(anal_packed_partials("vpu", dw_pk, maps, x, pmm_pk,
-                                        pms_pk, l_max=l_max, s_len=s_len,
-                                        spin=spin))
+    return _reduce(anal_packed_partials(
+        "vpu", dw_pk, maps, x, pmm_pk, pms_pk, l_max=l_max, s_len=s_len,
+        spin=spin), maps, l_max, spin)
 
 
 def anal_packed_mxu(dw_pk, maps, x, pmm_pk, pms_pk, *, l_max: int,
                     s_len: int, spin: bool = False):
     """Packed analysis: the fused mxu kernel on the parity planes as given,
     unrotated."""
-    return _reduce(anal_packed_partials("mxu", dw_pk, maps, x, pmm_pk,
-                                        pms_pk, l_max=l_max, s_len=s_len,
-                                        spin=spin))
+    return _reduce(anal_packed_partials(
+        "mxu", dw_pk, maps, x, pmm_pk, pms_pk, l_max=l_max, s_len=s_len,
+        spin=spin), maps, l_max, spin)

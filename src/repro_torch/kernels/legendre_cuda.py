@@ -22,6 +22,7 @@ with ``_spin`` appended; ``anal_reduce`` then zeroes l < l0.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 
@@ -51,7 +52,7 @@ _SIGNATURES = {
     "legendre_synth_mxu": [_P] * 7 + [_I] * 6 + [_P],
     "legendre_anal_vpu": [_P] * 7 + [_I] * 6 + [_P],
     "legendre_anal_mxu": [_P] * 7 + [_I] * 6 + [_P],
-    "legendre_anal_reduce": [_P] * 4 + [_I] * 4 + [_P],
+    "legendre_anal_reduce": [_P] * 7 + [_I] * 5 + [_P],
 }
 
 
@@ -71,6 +72,9 @@ def _lib() -> ctypes.CDLL:
 
 
 def _check(name: str, t: torch.Tensor, dtype, shape) -> None:
+    if (t.is_cuda and t.dtype == dtype and t.shape == tuple(shape)
+            and t.is_contiguous()):
+        return
     if t.device.type != "cuda":
         raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
     if t.dtype != dtype:
@@ -117,8 +121,23 @@ def _raise_on(err: int, kernel: str) -> None:
                            f"cudaError {err}")
 
 
+_CURRENT = contextlib.nullcontext()
+
+
+def _guard(t: torch.Tensor):
+    """A guard that makes ``t``'s device current for a launch, or none where
+    it already is (entering ``torch.cuda.device`` costs host time on every
+    call)."""
+    i = t.device.index
+    if i is not None and i == torch.cuda.current_device():
+        return _CURRENT
+    return torch.cuda.device(t.device)
+
+
 def _stream() -> int:
-    return torch.cuda.current_stream().cuda_stream
+    """The current device's current stream as a raw handle, without the
+    ``torch.cuda.Stream`` object ``current_stream()`` builds."""
+    return torch._C._cuda_getCurrentRawStream(torch.cuda.current_device())
 
 
 def _synth(kernel, a, m_vals, x, pmm, pms, *, l_max, fold, mp_vals):
@@ -130,7 +149,7 @@ def _synth(kernel, a, m_vals, x, pmm, pms, *, l_max, fold, mp_vals):
     P = 2 if fold else 1
     out = torch.empty((Mp, P, R, K2), dtype=torch.float32, device=a.device)
     fn = getattr(_lib(), f"legendre_{kernel}")
-    with torch.cuda.device(a.device):
+    with _guard(a):
         err = fn(a.data_ptr(), m_vals.data_ptr(), _ptr(mp_vals),
                  x.data_ptr(), pmm.data_ptr(), pms.data_ptr(),
                  out.data_ptr(), Mp, L1, K2, R, min(l_max + 1, L1),
@@ -178,7 +197,7 @@ def anal_partials(variant: str, dw, m_vals, x, pmm, pms, *, l_max: int,
                        dtype=torch.float32, device=dw.device)
     n_chunks = part.shape[1]
     fn = getattr(_lib(), f"legendre_{kernel}")
-    with torch.cuda.device(dw.device):
+    with _guard(dw):
         err = fn(dw.data_ptr(), m_vals.data_ptr(), _ptr(mp_vals),
                  x.data_ptr(), pmm.data_ptr(), pms.data_ptr(),
                  part.data_ptr(), Mp, K2, R, L, n_chunks, int(fold),
@@ -205,23 +224,41 @@ def anal_mxu(dw, m_vals, x, pmm, pms, *, l_max: int, fold: bool = False,
     return anal_reduce(part, m_vals, l_max=l_max, mp_vals=mp_vals)
 
 
-def anal_reduce(partials, m_vals, *, l_max: int, mp_vals=None):
-    """Second analysis pass: (Mp, n_chunks, l_max+1, 2K) partials summed
-    over chunks in chunk order -> (Mp, l_max+1, 2K); rows l < m (l < max(m,
-    |m'|) with ``mp_vals``) and padding rows are exact zeros."""
+def anal_reduce(partials, m_vals, *, l_max: int, mp_vals=None,
+                slot_maps=None):
+    """Second analysis pass: per-ring-chunk partials summed over chunks in
+    chunk order.  Plain rows: (Mp, n_chunks, l_max+1, 2K) with ``m_vals``
+    (and ``mp_vals``) -> (Mp, l_max+1, 2K); rows l < m (l < max(m, |m'|)
+    with ``mp_vals``) and padding rows are exact zeros.  Slot streams:
+    ``m_vals`` None and ``slot_maps`` the five per-slot maps of a slot
+    layout (m0, m1, mp0, mp1, seed; mp0, mp1 None for spin 0) of band limit
+    ``l_max``: (n_slots, n_chunks, S, 2K) -> (n_slots, S, 2K), each slot's
+    dead tail (past both segments; zeros in the partials) written as zeros
+    without being read."""
     Mp, n_chunks, L, K2 = partials.shape
-    if L != l_max + 1:
+    if (m_vals is None) == (slot_maps is None):
+        raise ValueError("anal_reduce takes m_vals (plain rows) or "
+                         "slot_maps (slot streams)")
+    if m_vals is not None and L != l_max + 1:
         raise ValueError(f"partials hold {L} rows, l_max + 1 = {l_max + 1}")
     _check("partials", partials, torch.float32, (Mp, n_chunks, L, K2))
-    _check("m_vals", m_vals, torch.int32, (Mp,))
-    if mp_vals is not None:
-        _check("mp_vals", mp_vals, torch.int32, (Mp,))
+    if slot_maps is not None:
+        if mp_vals is not None:
+            raise ValueError("the slot streams' m' are in slot_maps")
+        m_vals, m1, mp_vals, mp1, seed = slot_maps
+    else:
+        m1 = mp1 = seed = None
+    for name, t in (("m_vals", m_vals), ("mp_vals", mp_vals), ("m1", m1),
+                    ("mp1", mp1), ("seed", seed)):
+        if t is not None:
+            _check(name, t, torch.int32, (Mp,))
     out = torch.empty((Mp, L, K2), dtype=torch.float32,
                       device=partials.device)
-    with torch.cuda.device(partials.device):
+    with _guard(partials):
         err = _lib().legendre_anal_reduce(
-            partials.data_ptr(), m_vals.data_ptr(), _ptr(mp_vals),
-            out.data_ptr(), Mp, n_chunks, L, K2, _stream())
+            partials.data_ptr(), m_vals.data_ptr(), _ptr(mp_vals), _ptr(m1),
+            _ptr(mp1), _ptr(seed), out.data_ptr(), Mp, n_chunks, L, K2,
+            l_max, _stream())
     _raise_on(err, "anal_reduce")
     launches["anal_reduce"] += 1
     return out

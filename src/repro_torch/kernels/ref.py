@@ -228,19 +228,37 @@ def anal_ref(dw, m_vals, x, pmm, pms, *, l_max: int, fold: bool = False,
     return torch.stack(rows, dim=1)
 
 
-def anal_reduce_ref(partials, m_vals, *, l_max: int, mp_vals=None):
+def anal_reduce_ref(partials, m_vals, *, l_max: int, mp_vals=None,
+                    slot_maps=None):
     """Plain version of the analysis second pass: sum the per-ring-chunk
-    partials (Mp, n_chunks, l_max+1, 2K) over chunks; rows with l < m (l <
-    max(m, |m'|) with ``mp_vals``) and padding rows (m < 0) are zero."""
-    L = l_max + 1
-    m = m_vals.to(torch.int64)[:, None]
-    l0 = m if mp_vals is None else \
-        torch.maximum(m, mp_vals.to(torch.int64)[:, None].abs())
-    l = torch.arange(L, device=partials.device)[None, :]
-    keep = ((m >= 0) & (l >= l0))[..., None]
-    total = partials[:, :, :L].sum(dim=1)
-    return torch.where(keep, total, torch.zeros((), dtype=total.dtype,
-                                                device=total.device))
+    partials over chunks.  Plain rows (Mp, n_chunks, l_max+1, 2K): rows
+    with l < m (l < max(m, |m'|) with ``mp_vals``) and padding rows (m < 0)
+    are zero.  Slot streams (``m_vals`` None, ``slot_maps`` = (m0, m1, mp0,
+    mp1, seed), mp0/mp1 None for spin 0, band limit ``l_max``): each slot's
+    positions from its live end on, past both segments, are zero."""
+    if (m_vals is None) == (slot_maps is None):
+        raise ValueError("anal_reduce takes m_vals (plain rows) or "
+                         "slot_maps (slot streams)")
+    S = partials.shape[2] if m_vals is None else l_max + 1
+    total = partials[:, :, :S].sum(dim=1)
+    pos = torch.arange(S, device=partials.device)[None, :]
+
+    def first_l(m, mp):
+        m = m.to(torch.int64)
+        return m if mp is None else torch.maximum(m, mp.to(torch.int64).abs())
+
+    if slot_maps is not None:
+        m0, m1, mp0, mp1, seed = slot_maps
+        seed = seed.to(torch.int64)
+        len1 = torch.where(seed < S, l_max + 1 - first_l(m1, mp1), 0)
+        end = torch.where(len1 > 0, seed + len1, l_max + 1 - first_l(m0, mp0))
+        keep = pos < end[:, None]
+    else:
+        keep = (m_vals.to(torch.int64)[:, None] >= 0) & \
+            (pos >= first_l(m_vals, mp_vals)[:, None])
+    return torch.where(keep[..., None], total,
+                       torch.zeros((), dtype=total.dtype,
+                                   device=total.device))
 
 
 # ---------------------------------------------------------------------------

@@ -587,3 +587,159 @@ def test_healpix_plan_on_card(dev, mode, K, spin, layout):
     assert rel(back.cpu(), cpu.map2alm(maps.cpu())) < TOL
     assert torch.equal(plan.alm2map(a.to(dev)), maps)
     assert torch.equal(plan.map2alm(maps), back)
+
+
+# ---------------------------------------------------------------------------
+# anal_reduce's vector kernel and the vpu analysis template of kernels 11/7
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("L,K2,n_ch", [(13, 3, 5), (13, 2, 3), (12, 2, 4),
+                                       (9, 6, 1)])
+@pytest.mark.parametrize("route", ["plain", "spin", "slot", "slot spin",
+                                   "unaligned"])
+def test_anal_reduce_equals_a_chunk_order_loop(dev, route, L, K2, n_ch):
+    """anal_reduce adds the chunks in chunk order from 0.0f, as a loop of
+    float32 additions does: equal bit for bit, on the plain route (rows
+    below l0 = m, or max(m, |m'|), and padding rows exact zeros) and the
+    slot route (each slot's stream kept up to its live end past both
+    segments, zeros after, unread), at (l, c) stretches of L 2K floats that
+    take 4-, 2- and 1-float vectors, and from a buffer whose start is not
+    16-byte aligned."""
+    gen = torch.Generator().manual_seed(L * K2 + n_ch)
+    m = np.array([0, 3, -1, L - 1, 2, 0, 5, -1, 7, 1]) % L
+    m[[2, 7]] = -1
+    mp = np.where(np.arange(len(m)) % 2, 2, -2)
+    shape = (len(m), n_ch, L, K2)
+    n = int(np.prod(shape))
+    buf = (torch.rand(n + 1, generator=gen) * 2 - 1).to(dev)
+    part = (buf[1:] if route == "unaligned" else buf[:n]).view(shape)
+    assert part.is_contiguous()
+    t = lambda v: torch.as_tensor(v, dtype=torch.int32, device=dev)
+    want = torch.zeros((len(m), L, K2), device=dev)
+    for ch in range(n_ch):
+        want = want + part[:, ch]
+    l = np.arange(L)[None, :]
+    if route.startswith("slot"):
+        # band limit L - 3: segment 0 (m0) then segment 1 (m1) from seed;
+        # the last slot has no segment 1 (seed == S == L)
+        l_max, spin = L - 3, route.endswith("spin")
+        m0 = np.arange(len(m)) % (l_max + 1)
+        m1 = l_max - m0
+        lz = (lambda mm, pp: np.maximum(mm, np.abs(pp))) if spin else \
+            (lambda mm, pp: mm)
+        seed = l_max + 1 - lz(m0, mp)
+        seed[-1] = L
+        end = np.where(seed < L, seed + l_max + 1 - lz(m1, -mp),
+                       l_max + 1 - lz(m0, mp))
+        got = lc.anal_reduce(part, None, l_max=l_max, slot_maps=(
+            t(m0), t(m1), t(mp) if spin else None,
+            t(-mp) if spin else None, t(seed)))
+        keep = l < end[:, None]
+    else:
+        spin = route == "spin"
+        got = lc.anal_reduce(part, t(m), l_max=L - 1,
+                             mp_vals=t(mp) if spin else None)
+        l0 = np.maximum(m, np.abs(mp)) if spin else m
+        keep = (m[:, None] >= 0) & (l >= l0[:, None])
+    want = torch.where(torch.as_tensor(keep, device=dev)[..., None], want,
+                       0.0)
+    assert torch.equal(got, want)
+    if route == "plain":
+        assert torch.equal(lc.anal_reduce(part, t(m), l_max=L - 1), got)
+
+
+def _vpu_template_check(dev, f_pk, maps, x, pmm_pk, pms_pk, tab, lo, l_max,
+                        spin):
+    """Kernel 11 (with ``tab``) and kernel 7 (planes as given, no tables)
+    on one set of operands: each within TOL of its plain version, dead
+    positions exactly zero, the same bits on a rerun."""
+    fk = f_pk.movedim(-1, 3).contiguous()
+    dead = torch.as_tensor(lo.a_row < 0, device=dev)
+    kw = dict(l_max=l_max, s_len=lo.S, spin=spin)
+    got = fused_cuda.anal_fused_vpu(fk, maps, x, pmm_pk, pms_pk, tab, **kw)
+    want = kref.anal_fused_ref(fk, maps, x, pmm_pk, pms_pk, tab,
+                               layout="vpu", **kw)
+    assert rel(got, want) < TOL and bool((got[dead] == 0).all())
+    assert torch.equal(fused_cuda.anal_fused_vpu(fk, maps, x, pmm_pk, pms_pk,
+                                                 tab, **kw), got)
+    dk = fk.reshape(lo.n_slots, -1, *fk.shape[3:])
+    got = fused_cuda.anal_packed_vpu(dk, maps, x, pmm_pk, pms_pk, **kw)
+    want = kref.anal_packed_ref(dk, maps, x, pmm_pk, pms_pk, layout="vpu",
+                                **kw)
+    assert rel(got, want) < TOL and bool((got[dead] == 0).all())
+    assert torch.equal(fused_cuda.anal_packed_vpu(dk, maps, x, pmm_pk,
+                                                  pms_pk, **kw), got)
+
+
+@pytest.mark.parametrize("tables", ["random", "none"])
+@pytest.mark.parametrize("K", [1, 2, 3])
+@pytest.mark.parametrize("spin,fold", [(0, False), (0, True), (2, False)])
+def test_vpu_analysis_template_matches_plain_versions(dev, spin, fold, K,
+                                                      tables):
+    """Kernels 11 and 7 at l_max 256 against their plain versions: spin 0
+    with the fold off and on, spin 2, one and two maps per block (K 3 runs
+    both), random rotation tables and none; identical bits on a rerun."""
+    l_max = 256
+    if spin:
+        c = spin_operands(l_max, K, dev, seed=K)
+        lo = pack.build_layout(c["m2"], l_max, mp_vals=c["mp2"])
+        maps, x, pmm_pk, pms_pk = ops._prep(lo, c["x"], c["pmm"], c["pms"])
+    else:
+        lo, maps, x, pmm_pk, pms_pk, _, _, _ = fused_operands(
+            l_max, K, fold, dev, seed=K)
+    P, R = (2 if fold else 1), x.shape[0]
+    gen = torch.Generator().manual_seed(10 * K + spin)
+    f = (torch.rand((lo.n_slots, 2, P, R, 2 * K), generator=gen) * 2
+         - 1).to(dev)
+    tab = (torch.rand((lo.n_slots, 2, P, 4, R), generator=gen) * 2
+           - 1).to(dev) if tables == "random" else None
+    _vpu_template_check(dev, f, maps, x, pmm_pk, pms_pk, tab, lo, l_max,
+                        bool(spin))
+
+
+@pytest.mark.parametrize("K", [1, 2, 3])
+def test_vpu_analysis_template_with_bucket_tables(dev, K):
+    """Kernels 11 and 7 on a HEALPix nside 64 plan's own seeds, layout and
+    bucket rotation tables (kernel 11 applies them in-kernel) against
+    their plain versions; identical bits on a rerun."""
+    plan = repro_torch.make_plan("healpix", nside=64, K=K, dtype="float32",
+                                 mode="cuda_vpu")
+    assert plan.layouts["anal"] == "fused"
+    a = torch.zeros(plan._alm_shape, dtype=torch.complex64, device=dev)
+    plan.map2alm(plan.alm2map(a))                # fills the plan's store
+    _, kw, _ = plan._fused_parts("vpu", False)
+    store = kw["store"]
+    maps, x, pmm_pk, pms_pk = store["prep"]
+    tab = store[("tables", "anal")]
+    assert tab is not None
+    gen = torch.Generator().manual_seed(K)
+    f = (torch.rand((kw["lo"].n_slots, 2, 1, x.shape[0], 2 * K),
+                    generator=gen) * 2 - 1).to(dev)
+    _vpu_template_check(dev, f, maps, x, pmm_pk, pms_pk, tab, kw["lo"],
+                        plan.l_max, False)
+
+
+@pytest.mark.parametrize("rings", [1025, 2049])
+def test_vpu_analysis_template_one_ring_past_a_chunk(dev, rings):
+    """R one ring past a multiple of the 1024-ring chunk: the last chunk's
+    block carries a single live ring tile.  Kernels 11 and 7 against their
+    plain versions at l_max 256 (random tables), identical bits on a
+    rerun."""
+    l_max = 256
+    g = grids.make_grid("gl", l_max=rings - 1)
+    assert g.n_rings == rings and rings % lc.ANAL_CHUNK["vpu"] == 1
+    m_vals = np.insert(np.arange(l_max + 1), 5, -1)
+    pmm, pms = kref.prepare_seeds(m_vals, g.sin_theta, legendre.log_mu(l_max))
+    t = lambda v, dt: torch.as_tensor(v, dtype=dt, device=dev)
+    lo = pack.build_layout(m_vals, l_max)
+    maps, x, pmm_pk, pms_pk = ops._prep(
+        lo, t(g.cos_theta, torch.float32), t(pmm, torch.float32),
+        t(pms, torch.int32))
+    gen = torch.Generator().manual_seed(rings)
+    f = (torch.rand((lo.n_slots, 2, 1, rings, 2), generator=gen) * 2
+         - 1).to(dev)
+    tab = (torch.rand((lo.n_slots, 2, 1, 4, rings), generator=gen) * 2
+           - 1).to(dev)
+    _vpu_template_check(dev, f, maps, x, pmm_pk, pms_pk, tab, lo, l_max,
+                        False)

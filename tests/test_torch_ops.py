@@ -158,6 +158,32 @@ def test_anal_reduce_plain_version():
                 assert torch.all(out[i, l] == 0)
 
 
+@pytest.mark.parametrize("spin", [False, True])
+def test_anal_reduce_plain_version_slot_route(spin):
+    """The slot route of the second pass (m_vals None, the layout's slot
+    maps): each slot keeps its stream up to its live end past both
+    segments, which is where the layout's dead positions start, and the
+    chunk sum there; the wrapper takes m_vals or slot_maps, not both and
+    not neither."""
+    from repro_torch.kernels import fused_cuda, pack
+    l_max = 20
+    rows, mp = (np.arange(l_max + 1), None) if not spin else \
+        legendre._spin_rows(np.arange(l_max + 1))
+    lo = pack.build_layout(rows, l_max, mp_vals=mp)
+    maps = fused_cuda.slot_maps(ops._pack_maps(lo, "cpu"), spin)
+    rng = np.random.default_rng(5)
+    part = torch.as_tensor(rng.normal(size=(lo.n_slots, 3, lo.S, 4))
+                           .astype(np.float32))
+    out = kref.anal_reduce_ref(part, None, l_max=l_max, slot_maps=maps)
+    dead = torch.as_tensor(lo.a_row < 0)[..., None]
+    assert torch.equal(out, torch.where(dead, 0.0, part.sum(dim=1)))
+    m = torch.zeros(lo.n_slots, dtype=torch.int32)
+    for m_vals, sm in ((None, None), (m, maps)):
+        with pytest.raises(ValueError, match="m_vals .* or slot_maps"):
+            legendre_cuda.anal_reduce(part, m_vals, l_max=l_max,
+                                      slot_maps=sm)
+
+
 @pytest.mark.parametrize("K2,variant,want", [
     (2, None, "vpu"), (14, None, "vpu"), (16, None, "mxu"), (64, None, "mxu"),
     (2, "mxu", "mxu"), (32, "vpu", "vpu")])
