@@ -21,7 +21,8 @@ GL ones: HEALPix (nside 1024, K 8, fused and plain, spin 0 and 2; nside
 2048, K 1, fused), ring-uniform HEALPix (nside 1024) and ECP (l_max 2048)
 through the ring-bucket or uniform phase stage, each synthesis and
 analysis rerun for identical bits (as is the analysis of the GL vpu fused
-paths, whose template sums its rings in a fixed order of its own); then
+and plain paths, whose template sums its rings in a fixed order of its
+own), and the vpu kernels held at full width with the equator fold; then
 the bfloat16 branch of the fused
 mxu kernels (``Plan._make_fused_synth/_make_fused_anal("mxu",
 bf16=True)``) at GL 2048/K8 and HEALPix 1024/K8, held to the reference's
@@ -287,6 +288,41 @@ def below_zero(name: str, out: torch.Tensor, m_vals, mp_vals) -> None:
         raise AssertionError(f"{name}: nonzero rows below l0")
 
 
+def check_rows(l_max: int, spin: bool) -> tuple:
+    """(m_vals, mp_vals) of the staged-kernel checks: every m of l_max with
+    plan padding (-1 rows, which must come out exactly zero) among the real
+    ones, or with ``spin`` the 2M spin rows."""
+    if spin:
+        return spin_test_rows(l_max)
+    m_vals = np.concatenate([np.arange(l_max + 1), [-1, -1]])
+    return np.insert(m_vals, 17, -1), None
+
+
+def check_gen(spin: bool) -> torch.Generator:
+    """The generator of :func:`check_kernels`' random operands."""
+    return torch.Generator().manual_seed(2 + 100 * spin)
+
+
+def check_cases(dev, spin: bool, gen: torch.Generator):
+    """:func:`check_kernels`' operands at l_max CHECK_L_MAX, drawn from
+    ``gen`` in its order: per fold (off only with ``spin``) and K in (1, 8),
+    (fold, K, seeds (m_t, x, pmm, pms), keyword arguments, coefficient rows
+    a, Delta rows dw)."""
+    l_max = CHECK_L_MAX
+    m_vals, mp_vals = check_rows(l_max, spin)
+    mp_t = None if mp_vals is None else torch.as_tensor(
+        mp_vals, dtype=torch.int32, device=dev)
+    for fold in ((False,) if spin else (False, True)):
+        seeds = seeds_for(l_max, m_vals, fold, dev, mp_vals)
+        R, P = seeds[1].shape[0], (2 if fold else 1)
+        kw = dict(l_max=l_max, fold=fold, mp_vals=mp_t)
+        for K in (1, 8):
+            a = random_a(gen, m_vals, l_max + 1, 2 * K, dev, mp_vals)
+            dw = (torch.rand((len(m_vals), P, R, 2 * K), generator=gen) * 2
+                  - 1).to(dev)
+            yield fold, K, seeds, kw, a, dw
+
+
 def check_kernels(dev, spin: bool = False) -> None:
     """Hold each kernel against its plain version at l_max 256, K 1 and 8,
     fold off and on, with padding rows among the real ones; log kernel and
@@ -295,45 +331,32 @@ def check_kernels(dev, spin: bool = False) -> None:
     (fold off), whose analysis rows below l0 = max(m, |m'|) and reduce
     output there must be exact zeros."""
     l_max = CHECK_L_MAX
-    gen = torch.Generator().manual_seed(2 + 100 * spin)
-    # plan padding: -1 rows among the real ones must come out exactly zero
-    if spin:
-        m_vals, mp_vals = spin_test_rows(l_max)
-    else:
-        m_vals = np.concatenate([np.arange(l_max + 1), [-1, -1]])
-        m_vals, mp_vals = np.insert(m_vals, 17, -1), None
+    gen = check_gen(spin)
+    m_vals, mp_vals = check_rows(l_max, spin)
     pad = np.flatnonzero(m_vals < 0)
     mp_t = None if mp_vals is None else torch.as_tensor(
         mp_vals, dtype=torch.int32, device=dev)
     L, sfx = l_max + 1, tag(spin)
-    for fold in ((False,) if spin else (False, True)):
-        m_t, x, pmm, pms = seeds_for(l_max, m_vals, fold, dev, mp_vals)
-        R, P = x.shape[0], (2 if fold else 1)
-        kw = dict(l_max=l_max, fold=fold, mp_vals=mp_t)
-        for K in (1, 8):
-            K2 = 2 * K
-            a = random_a(gen, m_vals, L, K2, dev, mp_vals)
-            dw = (torch.rand((len(m_vals), P, R, K2), generator=gen) * 2 - 1
-                  ).to(dev)
-            want = {}
-            want["synth"], plain_s = plain_ms(lambda: kref.synth_ref(
-                a, m_t, x, pmm, pms, **kw))
-            want["anal"], plain_a = plain_ms(lambda: kref.anal_ref(
-                dw, m_t, x, pmm, pms, **kw))
-            plain = {"synth": plain_s, "anal": plain_a}
-            what = f"l_max {l_max} fold={fold!s:5s} K={K}"
-            for var in ("vpu", "mxu"):
-                for d, op in (("synth", a), ("anal", dw)):
-                    fn = getattr(lc, f"{d}_{var}")
-                    out = fn(op, m_t, x, pmm, pms, **kw)
-                    held(f"{d}_{var}{sfx}", out, want[d], what, pad)
-                    if spin and d == "anal":
-                        below_zero(f"{d}_{var}{sfx}", out, m_vals, mp_vals)
-                    if not fold and K == (1 if var == "vpu" else 8):
-                        k_ms = cuda_time_ms(lambda: fn(op, m_t, x, pmm, pms,
-                                                       **kw))
-                        log(f"  {d + '_' + var + sfx:15s} {what}: kernel "
-                            f"{k_ms:.3f} ms, plain version {plain[d]:.1f} ms")
+    for fold, K, (m_t, x, pmm, pms), kw, a, dw in check_cases(dev, spin, gen):
+        want = {}
+        want["synth"], plain_s = plain_ms(lambda: kref.synth_ref(
+            a, m_t, x, pmm, pms, **kw))
+        want["anal"], plain_a = plain_ms(lambda: kref.anal_ref(
+            dw, m_t, x, pmm, pms, **kw))
+        plain = {"synth": plain_s, "anal": plain_a}
+        what = f"l_max {l_max} fold={fold!s:5s} K={K}"
+        for var in ("vpu", "mxu"):
+            for d, op in (("synth", a), ("anal", dw)):
+                fn = getattr(lc, f"{d}_{var}")
+                out = fn(op, m_t, x, pmm, pms, **kw)
+                held(f"{d}_{var}{sfx}", out, want[d], what, pad)
+                if spin and d == "anal":
+                    below_zero(f"{d}_{var}{sfx}", out, m_vals, mp_vals)
+                if not fold and K == (1 if var == "vpu" else 8):
+                    k_ms = cuda_time_ms(lambda: fn(op, m_t, x, pmm, pms,
+                                                   **kw))
+                    log(f"  {d + '_' + var + sfx:15s} {what}: kernel "
+                        f"{k_ms:.3f} ms, plain version {plain[d]:.1f} ms")
     part = torch.rand((len(m_vals), 3, L, 16), generator=gen).to(dev)
     m_t = torch.as_tensor(m_vals, dtype=torch.int32, device=dev)
     out = lc.anal_reduce(part, m_t, l_max=l_max, mp_vals=mp_t)
@@ -1295,9 +1318,9 @@ def main_path(dev, mode: str, l_max: int, K: int, layout: str,
         # the order-fixed bucket fold and the chunk-order reduce: the same
         # bits on every call
         rerun_same("synthesis", digest(maps), lambda: plan.alm2map(alm))
-    if grid != "gl" or (layout == "fused" and var == "vpu"):
-        # (GL: the vpu analysis template's full-width runs) the fixed-order
-        # ring reduction and the chunk-order reduce
+    if grid != "gl" or (layout in ("fused", "plain") and var == "vpu"):
+        # (GL: the vpu analysis template's full-width runs, kernels 11 and
+        # 3) the fixed-order ring reduction and the chunk-order reduce
         rerun_same("analysis", digest(plan.map2alm(maps)),
                    lambda: plan.map2alm(maps))
     timed = {"fused": time_fused_kernels, "plain": time_kernels,
@@ -1328,11 +1351,13 @@ def main_path(dev, mode: str, l_max: int, K: int, layout: str,
 
 
 def check_vpu_fold_full_width(dev) -> None:
-    """Kernels 11 and 7 (the vpu analysis template) at full width with the
-    equator fold, which no main path runs: a fold plan's own seeds, slot
-    layout and fold tables (GL l_max 4096, K 1) and random FFT rows, each
-    kernel held against its plain version at KERNEL_TOL (dead positions
-    exactly zero) and rerun for identical bits."""
+    """The vpu templates at full width with the equator fold, which no main
+    path runs: on a fold plan's own seeds, slot layout and fold tables (GL
+    l_max 4096, K 1) kernels 9 and 5 (random coefficients) and 11 and 7
+    (random FFT rows), and on a plain-layout fold plan's rows and seeds
+    kernel 3 (random Delta rows); each held against its plain version at
+    KERNEL_TOL (empty segments, dead positions and padding rows exactly
+    zero) and rerun for identical bits."""
     plan = repro_torch.make_plan("gl", 4096, K=1, dtype="float32",
                                  mode="cuda_vpu", fold=True)
     gen = torch.Generator().manual_seed(41)
@@ -1341,22 +1366,54 @@ def check_vpu_fold_full_width(dev) -> None:
     _, kw, _ = plan._fused_parts("vpu", False)
     lo, store = kw["lo"], kw["store"]
     prep = store["prep"]
-    tab = store[("tables", "anal")]
     R, S = prep[1].shape[0], lo.S
-    f = (torch.rand((lo.n_slots, 2, 2, 2, R), generator=gen) * 2 - 1).to(dev)
+    what = f"{where(plan)} fold, K 1, "
     dead = torch.as_tensor(lo.a_row < 0, device=dev)
+    empty = torch.as_tensor(lo.slot_seed == S, device=dev)
+    # the FFT rows first, so the analysis digests stay comparable across
+    # versions of this check
+    f = (torch.rand((lo.n_slots, 2, 2, 2, R), generator=gen) * 2 - 1).to(dev)
+    a_pk = torch.rand((lo.n_slots, S, 2), generator=gen) * 2 - 1
+    a_pk = a_pk.masked_fill_(torch.as_tensor(lo.a_row < 0)[..., None],
+                             0.0).to(dev)
+    tab = store[("tables", "synth")]
+    for kind, args, pad in (("fused", (a_pk, *prep, tab), (empty, 1)),
+                            ("packed", (a_pk, *prep), (empty, slice(2, 4)))):
+        synth = getattr(fused_cuda, f"synth_{kind}_vpu")
+        skw = dict(l_max=plan.l_max, fold=True)
+        out = synth(*args, **skw)
+        want = getattr(kref, f"synth_{kind}_ref")(*args, layout="vpu", **skw)
+        held(f"synth_{kind}_vpu", out, want, what
+             + ("fold tables" if kind == "fused" and tab is not None
+                else "no tables"), pad)
+        rerun_same(f"synth_{kind}_vpu", digest(out),
+                   lambda: synth(*args, **skw))
+        del out, want
+    tab = store[("tables", "anal")]
     kw = dict(l_max=plan.l_max, s_len=S)
     for kind, args in (("fused", (f, *prep, tab)),
                        ("packed", (f.reshape(lo.n_slots, 4, 2, R), *prep))):
         anal = getattr(fused_cuda, f"anal_{kind}_vpu")
         out = anal(*args, **kw)
         want = getattr(kref, f"anal_{kind}_ref")(*args, layout="vpu", **kw)
-        held(f"anal_{kind}_vpu", out, want,
-             f"{where(plan)} fold, K 1, "
+        held(f"anal_{kind}_vpu", out, want, what
              + ("fold tables" if kind == "fused" and tab is not None
                 else "no tables"), dead)
         rerun_same(f"anal_{kind}_vpu", digest(out),
                    lambda: anal(*args, **kw))
+        del out, want
+    del plan, prep, a_pk, f
+    plan = repro_torch.make_plan("gl", 4096, K=1, dtype="float32",
+                                 mode="cuda_vpu", fold=True, layout="plain")
+    m_t, x, pmm, pms, _ = plan._row_seeds()
+    dw = (torch.rand((m_t.shape[0], 2, x.shape[0], 2), generator=gen) * 2
+          - 1).to(dev)
+    args = (dw, m_t, x, pmm, pms)
+    akw = dict(l_max=plan.l_max, fold=True)
+    out = lc.anal_vpu(*args, **akw)
+    held("anal_vpu", out, kref.anal_ref(*args, **akw),
+         f"{where(plan)} fold, K 1, plain layout", m_t < 0)
+    rerun_same("anal_vpu", digest(out), lambda: lc.anal_vpu(*args, **akw))
     torch.cuda.empty_cache()
 
 
@@ -1475,8 +1532,8 @@ def main() -> int:
     for spin in SPINS:
         for mode, l_max, K, layout in MAIN_PATH:
             kernels += main_path(dev, mode, l_max, K, layout, spin)
-    log(f"{elapsed()}   -- the vpu analysis template at full width with the "
-        "fold")
+    log(f"{elapsed()}   -- the vpu templates (kernels 9, 5, 11, 7, 3) at "
+        "full width with the fold")
     check_vpu_fold_full_width(dev)
     log(f"{elapsed()}   -- the ragged-grid paths: HEALPix, ring-uniform "
         "HEALPix, ECP")

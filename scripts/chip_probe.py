@@ -21,21 +21,28 @@ call, on one card: unpack the parent first (``git archive <parent> | tar
 parent's kernel wrappers from there beside this tree's, so each tree is
 called through its own wrappers and builds its own sources into its own
 ``_build`` directory (four ``nvcc`` together).  It writes both trees'
-``-Xptxas -v`` logs and the SASS of the vpu slot kernels (``cuobjdump
--sass``) to ``chiprun_out/``, names every kernel whose SASS differs from
-the parent's, and times, in turns (parent, this tree, this tree, parent;
-``chip_smoke.cuda_time_ms``, mean of 5 each): ``anal_reduce`` on both
-routes (the plain grid's rows with their m, the slot layouts' streams as
-each tree's analyses reduce them) beside ``part.sum(dim=1)`` at every
-shape of the main paths, with each call's host time when calls run back
-to back, holding this tree's output equal to the parent's bit for bit;
-and kernels 9 (``synth_fused_vpu``), 11 (``anal_fused_vpu``) and 7
-(``anal_packed_vpu``) at GL 4096/K1 spin 0 and 2 and HEALPix 2048/K1 spin
-0 on ``chip_smoke.py``'s own main-path inputs, printing both trees'
-analysis digests (those its log prints; also on its packed paths at GL
-1024/K1) and the gap between them; then runs ``chip_smoke.py``'s packed
-main path at GL 4096/K1 (the smoke runs it at l_max 1024) for its
-direction times.  Prints numbers only; the checks that pass or fail are
+``-Xptxas -v`` logs and the SASS of the vpu kernels (``cuobjdump -sass``:
+9, 11 and 7 of ``fused``, 3 of ``legendre``) to ``chiprun_out/``, names
+every kernel whose SASS differs from the parent's, counts the inner loops
+of the main paths' instantiations by opcode, and times, in turns (parent,
+this tree, this tree, parent; ``chip_smoke.cuda_time_ms``, mean of 5
+each): ``anal_reduce`` on both routes (the plain grid's rows with their
+m, the slot layouts' streams as each tree's analyses reduce them) beside
+``part.sum(dim=1)`` at every shape of the main paths, with each call's
+host time when calls run back to back, holding this tree's output equal
+to the parent's bit for bit; kernels 9 (``synth_fused_vpu``), 11
+(``anal_fused_vpu``) and 7 (``anal_packed_vpu``) at GL 4096/K1 spin 0 and
+2 and HEALPix 2048/K1 spin 0, kernel 5 (``synth_packed_vpu``) on the
+packed GL 4096/K1 path and kernel 3 (``anal_vpu``) on the plain one, spin
+0 and 2, each on ``chip_smoke.py``'s own main-path inputs, printing both
+trees' digests (those its log prints; kernel 7's also on its packed paths
+at GL 1024/K1, kernel 3's also on its phase-2 operands and the plain
+reduce of its partials), the gap between
+the analyses and whether the synthesis outputs are equal bit for bit;
+kernel 9 also at GL 4096 with K 4 and 7 (map chunks of 4 and 8: plans
+pick the vpu variant up to K 7); then runs ``chip_smoke.py``'s packed main
+path at GL 4096/K1 (the smoke runs it at l_max 1024) for its direction
+times.  Prints numbers only; the checks that pass or fail are
 ``chip_smoke.py``'s.
 """
 import collections
@@ -210,31 +217,39 @@ def _sass(path):
     return funcs
 
 
+#: per library: the vpu kernels whose SASS goes to ``chiprun_out/`` (a
+#: name pattern) and the main paths' instantiation among them whose loops
+#: are counted, spin 0 and 2 (fused: kernels 9 and 11 at KM 1, fold off;
+#: legendre: kernel 3 at KC 2, fold off)
+VPU_SASS = {
+    "fused": (r"(anal|synth)_fused_vpu_kernelI\w+?EE", "ILi1ELb0ELb1E"),
+    "legendre": (r"anal_vpu_kernelI\w+?EE", "ILi2ELb0E")}
+
+
 def _sass_report(old_path, new_path, lib):
     """Which kernels of a library compiled to other SASS than the parent's;
-    for the vpu slot kernels of the main paths (KM 1, fold off, spin 0 and
-    2), each loop (a backward branch) holding no barrier, by opcode.  The
-    vpu slot kernels' SASS goes to ``chiprun_out/sass_<tree>.txt``."""
+    for the vpu kernels of the main paths (:data:`VPU_SASS`), each loop (a
+    backward branch) holding no barrier, by opcode.  Their SASS goes to
+    ``chiprun_out/sass_<tree>_<library>.txt``."""
     old, new = _sass(old_path), _sass(new_path)
     changed = sorted(n for n in new if old.get(n) != new[n])
     short = [re.search(r"([a-z_]+_kernel)I", n) for n in changed]
     print(f"  {lib}: {len(changed)} of {len(new)} kernels compile to other "
           f"SASS than the parent's: "
           f"{sorted(set(m.group(1) for m in short if m))}", flush=True)
-    if lib != "fused":
-        return
+    pattern, main = VPU_SASS[lib]
     for tag, funcs in (("parent", old), ("tree", new)):
-        vpu = {n: b for n, b in funcs.items() if "_fused_vpu_kernel" in n}
-        with open(f"chiprun_out/sass_{tag}.txt", "w") as fh:
+        vpu = {n: b for n, b in funcs.items() if re.search(pattern, n)}
+        with open(f"chiprun_out/sass_{tag}_{lib}.txt", "w") as fh:
             for n, body in vpu.items():
                 fh.write(f"Function : {n}\n" + "\n".join(
                     f"/*{a:04x}*/ {t};" for a, t in body) + "\n")
         for n, ins in vpu.items():
-            if "ILi1ELb0ELb1E" not in n:
+            name = re.search(pattern, n).group(0)
+            if main not in name:
                 continue
             at = {a: i for i, (a, _) in enumerate(ins)}
-            name = re.search(r"(anal|synth)_fused_vpu_kernelI\w+?EE", n)
-            print(f"  {tag} SASS {name.group(0)}: {len(ins)} instructions",
+            print(f"  {tag} SASS {name}: {len(ins)} instructions",
                   flush=True)
             for i, (a, txt) in enumerate(ins):
                 m = re.search(r"BRA\s.*0x([0-9a-f]+)", txt)
@@ -246,8 +261,29 @@ def _sass_report(old_path, new_path, lib):
                     re.sub(r"^@!?U?P\w+\s+", "", t).split()[0].split(".")[0]
                     for _, t in loop)
                 if "BAR" not in ops:           # the loops inside a tile
-                    print(f"    loop of {len(loop)}: "
-                          f"{dict(ops.most_common())}", flush=True)
+                    print(f"    loop of {len(loop)}, steady path "
+                          f"{_steady_path(loop)}: {dict(ops.most_common())}",
+                          flush=True)
+
+
+def _steady_path(loop):
+    """Instructions issued in one pass through a loop body when every
+    predicated branch falls through and every unconditional one is taken
+    (the path of a step past the seed: the block-uniform tests of l == m,
+    l == m + 1 and a dead ring tile all fail)."""
+    at = {a: i for i, (a, _) in enumerate(loop)}
+    i, n = 0, 1                        # the back edge
+    while i < len(loop) - 1:
+        n += 1
+        txt = loop[i][1]
+        m = re.search(r"BRA\s.*0x([0-9a-f]+)", txt)
+        if m and not txt.startswith("@"):
+            if at.get(int(m.group(1), 16), -1) <= i:
+                break
+            i = at[int(m.group(1), 16)]
+            continue
+        i += 1
+    return n
 
 
 def _reduce_rows(dev):
@@ -289,12 +325,12 @@ def _reduce_rows(dev):
                 _slot_reduce(tree), part, maps, l_max, bool(spin)))
 
 
-def _vpu_inputs(grid, size, spin, layout):
+def _vpu_inputs(grid, size, spin, layout, K=1):
     """``chip_smoke.py``'s own vpu main path on ``layout`` (its seeds, so
     the analysis digests below are the ones its log prints): (plan, pack
     operands, analysis tables or None, S, analysis rows as the kernel takes
     them, packed coefficient rows)."""
-    plan, alm, maps = cs.run_main_path(dev, "cuda_vpu", size, 1, layout,
+    plan, alm, maps = cs.run_main_path(dev, "cuda_vpu", size, K, layout,
                                        spin, grid)
     if layout == "fused":
         _, kw, _ = plan._fused_parts("vpu", False)
@@ -322,6 +358,77 @@ def _vpu_inputs(grid, size, spin, layout):
     return plan, pk, tab, lo.S, f, ops._pack_a(a_rows, lo).contiguous()
 
 
+#: (grid, size, spin, layout) of the main paths whose vpu kernels
+#: ``--compare`` runs on their own inputs: the fused ones time kernels 9,
+#: 11 and 7, the packed GL 4096 ones kernel 5, the plain ones kernel 3;
+#: the packed GL 1024 ones (the smoke's packed size) print kernel 7's
+#: digests
+VPU_PATHS = (("gl", 4096, 0, "fused"), ("gl", 4096, 2, "fused"),
+             ("healpix", 2048, 0, "fused"), ("gl", 4096, 0, "packed"),
+             ("gl", 4096, 2, "packed"), ("gl", 1024, 0, "packed"),
+             ("gl", 1024, 2, "packed"), ("gl", 4096, 0, "plain"),
+             ("gl", 4096, 2, "plain"))
+
+
+def _same_and_turns(what, old, new):
+    """A synthesis of both trees: digests, bit equality, times in turns."""
+    a, b = old(), new()
+    what = (f"{what}: digests {cs.digest(a)} -> {cs.digest(b)}, bit-equal "
+            f"{torch.equal(a, b)}")
+    del a, b
+    return _turns(what, old, new)
+
+
+def _compare_plain(old, new, size, spin):
+    """Kernel 3 (``anal_vpu``) on ``chip_smoke.py``'s plain GL main path:
+    both trees' reduced outputs (digests, gap) and the partials kernel
+    timed in turns."""
+    plan, alm, maps = cs.run_main_path(dev, "cuda_vpu", size, 1, "plain",
+                                       spin)
+    m_t, x, pmm, pms, mp_t = plan._row_seeds()
+    _, dw = cs.path_rows(plan, alm, maps)
+    kw = dict(l_max=plan.l_max, mp_vals=mp_t)
+    ro, rn = (tree.lc.anal_vpu(dw, m_t, x, pmm, pms, **kw)
+              for tree in (old, new))
+    torch.cuda.synchronize()
+    gap = float((ro - rn).abs().max() / ro.abs().max())
+    what = (f"anal_vpu plain path {cs.where(plan)} K 1 spin {spin}: "
+            f"digests {cs.digest(ro)} -> {cs.digest(rn)}, trees differ by "
+            f"{gap:.3e} of max|parent|")
+    # the plain reduce of each tree's partials (the smoke's anal_reduce
+    # line prints its digest beside the kernel's)
+    po, pn = (kref.anal_reduce_ref(tree.lc.anal_partials(
+        "vpu", dw, m_t, x, pmm, pms, **kw), m_t, **kw)
+        for tree in (old, new))
+    print(f"  plain reduce of kernel 3's partials, {cs.where(plan)} K 1 "
+          f"spin {spin}: digests {cs.digest(po)} -> {cs.digest(pn)}, trees "
+          f"differ by {float((po - pn).abs().max() / po.abs().max()):.3e} "
+          "of max|parent|", flush=True)
+    del ro, rn, po, pn
+    _turns(what, *(functools.partial(tree.lc.anal_partials, "vpu", dw, m_t,
+                                     x, pmm, pms, **kw)
+                   for tree in (old, new)))
+    print(f"    SM clock, max: {_clocks()}", flush=True)
+    del plan, alm, maps, dw
+    torch.cuda.empty_cache()
+
+
+def _phase2_anal_vpu(old, new):
+    """Kernel 3 on ``chip_smoke.py``'s phase-2 operands
+    (``check_cases``): both trees' digests, as its log prints them, and
+    the gap between them."""
+    for spin in (False, True):
+        for fold, K, seeds, kw, _, dw in cs.check_cases(dev, spin,
+                                                        cs.check_gen(spin)):
+            ro, rn = (tree.lc.anal_vpu(dw, *seeds, **kw)
+                      for tree in (old, new))
+            gap = float((ro - rn).abs().max() / ro.abs().max())
+            print(f"  anal_vpu{cs.tag(spin)} l_max {kw['l_max']} "
+                  f"fold={fold!s:5s} K={K}: digests {cs.digest(ro)} -> "
+                  f"{cs.digest(rn)}, trees differ by {gap:.3e} of "
+                  "max|parent|", flush=True)
+
+
 def compare():
     old, new = trees["parent"], trees["this tree"]
     for lib in build.SOURCES:
@@ -341,19 +448,22 @@ def compare():
               flush=True)
         del part, a, b
     torch.cuda.empty_cache()
-    print("vpu slot kernels, on chip_smoke.py's main-path inputs (digests "
-          "of the reduced analysis, as its log prints them):", flush=True)
-    for grid, size, spin, layout in (
-            ("gl", 4096, 0, "fused"), ("gl", 4096, 2, "fused"),
-            ("healpix", 2048, 0, "fused"), ("gl", 1024, 0, "packed"),
-            ("gl", 1024, 2, "packed")):
+    print("kernel 3 on chip_smoke.py's phase-2 operands:", flush=True)
+    _phase2_anal_vpu(old, new)
+    print("vpu kernels, on chip_smoke.py's main-path inputs (digests of "
+          "the reduced analysis and of the synthesis, as its log prints "
+          "them):", flush=True)
+    for grid, size, spin, layout in VPU_PATHS:
+        if layout == "plain":
+            _compare_plain(old, new, size, spin)
+            continue
         plan, pk, tab, S, f, a_pk = _vpu_inputs(grid, size, spin, layout)
         sp = bool(spin)
         where = f"{cs.where(plan)} K 1 spin {spin}"
         # the fused path's rows through both kernels (kernel 7 without
-        # tables), the packed path's through kernel 7
+        # tables), the packed path's through kernel 7 (its digests only)
         for kind in (("fused", "packed") if layout == "fused"
-                     else ("packed",)):
+                     else ("packed",) if size < 4096 else ()):
             t = (tab,) if kind == "fused" else ()
             kw = dict(l_max=plan.l_max, s_len=S, spin=sp)
 
@@ -377,13 +487,29 @@ def compare():
                 continue
             _turns(what, run(old), run(new))
             print(f"    SM clock, max: {_clocks()}", flush=True)
-        if layout == "fused":
-            tab_s = plan._fused_store[("tables", "synth")]
-            _turns(f"synth_fused_vpu {where}", *(
-                functools.partial(tree.fc.synth_fused_vpu, a_pk, *pk, tab_s,
-                                  l_max=plan.l_max, spin=sp)
+        if layout == "fused" or size == 4096:
+            # kernel 9 on the fused paths (their synthesis tables), kernel
+            # 5 on the packed GL 4096 ones
+            kind = "fused" if layout == "fused" else "packed"
+            t = ((plan._fused_store[("tables", "synth")],)
+                 if layout == "fused" else ())
+            _same_and_turns(f"synth_{kind}_vpu {layout} path {where}", *(
+                functools.partial(getattr(tree.fc, f"synth_{kind}_vpu"),
+                                  a_pk, *pk, *t, l_max=plan.l_max, spin=sp)
                 for tree in (old, new)))
         del plan, f, a_pk
+        torch.cuda.empty_cache()
+    print("kernel 9 at more maps (plans pick the vpu variant for K 1-7): "
+          "map chunks of 4 and 8", flush=True)
+    for K in (4, 7):
+        plan, pk, _, _, _, a_pk = _vpu_inputs("gl", 4096, 0, "fused", K)
+        _same_and_turns(
+            f"synth_fused_vpu fused path {cs.where(plan)} K {K} spin 0", *(
+                functools.partial(tree.fc.synth_fused_vpu, a_pk, *pk,
+                                  plan._fused_store[("tables", "synth")],
+                                  l_max=plan.l_max, spin=False)
+                for tree in (old, new)))
+        del plan, pk, a_pk
         torch.cuda.empty_cache()
     print("the packed layout at GL 4096/K1 (chip_smoke.py's main_path, which "
           "the smoke itself runs at l_max 1024):", flush=True)

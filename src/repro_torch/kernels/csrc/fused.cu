@@ -43,13 +43,33 @@
 // Kernels (TPU kernel each replaces; what bounds it on the H100; design):
 //
 //   synth_fused_vpu  replaces synth_fused_vpu, src/repro/kernels/fused.py:222.
-//                    float32 operations bound: one thread per ring, one
-//                    block per (128-ring tile, slot, chunk of <= 8 maps); each
-//                    segment's l loop runs in the thread with the a rows of
-//                    each 32-l tile staged in shared memory and the planes in
-//                    registers, then the fold combine and the rotation run on
-//                    the registers and only the rotated rows are written,
-//                    (n_slots, 2, P, 2K, R): Delta never reaches HBM.
+//                    Bound by instruction issue, as anal_fused_vpu: the
+//                    bit-faithful step (separately rounded operations, two
+//                    rescale tests, the descale select) issues ~22 SASS
+//                    instructions a triple at K 1 against the 6 float32
+//                    instructions (8 operations) the flop bound counts.  One
+//                    block per (128 RT-ring block, slot, chunk of <= 8
+//                    maps); each thread carries RT = synth_rings(KM) rings,
+//                    base + k * 128 + t, so the writes stay coalesced: 4 at
+//                    KM 1 and 2, 8 / KM above, so the accumulators stay at
+//                    <= 32 floats a thread and up to 8 maps share one
+//                    recurrence per ring (at KM 1, 8 rings a thread issue
+//                    the same instructions a triple but take 126 registers
+//                    against 56, 4 blocks an SM against 9, too few warps to
+//                    hide each step's dependent latency: 10% slower; 2 rings
+//                    issue more a triple: 6% slower).  Per segment the block
+//                    stages each 32-l tile's a rows and coefficients in
+//                    shared memory; the seed and P_{m+1,m} are peeled off
+//                    the l loop, full ring blocks run
+//                    unguarded and the fold's two planes are a two-step
+//                    unroll, so the steady step has no branch and loads its
+//                    coefficients and a row once for all RT rings, whose
+//                    dependent chains interleave.  Each ring's sum is the
+//                    fmaf chain over ascending l from 0.0f of one ring per
+//                    thread: the same bits.  Then the fold combine and the
+//                    rotation run on the registers and only the rotated rows
+//                    are written, (n_slots, 2, P, 2K, R): Delta never
+//                    reaches HBM.
 //   synth_fused_mxu  replaces synth_fused_mxu, fused.py:385.  float32
 //                    operations bound: per (slot, 128-ring tile) and segment
 //                    the block builds (32 l x 128 ring) P panels in shared
@@ -58,21 +78,22 @@
 //                    TF32), then stages the sums in shared memory and rotates
 //                    once per ring tile into (n_slots, 2, P, R, 2K).
 //   anal_fused_vpu   replaces anal_fused_vpu, fused.py:526.  Bound by
-//                    instruction issue: the bit-faithful step (separately
-//                    rounded operations, two rescale tests, the descale
-//                    select) issues ~23 SASS instructions a triple at K 1,
-//                    of which the float32 flop bound counts 6.  One
-//                    block per (slot, 1024-ring chunk, chunk of <= 2 maps);
-//                    per segment each thread rotates the FFT rows of its 8
+//                    instruction issue: the bit-faithful step issues ~23
+//                    SASS instructions a triple at K 1, of which the float32
+//                    flop bound counts 6 (8 operations).  One block per
+//                    (slot, 1024-ring chunk, chunk of <= 2 maps); per
+//                    segment each thread rotates the FFT rows of its 8
 //                    rings into Delta in registers, once.  The seed (its
 //                    seeds read there and dropped) and P_{m+1,m} are peeled
 //                    off the l loop, and full ring chunks run unguarded, so
 //                    the steady step has no branch and loads its two
 //                    coefficients once for all 8 rings, whose dependent
-//                    chains interleave.  Per l each thread stores its
-//                    rings' sum per channel into a shared-memory column; per
-//                    32-l tile every output sums the 128 columns in one fixed
-//                    order: no per-l shuffle chain, the same bits every run.
+//                    chains interleave.  Per l each thread stores its rings'
+//                    sum per channel into a shared-memory column; per 32-l
+//                    tile every output sums the 128 columns in one fixed
+//                    order (the vpu analysis template of recurrence.cuh,
+//                    shared with anal_vpu): no per-l shuffle chain, the same
+//                    bits every run.
 //   anal_fused_mxu   replaces anal_fused_mxu, fused.py:666.  float32
 //                    operations bound: one block per (slot, 512-ring chunk,
 //                    chunk of <= 8 maps); per segment the chunk's FFT rows are
@@ -91,10 +112,11 @@
 //                    template and design, COMBINE = false, no tables).
 //   anal_packed_mxu  replaces anal_mxu_packed, legendre_pallas.py:937:
 //                    anal_fused_mxu on the parity planes as given.
-//                    All four are float32 operations bound as their fused
-//                    twins: the P_lm triples and the per-step code are the
-//                    same, and the packed layout's point on this card, as on
-//                    the TPU, is that every slot walks a near-constant
+//                    All four are bound as their fused twins (the vpu ones
+//                    by instruction issue, the mxu ones by float32
+//                    operations): the P_lm triples and the per-step code are
+//                    the same, and the packed layout's point on this card,
+//                    as on the TPU, is that every slot walks a near-constant
 //                    2 l_max - m_max + 2 steps, so no block idles on the
 //                    triangle's short rows.
 //
@@ -236,9 +258,47 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
 }
 
 // ---------------------------------------------------------------------------
-// synth_fused_vpu: grid (ceil(R / 128), n_slots, ceil(K / KM)), block 128.
+// synth_fused_vpu: grid (ceil(R / (128 RT)), n_slots, ceil(K / KM)), block
+// 128.  Thread t carries rings base + k * 128 + t, k < RT = synth_rings(KM).
 // out (n_slots, 2, P, 2K, R).
 // ---------------------------------------------------------------------------
+// Rings a thread carries at map chunk km: 4 at km 1 and 2, 8 / km above, so
+// the accumulators (RT x P x 2 km) stay at <= 32 floats.
+__host__ __device__ constexpr int synth_rings(int km) {
+  return km <= 2 ? 4 : 8 / km;
+}
+
+// The steady steps j0 <= j < n of one tile: each of the thread's rings
+// (those below ntile unless FULL) advances by the three-term recurrence and
+// adds its products to its accumulators, the tile's coefficient row read
+// once for all of them.  With the fold, even j is plane 0 and odd j plane
+// P - 1 (the tile starts at an even l - m).
+template <int RT, int CC, int P, bool SPIN, bool FULL>
+__device__ __forceinline__ void vpu_synth_steps(
+    Rec (&s)[RT], const float (&xr)[RT], float (&acc)[RT][P][CC], int ntile,
+    int j, int n,
+    const float* t0, const float* t1, const float* t2,
+    const float (*a_s)[CC]) {
+  auto step = [&](int jj, int p) {
+    float a[CC];
+#pragma unroll
+    for (int c = 0; c < CC; ++c) a[c] = a_s[jj][c];
+#pragma unroll
+    for (int k = 0; k < RT; ++k) {
+      if (FULL || k < ntile) {
+        const float v = rec_general<SPIN>(&s[k], xr[k], t0, t1, t2, jj);
+#pragma unroll
+        for (int c = 0; c < CC; ++c) acc[k][p][c] = fmaf(v, a[c], acc[k][p][c]);
+      }
+    }
+  };
+  for (; j + 1 < n; j += 2) {
+    step(j, 0);
+    step(j + 1, P - 1);
+  }
+  if (j < n) step(j, 0);
+}
+
 template <int KM, bool FOLD, bool COMBINE, bool SPIN>
 __global__ void __launch_bounds__(kTile)
 synth_fused_vpu_kernel(const float* __restrict__ a_pk,
@@ -250,74 +310,114 @@ synth_fused_vpu_kernel(const float* __restrict__ a_pk,
                        int S, int K, int R, int l_max) {
   constexpr int P = FOLD ? 2 : 1;
   constexpr int CC = 2 * KM;
+  constexpr int RT = synth_rings(KM);
   __shared__ __align__(16) float a_s[kLT][CC];
   __shared__ float bl_s[kLT], ratio_s[kLT], c_s[SPIN ? kLT : 1];
   const int si = blockIdx.y;
-  const int r = blockIdx.x * kTile + threadIdx.x;
+  const int base = blockIdx.x * RT * kTile;
+  const int t = threadIdx.x;
   const int k0 = blockIdx.z * KM;
   const int nk = min(KM, K - k0);
   const int K2 = 2 * K;
-  const bool live = r < R;
-  const float xr = live ? x[r] : 0.0f;
+  // ring tiles with a live ring (the tail block's tiles past ntile hold
+  // none, so r < R alone tells a live ring)
+  const int ntile = min(RT, (R - base + kTile - 1) / kTile);
+  float xr[RT];
+#pragma unroll
+  for (int k = 0; k < RT; ++k) {
+    const int r = base + k * kTile + t;
+    xr[k] = r < R ? x[r] : 0.0f;
+  }
 
   for (int seg = 0; seg < 2; ++seg) {
     const Seg sg = segment<SPIN>(sm, si, seg, S, l_max);
-    const size_t srow = (static_cast<size_t>(si) * 2 + seg) * R + r;
-    const float pmm_r = live ? pmm_pk[srow] : 0.0f;
-    const int pms_r = live ? pms_pk[srow] : 0;
-    const float p1 = p_first_coef(sg.m);
+    const size_t srow0 = (static_cast<size_t>(si) * 2 + seg) * R;
     const int l_end = sg.lz + sg.len;
-    float acc[P][CC];
+    float acc[RT][P][CC];
 #pragma unroll
-    for (int p = 0; p < P; ++p)
+    for (int k = 0; k < RT; ++k)
 #pragma unroll
-      for (int c = 0; c < CC; ++c) acc[p][c] = 0.0f;
-    Rec s;
+      for (int p = 0; p < P; ++p)
+#pragma unroll
+        for (int c = 0; c < CC; ++c) acc[k][p][c] = 0.0f;
+    Rec s[RT];
     for (int l0 = sg.lz; l0 < l_end; l0 += kLT) {  // block-uniform
       const int n = min(kLT, l_end - l0);
       __syncthreads();                             // previous tile consumed
-      for (int i = threadIdx.x; i < kLT * CC; i += kTile) {
-        const int j = i / CC, c = i % CC;
-        a_s[j][c] = (j < n && c % KM < nk)
-            ? a_pk[(static_cast<size_t>(si) * S + sg.g0 + l0 - sg.lz + j) *
-                       K2 + channel<KM>(c, k0, K)]
-            : 0.0f;
+#pragma unroll
+      for (int i0 = 0; i0 < kLT * CC; i0 += kTile) {  // CC / 4 entries a thread
+        const int i = i0 + t, j = i / CC, c = i % CC;
+        if (i < kLT * CC)
+          a_s[j][c] = (j < n && c % KM < nk)
+              ? a_pk[(static_cast<size_t>(si) * S + sg.g0 + l0 - sg.lz + j) *
+                         K2 + channel<KM>(c, k0, K)]
+              : 0.0f;
       }
       fill_coef<SPIN>(l0, sg.m, sg.mp, bl_s, ratio_s, c_s);
       __syncthreads();
-      for (int j = 0; j < n; ++j) {
-        const int l = l0 + j;
-        const float v = rec_step<SPIN>(&s, l, sg.lz, xr, bl_s, ratio_s, c_s,
-                                       j, p1, pmm_r, pms_r);
-        if (FOLD && ((l + sg.m) & 1)) {
+      int j = 0;
+      if (l0 == sg.lz) {
+        // the seed (plane 0: l - m even), then (spin 0) P_{m+1,m} (plane
+        // P - 1); each sum starts as fmaf(v, a, 0.0f), as in the loop
 #pragma unroll
-          for (int c = 0; c < CC; ++c)
-            acc[P - 1][c] = fmaf(v, a_s[j][c], acc[P - 1][c]);
-        } else {
+        for (int k = 0; k < RT; ++k) {
+          if (k < ntile) {
+            const int r = base + k * kTile + t;
+            const bool live = r < R;
+            const float v = rec_seed(&s[k],
+                                     live ? pmm_pk[srow0 + r] : 0.0f,
+                                     live ? pms_pk[srow0 + r] : 0);
 #pragma unroll
-          for (int c = 0; c < CC; ++c) acc[0][c] = fmaf(v, a_s[j][c], acc[0][c]);
+            for (int c = 0; c < CC; ++c)
+              acc[k][0][c] = fmaf(v, a_s[0][c], acc[k][0][c]);
+          }
+        }
+        j = 1;
+        if (!SPIN && n > 1) {
+          const float p1 = p_first_coef(sg.m);
+#pragma unroll
+          for (int k = 0; k < RT; ++k) {
+            if (k < ntile) {
+              const float v = rec_first(&s[k], xr[k], p1);
+#pragma unroll
+              for (int c = 0; c < CC; ++c)
+                acc[k][P - 1][c] = fmaf(v, a_s[1][c], acc[k][P - 1][c]);
+            }
+          }
+          j = 2;
         }
       }
+      if (ntile == RT)                             // block-uniform
+        vpu_synth_steps<RT, CC, P, SPIN, true>(s, xr, acc, ntile, j, n,
+                                               bl_s, ratio_s, c_s, a_s);
+      else
+        vpu_synth_steps<RT, CC, P, SPIN, false>(s, xr, acc, ntile, j, n,
+                                                bl_s, ratio_s, c_s, a_s);
     }
-    if (!live) continue;
-    if (FOLD && COMBINE) {
 #pragma unroll
-      for (int c = 0; c < CC; ++c) {
-        const float e = acc[0][c], o = acc[P - 1][c];
-        acc[0][c] = e + o;                         // north
-        acc[P - 1][c] = e - o;                     // south
+    for (int k = 0; k < RT; ++k) {
+      const int r = base + k * kTile + t;
+      if (r >= R) continue;
+      if (FOLD && COMBINE) {
+#pragma unroll
+        for (int c = 0; c < CC; ++c) {
+          const float e = acc[k][0][c], o = acc[k][P - 1][c];
+          acc[k][0][c] = e + o;                    // north
+          acc[k][P - 1][c] = e - o;                // south
+        }
       }
-    }
 #pragma unroll
-    for (int p = 0; p < P; ++p) {
+      for (int p = 0; p < P; ++p) {
 #pragma unroll
-      for (int k = 0; k < KM; ++k) {
-        if (k >= nk) continue;
-        float re = acc[p][k], im = acc[p][KM + k];
-        if (tab != nullptr) rotate(tab, tab_row(si, seg, p, P, R, r), R, &re, &im);
-        const size_t o = ((static_cast<size_t>(si) * 2 + seg) * P + p) * K2;
-        out[(o + k0 + k) * R + r] = re;
-        out[(o + K + k0 + k) * R + r] = im;
+        for (int kk = 0; kk < KM; ++kk) {
+          if (kk >= nk) continue;
+          float re = acc[k][p][kk], im = acc[k][p][KM + kk];
+          if (tab != nullptr)
+            rotate(tab, tab_row(si, seg, p, P, R, r), R, &re, &im);
+          const size_t o = ((static_cast<size_t>(si) * 2 + seg) * P + p) * K2;
+          out[(o + k0 + kk) * R + r] = re;
+          out[(o + K + k0 + kk) * R + r] = im;
+        }
       }
     }
   }
@@ -508,63 +608,11 @@ synth_fused_mxu_kernel(const float* __restrict__ a_pk,
 
 // ---------------------------------------------------------------------------
 // anal_fused_vpu partials: part[slot][chunk][g][c] = sum over the chunk's
-// rings of Delta(r) P_lm(r) at stream position g.  Thread t carries rings
-// chunk0 + k * kVpuThreads + t, k < kVpuRings, and per l adds its rings'
-// products in k order into one column of the tile's reduction rows red_s;
-// once per 32-l tile every output (l, c) sums its kVpuThreads columns in a
-// fixed order (four interleaved partial sums, then the H threads of the
-// output by an xor butterfly).  f_pk (n_slots, 2, P, 2K, R).
+// rings of Delta(r) P_lm(r) at stream position g, through the vpu analysis
+// template's ring reduction (recurrence.cuh).  f_pk (n_slots, 2, P, 2K, R).
 // grid (n_chunks, n_slots, ceil(K / KM)), block kVpuThreads, dynamic shared
 // memory (AnalVpuShape).
 // ---------------------------------------------------------------------------
-constexpr int kVpuThreads = 128;
-constexpr int kVpuRings = kVpuAnalTiles * kTile / kVpuThreads;
-
-template <int KM>
-struct AnalVpuShape {
-  static constexpr int CC = 2 * KM;
-  static constexpr int O = kLT * CC;                // outputs of a tile
-  static constexpr int H = kVpuThreads / O;         // threads per output
-  static constexpr int kStride = kVpuThreads + H;   // conflict-free rows
-  static constexpr size_t smem_bytes =
-      (static_cast<size_t>(O) * kStride + 3 * kLT) * sizeof(float);
-  static_assert(H >= 1 && kVpuThreads % O == 0, "one output per H threads");
-};
-
-// The steady steps j0 <= j < n of one tile: each of the thread's rings
-// (those below ntile unless FULL) advances by the three-term recurrence and
-// adds its products into the thread's column of red_s.  With the fold, even
-// j is plane 0 and odd j plane P - 1 (the tile starts at an even l - m).
-template <int KM, int P, bool SPIN, bool FULL>
-__device__ __forceinline__ void vpu_anal_steps(
-    Rec (&s)[kVpuRings], const float (&xr)[kVpuRings],
-    const float (&d)[kVpuRings][P][2 * KM], int ntile, int j, int n,
-    const float* t0, const float* t1, const float* t2, float* red_s) {
-  constexpr int CC = 2 * KM;
-  constexpr int kStride = AnalVpuShape<KM>::kStride;
-  float* col = red_s + threadIdx.x;
-  auto step = [&](int jj, int p) {
-    float sum[CC];
-#pragma unroll
-    for (int c = 0; c < CC; ++c) sum[c] = 0.0f;
-#pragma unroll
-    for (int k = 0; k < kVpuRings; ++k) {
-      if (FULL || k < ntile) {
-        const float v = rec_general<SPIN>(&s[k], xr[k], t0, t1, t2, jj);
-#pragma unroll
-        for (int c = 0; c < CC; ++c) sum[c] = fmaf(v, d[k][p][c], sum[c]);
-      }
-    }
-#pragma unroll
-    for (int c = 0; c < CC; ++c) col[(jj * CC + c) * kStride] = sum[c];
-  };
-  for (; j + 1 < n; j += 2) {
-    step(j, 0);
-    step(j + 1, P - 1);
-  }
-  if (j < n) step(j, 0);
-}
-
 template <int KM, bool FOLD, bool COMBINE, bool SPIN>
 __global__ void __launch_bounds__(kVpuThreads)
 anal_fused_vpu_kernel(const float* __restrict__ f_pk,
@@ -574,7 +622,7 @@ anal_fused_vpu_kernel(const float* __restrict__ f_pk,
                       const int* __restrict__ pms_pk,
                       const float* __restrict__ tab, float* __restrict__ part,
                       int S, int K, int R, int l_max) {
-  using Sh = AnalVpuShape<KM>;
+  using Sh = AnalVpuShape<2 * KM>;
   constexpr int P = FOLD ? 2 : 1;
   constexpr int CC = Sh::CC, H = Sh::H;
   constexpr int RT = kVpuRings;
@@ -647,65 +695,21 @@ anal_fused_vpu_kernel(const float* __restrict__ f_pk,
       const int n = min(kLT, l_end - l0);
       fill_coef<SPIN>(l0, sg.m, sg.mp, t0, t1, t2);
       __syncthreads();
-      int j = 0;
-      if (l0 == sg.lz) {
-        // the seed (plane 0: l - m even), its seeds read here and dropped,
-        // then (spin 0) P_{m+1,m} (plane P - 1)
-        float sum[CC];
-#pragma unroll
-        for (int c = 0; c < CC; ++c) sum[c] = 0.0f;
-#pragma unroll
-        for (int k = 0; k < RT; ++k) {
-          if (k < ntile) {
-            const int r = base + k * kVpuThreads + t;
-            const bool live = r < R;
-            const float v = rec_seed(&s[k], live ? pmm_pk[srow0 + r] : 0.0f,
-                                     live ? pms_pk[srow0 + r] : 0);
-#pragma unroll
-            for (int c = 0; c < CC; ++c) sum[c] = fmaf(v, d[k][0][c], sum[c]);
-          }
-        }
-#pragma unroll
-        for (int c = 0; c < CC; ++c) red_s[c * Sh::kStride + t] = sum[c];
-        j = 1;
-        if (!SPIN && n > 1) {
-          const float p1 = p_first_coef(sg.m);
-#pragma unroll
-          for (int c = 0; c < CC; ++c) sum[c] = 0.0f;
-#pragma unroll
-          for (int k = 0; k < RT; ++k) {
-            if (k < ntile) {
-              const float v = rec_first(&s[k], xr[k], p1);
-#pragma unroll
-              for (int c = 0; c < CC; ++c)
-                sum[c] = fmaf(v, d[k][P - 1][c], sum[c]);
-            }
-          }
-#pragma unroll
-          for (int c = 0; c < CC; ++c)
-            red_s[(CC + c) * Sh::kStride + t] = sum[c];
-          j = 2;
-        }
-      }
+      // the seed and (spin 0) P_{m+1,m} peeled off the first tile
+      const int j = l0 == sg.lz
+          ? vpu_anal_first<CC, P, SPIN>(s, xr, d, ntile, n, sg.m, base, R,
+                                        pmm_pk + srow0, pms_pk + srow0,
+                                        red_s)
+          : 0;
       if (ntile == RT)                             // block-uniform
-        vpu_anal_steps<KM, P, SPIN, true>(s, xr, d, ntile, j, n, t0, t1, t2,
+        vpu_anal_steps<CC, P, SPIN, true>(s, xr, d, ntile, j, n, t0, t1, t2,
                                           red_s);
       else
-        vpu_anal_steps<KM, P, SPIN, false>(s, xr, d, ntile, j, n, t0, t1,
+        vpu_anal_steps<CC, P, SPIN, false>(s, xr, d, ntile, j, n, t0, t1,
                                            t2, red_s);
       __syncthreads();
       // every output sums its kVpuThreads columns in one fixed order
-      const float* row = red_s + o * Sh::kStride + h;
-      float q[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-#pragma unroll
-      for (int i = 0; i < kVpuThreads / H; i += 4) {
-#pragma unroll
-        for (int u = 0; u < 4; ++u) q[u] += row[(i + u) * H];
-      }
-      float total = (q[0] + q[1]) + (q[2] + q[3]);
-#pragma unroll
-      for (int off = 1; off < H; off <<= 1)
-        total += __shfl_xor_sync(0xffffffffu, total, off);
+      const float total = vpu_column_sum<CC>(red_s + o * Sh::kStride + h);
       const int jo = o / CC, c = o % CC;
       if (h == 0 && jo < n && c % KM < nk)
         part[(chunk_row + sg.g0 + l0 - sg.lz + jo) * K2 +
@@ -1005,7 +1009,8 @@ int dispatch_maps(int km, int fold, int combine, const FusedArgs& g) {
 template <int KM, bool FOLD, bool COMBINE, bool SPIN>
 struct LaunchSynthVpu {
   static int run(const FusedArgs& g) {
-    dim3 grid((g.R + kTile - 1) / kTile, g.n_slots, (g.K + KM - 1) / KM);
+    constexpr int kRings = synth_rings(KM) * kTile;
+    dim3 grid((g.R + kRings - 1) / kRings, g.n_slots, (g.K + KM - 1) / KM);
     synth_fused_vpu_kernel<KM, FOLD, COMBINE, SPIN>
         <<<grid, kTile, 0, g.stream>>>(g.in, g.sm, g.x, g.pmm, g.pms, g.tab,
                                        g.out, g.S, g.K, g.R, g.l_max);
@@ -1038,7 +1043,7 @@ struct LaunchSynthMxuBf16 {
 template <int KM, bool FOLD, bool COMBINE, bool SPIN>
 struct LaunchAnalVpu {
   static int run(const FusedArgs& g) {
-    using Sh = AnalVpuShape<KM>;
+    using Sh = AnalVpuShape<2 * KM>;
     cudaError_t err = cudaFuncSetAttribute(
         anal_fused_vpu_kernel<KM, FOLD, COMBINE, SPIN>,
         cudaFuncAttributeMaxDynamicSharedMemorySize,

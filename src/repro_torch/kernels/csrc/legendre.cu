@@ -48,13 +48,20 @@
 //               product in full float32 on the CUDA cores (no TF32, no wgmma:
 //               same error band as synth_vpu).
 //   anal_vpu    replaces anal_vpu, legendre_pallas.py:436 (paper Alg. 5).
-//               float32 operations bound; the ring reduction is the hard
-//               part.  One block per (m, 1024-ring chunk, channel chunk of
-//               <= 4); each thread carries the recurrence of 8 rings (one per
-//               128-ring tile of the chunk, in registers), sums its rings'
-//               products per l, then a fixed xor-butterfly warp reduction and
-//               a fixed-order sum over the block's 4 warps give the chunk's
-//               partial row.  No atomics.
+//               Bound by instruction issue, as anal_fused_vpu (fused.cu),
+//               whose template it shares (recurrence.cuh): the bit-faithful
+//               step issues ~22 SASS instructions a triple at K 1 against
+//               the 6 float32 instructions (8 operations) of the flop bound.
+//               One block per (m, 1024-ring chunk, channel chunk of <= 4);
+//               each thread carries the recurrence of 8 rings in registers,
+//               the seed and P_{m+1,m} peeled off the l loop, full chunks
+//               unguarded and the fold's planes a two-step unroll, so the
+//               steady step has no branch and loads its coefficients once
+//               for all 8 rings.  Per l each thread stores its rings' sum
+//               per channel into its shared-memory column; per 32-l tile
+//               every output sums the 128 columns in one fixed order into
+//               the chunk's partial row.  No atomics, no per-l shuffle
+//               chain.
 //   anal_mxu    replaces anal_mxu, legendre_pallas.py:1042.  float32
 //               operations bound: one block per (m, 512-ring chunk, channel
 //               chunk of <= 16) with the chunk's weighted Delta resident in
@@ -254,44 +261,51 @@ synth_mxu_kernel(const float* __restrict__ a, const int* __restrict__ m_vals,
 
 // ---------------------------------------------------------------------------
 // anal_vpu partials: part[m][chunk][l][c] = sum over the chunk's rings of
-// dw_m(r) P_lm(r).  Thread t carries rings chunk0 + k * 128 + t, k < 8.
-// grid (n_chunks, Mp, ceil(K2 / KC)), block 128.
+// dw_m(r) P_lm(r).  Thread t carries rings chunk0 + k * 128 + t, k < 8,
+// and reduces them through the vpu analysis template's shared-memory
+// columns (recurrence.cuh).  grid (n_chunks, Mp, ceil(K2 / KC)), block
+// kVpuThreads, dynamic shared memory (AnalVpuShape<KC>).
 // ---------------------------------------------------------------------------
 template <int KC, bool FOLD, bool SPIN>
-__global__ void __launch_bounds__(kTile)
+__global__ void __launch_bounds__(kVpuThreads)
 anal_vpu_kernel(const float* __restrict__ dw, const int* __restrict__ m_vals,
                 const int* __restrict__ mp_vals, const float* __restrict__ x,
                 const float* __restrict__ pmm, const int* __restrict__ pms,
                 float* __restrict__ part, int K2, int R, int l_end) {
+  using Sh = AnalVpuShape<KC>;
   constexpr int P = FOLD ? 2 : 1;
-  constexpr int kWarps = kTile / 32;
-  __shared__ float row_s[kWarps][kLT][KC];
-  __shared__ float bl_s[kLT], ratio_s[kLT], c_s[SPIN ? kLT : 1];
+  constexpr int H = Sh::H;
+  constexpr int RT = kVpuRings;
+  extern __shared__ __align__(16) float smem[];
+  float* red_s = smem;                                 // [O][kStride]
+  float* t0 = red_s + Sh::O * Sh::kStride;             // [kLT] x 3
+  float* t1 = t0 + kLT;
+  float* t2 = t1 + kLT;
   const int mi = blockIdx.y;
   const int chunk = blockIdx.x;
-  const int base = chunk * kVpuAnalTiles * kTile;
+  const int base = chunk * RT * kVpuThreads;
   const int c0 = blockIdx.z * KC;
   const int nch = min(KC, K2 - c0);
   const int m = m_vals[mi];
   if (m < 0) return;                         // block-uniform; reduce zeroes it
   const int mp = SPIN ? mp_vals[mi] : 0;
   const int lz = row_start<SPIN>(m, mp);     // reduce zeroes the rows below
-  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
-  const int ntile = min(kVpuAnalTiles, (R - base + kTile - 1) / kTile);
-  const float p1 = p_first_coef(m);
+  const int t = threadIdx.x;
+  const int ntile = min(RT, (R - base + kVpuThreads - 1) / kVpuThreads);
+  const size_t row = static_cast<size_t>(mi) * R;
+  const size_t chunk_row =
+      (static_cast<size_t>(mi) * gridDim.x + chunk) * l_end;
+  // the output this thread reduces at the end of a tile: (j, c) = o, h-th
+  // of its H threads
+  const int o = t / H, h = t % H;
 
-  Rec s[kVpuAnalTiles];
-  float xr[kVpuAnalTiles], pmm_r[kVpuAnalTiles];
-  int pms_r[kVpuAnalTiles];
-  float d[kVpuAnalTiles][P][KC];
+  float xr[RT];
+  float d[RT][P][KC];
 #pragma unroll
-  for (int k = 0; k < kVpuAnalTiles; ++k) {
-    const int r = base + k * kTile + t;
+  for (int k = 0; k < RT; ++k) {
+    const int r = base + k * kVpuThreads + t;
     const bool live = k < ntile && r < R;
-    const size_t row = static_cast<size_t>(mi) * R + r;
     xr[k] = live ? x[r] : 0.0f;
-    pmm_r[k] = live ? pmm[row] : 0.0f;
-    pms_r[k] = live ? pms[row] : 0;
 #pragma unroll
     for (int p = 0; p < P; ++p)
 #pragma unroll
@@ -301,54 +315,28 @@ anal_vpu_kernel(const float* __restrict__ dw, const int* __restrict__ m_vals,
             : 0.0f;
   }
 
-  for (int l0 = lz; l0 < l_end; l0 += kLT) {
+  Rec s[RT];
+  for (int l0 = lz; l0 < l_end; l0 += kLT) {  // block-uniform
     const int n = min(kLT, l_end - l0);
-    fill_coef<SPIN>(l0, m, mp, bl_s, ratio_s, c_s);
+    fill_coef<SPIN>(l0, m, mp, t0, t1, t2);
     __syncthreads();
-    for (int j = 0; j < n; ++j) {
-      const int l = l0 + j;
-      const int p = (FOLD && ((l + m) & 1)) ? P - 1 : 0;
-      float sum[KC];
-#pragma unroll
-      for (int c = 0; c < KC; ++c) sum[c] = 0.0f;
-#pragma unroll
-      for (int k = 0; k < kVpuAnalTiles; ++k) {
-        if (k < ntile) {                      // block-uniform
-          const float v = rec_step<SPIN>(&s[k], l, lz, xr[k], bl_s, ratio_s,
-                                         c_s, j, p1, pmm_r[k], pms_r[k]);
-          if (p) {
-#pragma unroll
-            for (int c = 0; c < KC; ++c)
-              sum[c] = fmaf(v, d[k][P - 1][c], sum[c]);
-          } else {
-#pragma unroll
-            for (int c = 0; c < KC; ++c) sum[c] = fmaf(v, d[k][0][c], sum[c]);
-          }
-        }
-      }
-#pragma unroll
-      for (int c = 0; c < KC; ++c) {
-#pragma unroll
-        for (int off = 16; off > 0; off >>= 1)
-          sum[c] += __shfl_xor_sync(0xffffffffu, sum[c], off);
-      }
-      if (lane == 0) {
-#pragma unroll
-        for (int c = 0; c < KC; ++c) row_s[warp][j][c] = sum[c];
-      }
-    }
+    // the seed and (spin 0) P_{m+1,m} peeled off the first tile
+    const int j = l0 == lz
+        ? vpu_anal_first<KC, P, SPIN>(s, xr, d, ntile, n, m, base, R,
+                                      pmm + row, pms + row, red_s)
+        : 0;
+    if (ntile == RT)                           // block-uniform
+      vpu_anal_steps<KC, P, SPIN, true>(s, xr, d, ntile, j, n, t0, t1, t2,
+                                        red_s);
+    else
+      vpu_anal_steps<KC, P, SPIN, false>(s, xr, d, ntile, j, n, t0, t1, t2,
+                                         red_s);
     __syncthreads();
-    for (int i = t; i < n * KC; i += kTile) {
-      const int j = i / KC, c = i % KC;
-      if (c < nch) {
-        float total = 0.0f;
-#pragma unroll
-        for (int w = 0; w < kWarps; ++w) total += row_s[w][j][c];
-        part[((static_cast<size_t>(mi) * gridDim.x + chunk) * l_end + l0 + j) *
-                 K2 + c0 + c] = total;
-      }
-    }
-    __syncthreads();                         // row_s / beta reused next tile
+    // every output sums its kVpuThreads columns in one fixed order
+    const float total = vpu_column_sum<KC>(red_s + o * Sh::kStride + h);
+    const int jo = o / KC, c = o % KC;
+    if (h == 0 && jo < n && c < nch)
+      part[(chunk_row + l0 + jo) * K2 + c0 + c] = total;
   }
 }
 
@@ -582,15 +570,21 @@ int dispatch_flags(int fold, bool spin, const Args& g) {
               : Launch<KC, false, false>::run(g);
 }
 
-template <template <int, bool, bool> class Launch, typename Args>
-int dispatch(int kc, int fold, bool spin, const Args& g) {
-  switch (kc) {
+template <template <int, bool, bool> class Launch, int kMax, typename Args>
+int dispatch(int fold, bool spin, const Args& g) {
+  switch (chunk_for(g.K2, kMax)) {
     case 2: return dispatch_flags<Launch, 2>(fold, spin, g);
     case 4: return dispatch_flags<Launch, 4>(fold, spin, g);
-    case 8: return dispatch_flags<Launch, 8>(fold, spin, g);
-    case 16: return dispatch_flags<Launch, 16>(fold, spin, g);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+    case 8:
+      if constexpr (kMax >= 8) return dispatch_flags<Launch, 8>(fold, spin, g);
+      break;
+    case 16:
+      if constexpr (kMax >= 16)
+        return dispatch_flags<Launch, 16>(fold, spin, g);
+      break;
+    default: break;
   }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 struct SynthArgs {
@@ -630,8 +624,15 @@ struct LaunchSynthMxu {
 template <int KC, bool FOLD, bool SPIN>
 struct LaunchAnalVpu {
   static int run(const AnalArgs& g) {
+    using S = AnalVpuShape<KC>;
+    cudaError_t err = cudaFuncSetAttribute(
+        anal_vpu_kernel<KC, FOLD, SPIN>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(S::smem_bytes));
+    if (err != cudaSuccess) return static_cast<int>(err);
     dim3 grid(g.n_chunks, g.Mp, (g.K2 + KC - 1) / KC);
-    anal_vpu_kernel<KC, FOLD, SPIN><<<grid, kTile, 0, g.stream>>>(
+    anal_vpu_kernel<KC, FOLD, SPIN><<<grid, kVpuThreads, S::smem_bytes,
+                                      g.stream>>>(
         g.dw, g.m_vals, g.mp_vals, g.x, g.pmm, g.pms, g.part, g.K2, g.R,
         g.l_end);
     return static_cast<int>(cudaGetLastError());
@@ -670,8 +671,7 @@ int legendre_synth_vpu(const float* a, const int* m_vals, const int* mp_vals,
                        int fold, void* stream) {
   SynthArgs g{a, m_vals, mp_vals, x, pmm, pms, out, Mp, L1, K2, R, l_end,
               static_cast<cudaStream_t>(stream)};
-  return dispatch<LaunchSynthVpu>(chunk_for(K2, 16), fold, mp_vals != nullptr,
-                                  g);
+  return dispatch<LaunchSynthVpu, 16>(fold, mp_vals != nullptr, g);
 }
 
 int legendre_synth_mxu(const float* a, const int* m_vals, const int* mp_vals,
@@ -680,8 +680,7 @@ int legendre_synth_mxu(const float* a, const int* m_vals, const int* mp_vals,
                        int fold, void* stream) {
   SynthArgs g{a, m_vals, mp_vals, x, pmm, pms, out, Mp, L1, K2, R, l_end,
               static_cast<cudaStream_t>(stream)};
-  return dispatch<LaunchSynthMxu>(chunk_for(K2, 16), fold, mp_vals != nullptr,
-                                  g);
+  return dispatch<LaunchSynthMxu, 16>(fold, mp_vals != nullptr, g);
 }
 
 int legendre_anal_vpu(const float* dw, const int* m_vals, const int* mp_vals,
@@ -692,8 +691,7 @@ int legendre_anal_vpu(const float* dw, const int* m_vals, const int* mp_vals,
     return static_cast<int>(cudaErrorInvalidValue);
   AnalArgs g{dw, m_vals, mp_vals, x, pmm, pms, part, Mp, K2, R, l_end,
              n_chunks, static_cast<cudaStream_t>(stream)};
-  return dispatch<LaunchAnalVpu>(chunk_for(K2, 4), fold, mp_vals != nullptr,
-                                 g);
+  return dispatch<LaunchAnalVpu, 4>(fold, mp_vals != nullptr, g);
 }
 
 int legendre_anal_mxu(const float* dw, const int* m_vals, const int* mp_vals,
@@ -704,8 +702,7 @@ int legendre_anal_mxu(const float* dw, const int* m_vals, const int* mp_vals,
     return static_cast<int>(cudaErrorInvalidValue);
   AnalArgs g{dw, m_vals, mp_vals, x, pmm, pms, part, Mp, K2, R, l_end,
              n_chunks, static_cast<cudaStream_t>(stream)};
-  return dispatch<LaunchAnalMxu>(chunk_for(K2, 16), fold, mp_vals != nullptr,
-                                 g);
+  return dispatch<LaunchAnalMxu, 16>(fold, mp_vals != nullptr, g);
 }
 
 // Plain rows: m_vals (mp_vals null for spin 0), m1 = mp1 = seed = null.

@@ -19,6 +19,10 @@
 // kernels select the branch with a `bool SPIN` template parameter through
 // fill_coef / rec_step; their SPIN = false instantiations run fill_beta and
 // rec_advance as before.
+//
+// The header also holds the vpu analysis template's peeled first steps,
+// steady steps and fixed-order ring reduction, shared by anal_vpu
+// (legendre.cu) and anal_fused_vpu / anal_packed_vpu (fused.cu).
 
 #pragma once
 
@@ -267,6 +271,134 @@ __device__ __forceinline__ float rec_general(Rec* s, float x,
   } else {
     return rec_next(s, x, t0[j], t1[j]);
   }
+}
+
+// ---------------------------------------------------------------------------
+// The vpu analysis template's ring reduction, shared by anal_vpu
+// (legendre.cu, kernel 3) and anal_fused_vpu / anal_packed_vpu (fused.cu,
+// kernels 11 and 7).  A block of kVpuThreads threads carries a chunk of
+// kVpuAnalTiles x kTile rings, kVpuRings per thread at chunk0 + k *
+// kVpuThreads + t.  Per l each thread adds its rings' products in k order
+// and stores the sum per channel into its column of the tile's reduction
+// rows red_s; once per 32-l tile every output (l, c) sums its kVpuThreads
+// columns in one fixed order (vpu_column_sum): no atomics, no per-l
+// shuffle chain, the same bits on every run.
+// ---------------------------------------------------------------------------
+constexpr int kVpuThreads = 128;
+constexpr int kVpuRings = kVpuAnalTiles * kTile / kVpuThreads;
+
+// The reduction rows of CC channels: O outputs a tile, H threads an output,
+// rows padded to kStride floats (conflict-free), and the dynamic shared
+// memory of the rows and three 32-entry coefficient tables.
+template <int CC_>
+struct AnalVpuShape {
+  static constexpr int CC = CC_;
+  static constexpr int O = kLT * CC;                // outputs of a tile
+  static constexpr int H = kVpuThreads / O;         // threads per output
+  static constexpr int kStride = kVpuThreads + H;   // conflict-free rows
+  static constexpr size_t smem_bytes =
+      (static_cast<size_t>(O) * kStride + 3 * kLT) * sizeof(float);
+  static_assert(H >= 1 && kVpuThreads % O == 0, "one output per H threads");
+};
+
+// The first steps of a row's first tile (tile entries 0 and 1): the seed
+// at lz (plane 0; its seeds pmm[r], pms[r] read here and dropped), then,
+// for spin 0 and n > 1, P_{m+1,m} (plane P - 1), each of the thread's rings
+// below ntile adding its products into the thread's column of red_s.
+// Returns the first entry left to the steady steps.
+template <int CC, int P, bool SPIN>
+__device__ __forceinline__ int vpu_anal_first(
+    Rec (&s)[kVpuRings], const float (&xr)[kVpuRings],
+    const float (&d)[kVpuRings][P][CC], int ntile, int n, int m, int base,
+    int R, const float* __restrict__ pmm, const int* __restrict__ pms,
+    float* red_s) {
+  constexpr int kStride = AnalVpuShape<CC>::kStride;
+  const int t = threadIdx.x;
+  float sum[CC];
+#pragma unroll
+  for (int c = 0; c < CC; ++c) sum[c] = 0.0f;
+#pragma unroll
+  for (int k = 0; k < kVpuRings; ++k) {
+    if (k < ntile) {
+      const int r = base + k * kVpuThreads + t;
+      const bool live = r < R;
+      const float v = rec_seed(&s[k], live ? pmm[r] : 0.0f,
+                               live ? pms[r] : 0);
+#pragma unroll
+      for (int c = 0; c < CC; ++c) sum[c] = fmaf(v, d[k][0][c], sum[c]);
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < CC; ++c) red_s[c * kStride + t] = sum[c];
+  if (SPIN || n < 2) return 1;
+  const float p1 = p_first_coef(m);
+#pragma unroll
+  for (int c = 0; c < CC; ++c) sum[c] = 0.0f;
+#pragma unroll
+  for (int k = 0; k < kVpuRings; ++k) {
+    if (k < ntile) {
+      const float v = rec_first(&s[k], xr[k], p1);
+#pragma unroll
+      for (int c = 0; c < CC; ++c) sum[c] = fmaf(v, d[k][P - 1][c], sum[c]);
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < CC; ++c) red_s[(CC + c) * kStride + t] = sum[c];
+  return 2;
+}
+
+// The steady steps j0 <= j < n of one tile: each of the thread's rings
+// (those below ntile unless FULL) advances by the three-term recurrence and
+// adds its products into the thread's column of red_s.  With the fold, even
+// j is plane 0 and odd j plane P - 1 (the tile starts at an even l - m).
+template <int CC, int P, bool SPIN, bool FULL>
+__device__ __forceinline__ void vpu_anal_steps(
+    Rec (&s)[kVpuRings], const float (&xr)[kVpuRings],
+    const float (&d)[kVpuRings][P][CC], int ntile, int j, int n,
+    const float* t0, const float* t1, const float* t2, float* red_s) {
+  constexpr int kStride = AnalVpuShape<CC>::kStride;
+  float* col = red_s + threadIdx.x;
+  auto step = [&](int jj, int p) {
+    float sum[CC];
+#pragma unroll
+    for (int c = 0; c < CC; ++c) sum[c] = 0.0f;
+#pragma unroll
+    for (int k = 0; k < kVpuRings; ++k) {
+      if (FULL || k < ntile) {
+        const float v = rec_general<SPIN>(&s[k], xr[k], t0, t1, t2, jj);
+#pragma unroll
+        for (int c = 0; c < CC; ++c) sum[c] = fmaf(v, d[k][p][c], sum[c]);
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < CC; ++c) col[(jj * CC + c) * kStride] = sum[c];
+  };
+  for (; j + 1 < n; j += 2) {
+    step(j, 0);
+    step(j + 1, P - 1);
+  }
+  if (j < n) step(j, 0);
+}
+
+// One output's sum of its kVpuThreads columns in a fixed order: `row`
+// points at the output's reduction row, offset by the thread's rank h < H
+// among the output's threads; four interleaved partial sums over the
+// thread's share, then the H threads by an xor butterfly (every lane of the
+// warp takes part).
+template <int CC>
+__device__ __forceinline__ float vpu_column_sum(const float* row) {
+  constexpr int H = AnalVpuShape<CC>::H;
+  float q[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+  for (int i = 0; i < kVpuThreads / H; i += 4) {
+#pragma unroll
+    for (int u = 0; u < 4; ++u) q[u] += row[(i + u) * H];
+  }
+  float total = (q[0] + q[1]) + (q[2] + q[3]);
+#pragma unroll
+  for (int off = 1; off < H; off <<= 1)
+    total += __shfl_xor_sync(0xffffffffu, total, off);
+  return total;
 }
 
 // Map (or channel) chunk per block: the smallest power of two >= n, from

@@ -743,3 +743,167 @@ def test_vpu_analysis_template_one_ring_past_a_chunk(dev, rings):
            - 1).to(dev)
     _vpu_template_check(dev, f, maps, x, pmm_pk, pms_pk, tab, lo, l_max,
                         False)
+
+
+def _vpu_synth_check(dev, a_pk, maps, x, pmm_pk, pms_pk, tab, lo, l_max,
+                     fold, spin):
+    """Kernel 9 (with ``tab``) and kernel 5 (planes kept apart, no tables)
+    on one set of operands: each within TOL of its plain version, the empty
+    segment's planes exactly zero, the same bits on a rerun; with the fold
+    off kernel 5 equals kernel 9 without tables bit for bit."""
+    empty = torch.as_tensor(lo.slot_seed == lo.S, device=dev)
+    kw = dict(l_max=l_max, fold=fold, spin=spin)
+    got = fused_cuda.synth_fused_vpu(a_pk, maps, x, pmm_pk, pms_pk, tab, **kw)
+    want = kref.synth_fused_ref(a_pk, maps, x, pmm_pk, pms_pk, tab,
+                                layout="vpu", **kw)
+    assert rel(got, want) < TOL and bool((got[empty, 1] == 0).all())
+    assert torch.equal(fused_cuda.synth_fused_vpu(a_pk, maps, x, pmm_pk,
+                                                  pms_pk, tab, **kw), got)
+    got = fused_cuda.synth_packed_vpu(a_pk, maps, x, pmm_pk, pms_pk, **kw)
+    want = kref.synth_packed_ref(a_pk, maps, x, pmm_pk, pms_pk, layout="vpu",
+                                 **kw)
+    P = 2 if fold else 1
+    assert rel(got, want) < TOL and bool((got[empty, P:] == 0).all())
+    assert torch.equal(fused_cuda.synth_packed_vpu(a_pk, maps, x, pmm_pk,
+                                                   pms_pk, **kw), got)
+    if not fold:
+        fs = fused_cuda.synth_fused_vpu(a_pk, maps, x, pmm_pk, pms_pk, None,
+                                        **kw)
+        assert torch.equal(got, fs.reshape(got.shape))
+
+
+def _random_a_pk(lo, K, seed, dev):
+    """Random packed coefficients (n_slots, S, 2K), dead positions zero."""
+    gen = torch.Generator().manual_seed(seed)
+    a_pk = torch.rand((lo.n_slots, lo.S, 2 * K), generator=gen) * 2 - 1
+    a_pk[torch.as_tensor(lo.a_row < 0)] = 0.0
+    return a_pk.to(dev)
+
+
+@pytest.mark.parametrize("tables", ["random", "none"])
+@pytest.mark.parametrize("K", [1, 2, 3, 7])
+@pytest.mark.parametrize("spin,fold", [(0, False), (0, True), (2, False)])
+def test_vpu_synthesis_template_matches_plain_versions(dev, spin, fold, K,
+                                                       tables):
+    """Kernels 9 and 5 at l_max 256 against their plain versions: spin 0
+    with the fold off and on, spin 2, map chunks of 1, 2, 4 and 8 (4 rings
+    a thread at 1 and 2, 2 at 4, 1 at 8; K 3 and 7 leave part of the chunk
+    idle), random rotation tables and none; identical bits on a rerun."""
+    l_max = 256
+    if spin:
+        c = spin_operands(l_max, K, dev, seed=K)
+        lo = pack.build_layout(c["m2"], l_max, mp_vals=c["mp2"])
+        maps, x, pmm_pk, pms_pk = ops._prep(lo, c["x"], c["pmm"], c["pms"])
+        a_pk = ops._pack_a(c["a"], lo).contiguous()
+    else:
+        lo, maps, x, pmm_pk, pms_pk, a_pk, _, _ = fused_operands(
+            l_max, K, fold, dev, seed=K)
+    P, R = (2 if fold else 1), x.shape[0]
+    gen = torch.Generator().manual_seed(10 * K + spin + 1)
+    tab = (torch.rand((lo.n_slots, 2, P, 4, R), generator=gen) * 2
+           - 1).to(dev) if tables == "random" else None
+    _vpu_synth_check(dev, a_pk, maps, x, pmm_pk, pms_pk, tab, lo, l_max,
+                     fold, bool(spin))
+
+
+@pytest.mark.parametrize("K", [1, 2, 3, 7])
+def test_vpu_synthesis_template_with_bucket_tables(dev, K):
+    """Kernels 9 and 5 on a HEALPix nside 64 plan's own seeds, layout and
+    bucket rotation tables (kernel 9 applies them in-kernel) against their
+    plain versions; identical bits on a rerun."""
+    plan = repro_torch.make_plan("healpix", nside=64, K=K, dtype="float32",
+                                 mode="cuda_vpu")
+    assert plan.layouts["synth"] == "fused"
+    a = torch.zeros(plan._alm_shape, dtype=torch.complex64, device=dev)
+    plan.map2alm(plan.alm2map(a))                # fills the plan's store
+    _, kw, _ = plan._fused_parts("vpu", False)
+    lo, store = kw["lo"], kw["store"]
+    maps, x, pmm_pk, pms_pk = store["prep"]
+    tab = store[("tables", "synth")]
+    assert tab is not None
+    _vpu_synth_check(dev, _random_a_pk(lo, K, K, dev), maps, x, pmm_pk,
+                     pms_pk, tab, lo, plan.l_max, tab.shape[2] == 2, False)
+
+
+@pytest.mark.parametrize("K", [1, 3, 7])
+@pytest.mark.parametrize("rings", [1025, 2049])
+def test_vpu_synthesis_template_one_ring_past_a_block(dev, rings, K):
+    """R one ring past a multiple of the ring block (512, 256 or 128 rings
+    at map chunks 1, 4 and 8): the last block carries a single live ring.
+    Kernels 9 and 5 against their plain versions at l_max 256 (random
+    tables), identical bits on a rerun."""
+    l_max = 256
+    g = grids.make_grid("gl", l_max=rings - 1)
+    assert g.n_rings == rings and rings % 512 == 1
+    m_vals = np.insert(np.arange(l_max + 1), 5, -1)
+    pmm, pms = kref.prepare_seeds(m_vals, g.sin_theta, legendre.log_mu(l_max))
+    t = lambda v, dt: torch.as_tensor(v, dtype=dt, device=dev)
+    lo = pack.build_layout(m_vals, l_max)
+    maps, x, pmm_pk, pms_pk = ops._prep(
+        lo, t(g.cos_theta, torch.float32), t(pmm, torch.float32),
+        t(pms, torch.int32))
+    gen = torch.Generator().manual_seed(rings)
+    tab = (torch.rand((lo.n_slots, 2, 1, 4, rings), generator=gen) * 2
+           - 1).to(dev)
+    _vpu_synth_check(dev, _random_a_pk(lo, K, rings, dev), maps, x, pmm_pk,
+                     pms_pk, tab, lo, l_max, False, False)
+
+
+def _anal_vpu_check(dw, m_t, x, pmm, pms, l_max, fold, mp_t=None):
+    """Kernel 3 through anal_reduce: within TOL of its plain version, the
+    padding rows (m < 0) exact zeros, the same bits on a rerun."""
+    kw = dict(l_max=l_max, fold=fold, mp_vals=mp_t)
+    got = lc.anal_vpu(dw, m_t, x, pmm, pms, **kw)
+    want = kref.anal_ref(dw, m_t, x, pmm, pms, **kw)
+    assert rel(got, want) < TOL and bool((got[m_t < 0] == 0).all())
+    assert torch.equal(lc.anal_vpu(dw, m_t, x, pmm, pms, **kw), got)
+    return got
+
+
+@pytest.mark.parametrize("K", [1, 2, 3])
+@pytest.mark.parametrize("spin,fold", [(0, False), (0, True), (2, False)])
+def test_anal_vpu_template_matches_plain_version(dev, spin, fold, K):
+    """Kernel 3 at l_max 256 on the plain layout against its plain version:
+    spin 0 with the fold off and on, spin 2 (rows below l0 exact zeros),
+    channel chunks of 2 (K 1) and 4 (K 2; K 3 runs both)."""
+    l_max = 256
+    if spin:
+        c = spin_operands(l_max, K, dev, seed=K)
+        got = _anal_vpu_check(c["dw"], c["m"], c["x"], c["pmm"], c["pms"],
+                              l_max, False, c["mp"])
+        assert bool((got[c["below"]] == 0).all())
+    else:
+        m_t, x, pmm, pms, _, dw = operands(l_max, K, fold, dev, seed=K)
+        _anal_vpu_check(dw, m_t, x, pmm, pms, l_max, fold)
+
+
+@pytest.mark.parametrize("K", [1, 2, 3])
+def test_anal_vpu_template_on_a_healpix_plan(dev, K):
+    """Kernel 3 on a plain-layout HEALPix nside 64 plan's own rows and seeds
+    against its plain version; identical bits on a rerun."""
+    plan = repro_torch.make_plan("healpix", nside=64, K=K, dtype="float32",
+                                 mode="cuda_vpu", layout="plain")
+    m_t, x, pmm, pms, _ = plan._row_seeds()
+    P = 2 if plan.fold else 1
+    gen = torch.Generator().manual_seed(K)
+    dw = (torch.rand((m_t.shape[0], P, x.shape[0], 2 * K), generator=gen)
+          * 2 - 1).to(dev)
+    _anal_vpu_check(dw, m_t, x, pmm, pms, plan.l_max, plan.fold)
+
+
+@pytest.mark.parametrize("rings", [1025, 2049])
+def test_anal_vpu_template_one_ring_past_a_chunk(dev, rings):
+    """R one ring past a multiple of the 1024-ring chunk: the last chunk's
+    block carries a single live ring tile.  Kernel 3 against its plain
+    version at l_max 256 with a padding row, identical bits on a rerun."""
+    l_max = 256
+    g = grids.make_grid("gl", l_max=rings - 1)
+    assert g.n_rings == rings and rings % lc.ANAL_CHUNK["vpu"] == 1
+    m_vals = np.insert(np.arange(l_max + 1), 5, -1)
+    pmm, pms = kref.prepare_seeds(m_vals, g.sin_theta, legendre.log_mu(l_max))
+    t = lambda v, dt: torch.as_tensor(v, dtype=dt, device=dev)
+    gen = torch.Generator().manual_seed(rings)
+    dw = (torch.rand((len(m_vals), 1, rings, 2), generator=gen) * 2
+          - 1).to(dev)
+    _anal_vpu_check(dw, t(m_vals, torch.int32), t(g.cos_theta, torch.float32),
+                    t(pmm, torch.float32), t(pms, torch.int32), l_max, False)
