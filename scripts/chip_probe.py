@@ -15,35 +15,54 @@ bits; and times the bucket phase stage and the fused directions at nside
 calls on a new HEALPix grid (plan, bucket index, first bucket FFTs) at
 nside 1024 and 2048.
 
-``--compare`` measures a kernel change against the parent commit in one
-call, on one card: unpack the parent first (``git archive <parent> | tar
--x -C checkouts/parent``; ``/checkouts/`` is git-ignored).  It imports the
-parent's kernel wrappers from there beside this tree's, so each tree is
-called through its own wrappers and builds its own sources into its own
-``_build`` directory (four ``nvcc`` together).  It writes both trees'
-``-Xptxas -v`` logs and the SASS of the vpu kernels (``cuobjdump -sass``:
-9, 11 and 7 of ``fused``, 3 of ``legendre``) to ``chiprun_out/``, names
-every kernel whose SASS differs from the parent's, counts the inner loops
-of the main paths' instantiations by opcode, and times, in turns (parent,
-this tree, this tree, parent; ``chip_smoke.cuda_time_ms``, mean of 5
-each): ``anal_reduce`` on both routes (the plain grid's rows with their
-m, the slot layouts' streams as each tree's analyses reduce them) beside
-``part.sum(dim=1)`` at every shape of the main paths, with each call's
-host time when calls run back to back, holding this tree's output equal
-to the parent's bit for bit; kernels 9 (``synth_fused_vpu``), 11
-(``anal_fused_vpu``) and 7 (``anal_packed_vpu``) at GL 4096/K1 spin 0 and
-2 and HEALPix 2048/K1 spin 0, kernel 5 (``synth_packed_vpu``) on the
-packed GL 4096/K1 path and kernel 3 (``anal_vpu``) on the plain one, spin
-0 and 2, each on ``chip_smoke.py``'s own main-path inputs, printing both
-trees' digests (those its log prints; kernel 7's also on its packed paths
-at GL 1024/K1, kernel 3's also on its phase-2 operands and the plain
-reduce of its partials), the gap between
-the analyses and whether the synthesis outputs are equal bit for bit;
-kernel 9 also at GL 4096 with K 4 and 7 (map chunks of 4 and 8: plans
-pick the vpu variant up to K 7); then runs ``chip_smoke.py``'s packed main
-path at GL 4096/K1 (the smoke runs it at l_max 1024) for its direction
-times.  Prints numbers only; the checks that pass or fail are
-``chip_smoke.py``'s.
+``--compare [vpu|mxu]`` measures a kernel change against the parent
+commit in one call, on one card: unpack the parent first (``git archive
+<parent> | tar -x -C checkouts/parent``; ``/checkouts/`` is git-ignored).
+It imports the parent's kernel wrappers from there beside this tree's, so
+each tree is called through its own wrappers and builds its own sources
+into its own ``_build`` directory (four ``nvcc`` together; run it before
+anything else builds this tree, or this tree's ``-Xptxas -v`` log is not
+written).  It writes both trees' ``-Xptxas -v`` logs and the SASS of the
+vpu kernels (9, 11 and 7 of ``fused``, 3 of ``legendre``) and of the mxu
+analyses (12 and its bf16 instantiation, 4) to ``chiprun_out/``, names
+every kernel whose SASS differs from the parent's, and counts the inner
+loops of the main paths' instantiations by opcode (for the mxu analyses
+also the SASS instructions a triple at 16 channels: the panel build's
+steady path over the steps it stores, plus the contraction loop's
+instructions over its FFMA).  Then, in turns (parent, this tree, this
+tree, parent; ``chip_smoke.cuda_time_ms``, mean of 5 each), each on
+``chip_smoke.py``'s own main-path inputs, printing both trees' digests
+(those its log prints) and the gap between the analyses:
+
+* ``vpu``: ``anal_reduce`` on both routes (the plain grid's rows
+  with their m, the slot layouts' streams as each tree's analyses reduce
+  them) beside ``part.sum(dim=1)`` at every shape of the main paths, with
+  each call's host time when calls run back to back, holding this tree's
+  output equal to the parent's bit for bit; kernels 9
+  (``synth_fused_vpu``), 11 (``anal_fused_vpu``) and 7
+  (``anal_packed_vpu``) at GL 4096/K1 spin 0 and 2 and HEALPix 2048/K1
+  spin 0, kernel 5 (``synth_packed_vpu``) on the packed GL 4096/K1 path
+  and kernel 3 (``anal_vpu``) on the plain one, spin 0 and 2 (kernel 7's
+  digests also on its packed paths at GL 1024/K1, kernel 3's also on its
+  phase-2 operands and the plain reduce of its partials), whether the
+  synthesis outputs are equal bit for bit; kernel 9 also at GL 4096 with K
+  4 and 7; then ``chip_smoke.py``'s packed main path at GL 4096/K1 for its
+  direction times;
+* ``mxu``: the registers and stack, spill store and spill load
+  bytes of every mxu analysis instantiation of both trees; every output
+  of ``chip_smoke.py``'s phase 2 (the kernels against their plain
+  versions at l_max 256) through both trees, those that moved with both
+  digests and their gap; kernel 12
+  (``anal_fused_mxu``) on the fused paths at GL 2048/K8 and HEALPix
+  1024/K8, spin 0 and 2, with its bf16 instantiation on
+  ``chip_smoke.py``'s BF16_PATHS; kernel 8 (``anal_packed_mxu``) on the
+  packed GL 2048/K8 paths at full width (the smoke runs them at l_max
+  1024); kernel 4 (``anal_mxu``) on the plain paths of both grids; then
+  kernel 11 at GL 4096 with K 4 and 7 (its map chunk of 2: each tree's,
+  timed, bits compared).
+
+With no part named both run.  Prints numbers only; the checks that pass
+or fail are ``chip_smoke.py``'s.
 """
 import collections
 import functools
@@ -217,19 +236,64 @@ def _sass(path):
     return funcs
 
 
-#: per library: the vpu kernels whose SASS goes to ``chiprun_out/`` (a
-#: name pattern) and the main paths' instantiation among them whose loops
-#: are counted, spin 0 and 2 (fused: kernels 9 and 11 at KM 1, fold off;
-#: legendre: kernel 3 at KC 2, fold off)
-VPU_SASS = {
-    "fused": (r"(anal|synth)_fused_vpu_kernelI\w+?EE", "ILi1ELb0ELb1E"),
-    "legendre": (r"anal_vpu_kernelI\w+?EE", "ILi2ELb0E")}
+#: per library: (name pattern, main-path instantiation) of the kernels
+#: whose SASS goes to ``chiprun_out/`` and whose loops are counted, spin 0
+#: and 2 (fused: kernels 9 and 11 at KM 1 and kernel 12, float32 and bf16,
+#: at KM 8, fold off; legendre: kernel 3 at KC 2 and kernel 4 at CC 16,
+#: fold off)
+SASS_KERNELS = {
+    "fused": ((r"(anal|synth)_fused_vpu_kernelI\w+?EE", "ILi1ELb0ELb1E"),
+              (r"anal_fused_mxu_kernelI\w+?EE", "ILi8ELb0ELb1E")),
+    "legendre": ((r"anal_vpu_kernelI\w+?EE", "ILi2ELb0E"),
+                 (r"anal_mxu_kernelI\w+?EE", "ILi16ELb0E"))}
+
+#: channels a block contracts in the mxu main-path instantiations above
+MXU_CC = 16
+
+
+def _loops(ins):
+    """Each loop (a backward branch) of a kernel's SASS holding no barrier:
+    (instructions, steady path, opcode counts)."""
+    at = {a: i for i, (a, _) in enumerate(ins)}
+    for i, (a, txt) in enumerate(ins):
+        m = re.search(r"BRA\s.*0x([0-9a-f]+)", txt)
+        if not (m and int(m.group(1), 16) <= a
+                and int(m.group(1), 16) in at):
+            continue
+        loop = ins[at[int(m.group(1), 16)]:i + 1]
+        ops = collections.Counter(
+            re.sub(r"^@!?U?P\w+\s+", "", t).split()[0].split(".")[0]
+            for _, t in loop)
+        if "BAR" not in ops:           # the loops inside a tile or panel
+            yield loop, _steady_path(loop), ops
+
+
+def _mxu_per_triple(loops):
+    """SASS instructions a (row, l, ring) triple of an mxu analysis
+    instantiation at MXU_CC channels, from its loops: the panel build (the
+    loop with FMUL and shared stores: its steady path over the recurrence
+    steps it stores, STS 1, STS.64 2, STS.128 4) plus the contraction (the
+    loop with the most FFMA: its instructions times MXU_CC over its FFMA;
+    none on the tensor-core branch, whose contraction is unrolled)."""
+    build = contract = None
+    for loop, steady, ops in loops:
+        sts = sum({"": 1, "64": 2, "128": 4}.get(
+            (re.search(r"STS(?:\.(\d+))?", t).group(1) or ""), 1)
+            for _, t in loop if re.search(r"\bSTS\b", t))
+        if ops.get("FMUL") and sts and not (ops.get("FFMA")
+                                            or ops.get("LDG")):
+            build = steady / sts
+        if ops.get("FFMA", 0) >= 8 and (
+                contract is None or ops["FFMA"] > contract[1]):
+            contract = (len(loop) * MXU_CC / ops["FFMA"], ops["FFMA"])
+    return build, contract and contract[0]
 
 
 def _sass_report(old_path, new_path, lib):
     """Which kernels of a library compiled to other SASS than the parent's;
-    for the vpu kernels of the main paths (:data:`VPU_SASS`), each loop (a
-    backward branch) holding no barrier, by opcode.  Their SASS goes to
+    for the main paths' instantiations of :data:`SASS_KERNELS`, each loop
+    holding no barrier, by opcode, and for the mxu analyses the
+    instructions a triple.  Their SASS goes to
     ``chiprun_out/sass_<tree>_<library>.txt``."""
     old, new = _sass(old_path), _sass(new_path)
     changed = sorted(n for n in new if old.get(n) != new[n])
@@ -237,33 +301,29 @@ def _sass_report(old_path, new_path, lib):
     print(f"  {lib}: {len(changed)} of {len(new)} kernels compile to other "
           f"SASS than the parent's: "
           f"{sorted(set(m.group(1) for m in short if m))}", flush=True)
-    pattern, main = VPU_SASS[lib]
     for tag, funcs in (("parent", old), ("tree", new)):
-        vpu = {n: b for n, b in funcs.items() if re.search(pattern, n)}
         with open(f"chiprun_out/sass_{tag}_{lib}.txt", "w") as fh:
-            for n, body in vpu.items():
-                fh.write(f"Function : {n}\n" + "\n".join(
-                    f"/*{a:04x}*/ {t};" for a, t in body) + "\n")
-        for n, ins in vpu.items():
-            name = re.search(pattern, n).group(0)
-            if main not in name:
-                continue
-            at = {a: i for i, (a, _) in enumerate(ins)}
-            print(f"  {tag} SASS {name}: {len(ins)} instructions",
-                  flush=True)
-            for i, (a, txt) in enumerate(ins):
-                m = re.search(r"BRA\s.*0x([0-9a-f]+)", txt)
-                if not (m and int(m.group(1), 16) <= a
-                        and int(m.group(1), 16) in at):
-                    continue
-                loop = ins[at[int(m.group(1), 16)]:i + 1]
-                ops = collections.Counter(
-                    re.sub(r"^@!?U?P\w+\s+", "", t).split()[0].split(".")[0]
-                    for _, t in loop)
-                if "BAR" not in ops:           # the loops inside a tile
-                    print(f"    loop of {len(loop)}, steady path "
-                          f"{_steady_path(loop)}: {dict(ops.most_common())}",
+            for pattern, main in SASS_KERNELS[lib]:
+                for n, ins in funcs.items():
+                    hit = re.search(pattern, n)
+                    if not hit:
+                        continue
+                    fh.write(f"Function : {n}\n" + "\n".join(
+                        f"/*{a:04x}*/ {t};" for a, t in ins) + "\n")
+                    name = hit.group(0)
+                    if main not in name:
+                        continue
+                    print(f"  {tag} SASS {name}: {len(ins)} instructions",
                           flush=True)
+                    loops = list(_loops(ins))
+                    for loop, steady, ops in loops:
+                        print(f"    loop of {len(loop)}, steady path "
+                              f"{steady}: {dict(ops.most_common())}",
+                              flush=True)
+                    if "mxu" in name:
+                        b, c = _mxu_per_triple(loops)
+                        print(f"    a triple at {MXU_CC} channels: build "
+                              f"{b}, contraction {c}", flush=True)
 
 
 def _steady_path(loop):
@@ -325,15 +385,15 @@ def _reduce_rows(dev):
                 _slot_reduce(tree), part, maps, l_max, bool(spin)))
 
 
-def _vpu_inputs(grid, size, spin, layout, K=1):
-    """``chip_smoke.py``'s own vpu main path on ``layout`` (its seeds, so
-    the analysis digests below are the ones its log prints): (plan, pack
-    operands, analysis tables or None, S, analysis rows as the kernel takes
-    them, packed coefficient rows)."""
-    plan, alm, maps = cs.run_main_path(dev, "cuda_vpu", size, K, layout,
+def _path_inputs(grid, size, spin, layout, K=1, var="vpu"):
+    """``chip_smoke.py``'s own main path of ``var`` on ``layout`` (its
+    seeds, so the analysis digests below are the ones its log prints):
+    (plan, pack operands, analysis tables or None, S, analysis rows as the
+    kernel takes them, packed coefficient rows)."""
+    plan, alm, maps = cs.run_main_path(dev, f"cuda_{var}", size, K, layout,
                                        spin, grid)
     if layout == "fused":
-        _, kw, _ = plan._fused_parts("vpu", False)
+        _, kw, _ = plan._fused_parts(var, False)
         lo, store = kw["lo"], kw["store"]
         pk = store["prep"]
         x = pk[1]
@@ -344,15 +404,17 @@ def _vpu_inputs(grid, size, spin, layout, K=1):
                               fold_rings=None, n_half=x.shape[0],
                               spin=bool(spin),
                               bucket=getattr(plan.phase, "index", None))
-        f = ops._pack_rows(fp, lo).movedim(-1, 3).contiguous()
+        f = ops._pack_rows(fp, lo)
         tab = store[("tables", "anal")]
     else:
         store = plan._fused_store
         lo, pk = store["layout"], store["prep"]
         _, dw = cs.path_rows(plan, alm, maps)
-        f = ops._pack_rows(dw, lo).reshape(lo.n_slots, 2, pk[1].shape[0], 2
-                                           ).movedim(-1, 2).contiguous()
+        f = ops._pack_rows(dw, lo).reshape(lo.n_slots, 2, pk[1].shape[0],
+                                           dw.shape[-1])
         tab = None
+    # the vpu kernels take the rows channel-major
+    f = (f.movedim(-1, f.dim() - 2) if var == "vpu" else f).contiguous()
     a_rows = plan._eb_rows(alm) if spin else torch.cat([alm.real, alm.imag],
                                                         dim=-1)
     return plan, pk, tab, lo.S, f, ops._pack_a(a_rows, lo).contiguous()
@@ -379,33 +441,36 @@ def _same_and_turns(what, old, new):
     return _turns(what, old, new)
 
 
-def _compare_plain(old, new, size, spin):
-    """Kernel 3 (``anal_vpu``) on ``chip_smoke.py``'s plain GL main path:
-    both trees' reduced outputs (digests, gap) and the partials kernel
-    timed in turns."""
-    plan, alm, maps = cs.run_main_path(dev, "cuda_vpu", size, 1, "plain",
-                                       spin)
+def _compare_plain(old, new, size, spin, var="vpu", grid="gl", K=1):
+    """Kernel 3 (``anal_vpu``) or 4 (``anal_mxu``) on ``chip_smoke.py``'s
+    plain main path: both trees' reduced outputs (digests, gap) and the
+    partials kernel timed in turns."""
+    plan, alm, maps = cs.run_main_path(dev, f"cuda_{var}", size, K, "plain",
+                                       spin, grid)
     m_t, x, pmm, pms, mp_t = plan._row_seeds()
     _, dw = cs.path_rows(plan, alm, maps)
     kw = dict(l_max=plan.l_max, mp_vals=mp_t)
-    ro, rn = (tree.lc.anal_vpu(dw, m_t, x, pmm, pms, **kw)
+    ro, rn = (getattr(tree.lc, f"anal_{var}")(dw, m_t, x, pmm, pms, **kw)
               for tree in (old, new))
     torch.cuda.synchronize()
     gap = float((ro - rn).abs().max() / ro.abs().max())
-    what = (f"anal_vpu plain path {cs.where(plan)} K 1 spin {spin}: "
+    what = (f"anal_{var} plain path {cs.where(plan)} K {K} spin {spin}: "
             f"digests {cs.digest(ro)} -> {cs.digest(rn)}, trees differ by "
             f"{gap:.3e} of max|parent|")
-    # the plain reduce of each tree's partials (the smoke's anal_reduce
-    # line prints its digest beside the kernel's)
-    po, pn = (kref.anal_reduce_ref(tree.lc.anal_partials(
-        "vpu", dw, m_t, x, pmm, pms, **kw), m_t, **kw)
-        for tree in (old, new))
-    print(f"  plain reduce of kernel 3's partials, {cs.where(plan)} K 1 "
-          f"spin {spin}: digests {cs.digest(po)} -> {cs.digest(pn)}, trees "
-          f"differ by {float((po - pn).abs().max() / po.abs().max()):.3e} "
-          "of max|parent|", flush=True)
-    del ro, rn, po, pn
-    _turns(what, *(functools.partial(tree.lc.anal_partials, "vpu", dw, m_t,
+    if var == "vpu":
+        # the plain reduce of each tree's partials (the smoke's
+        # anal_reduce line prints its digest beside the kernel's)
+        po, pn = (kref.anal_reduce_ref(tree.lc.anal_partials(
+            "vpu", dw, m_t, x, pmm, pms, **kw), m_t, **kw)
+            for tree in (old, new))
+        print(f"  plain reduce of kernel 3's partials, {cs.where(plan)} K 1 "
+              f"spin {spin}: digests {cs.digest(po)} -> {cs.digest(pn)}, "
+              f"trees differ by "
+              f"{float((po - pn).abs().max() / po.abs().max()):.3e} of "
+              "max|parent|", flush=True)
+        del po, pn
+    del ro, rn
+    _turns(what, *(functools.partial(tree.lc.anal_partials, var, dw, m_t,
                                      x, pmm, pms, **kw)
                    for tree in (old, new)))
     print(f"    SM clock, max: {_clocks()}", flush=True)
@@ -429,10 +494,9 @@ def _phase2_anal_vpu(old, new):
                   "max|parent|", flush=True)
 
 
-def compare():
-    old, new = trees["parent"], trees["this tree"]
-    for lib in build.SOURCES:
-        _sass_report(libs["parent"][lib], libs["this tree"][lib], lib)
+def compare_vpu(old, new):
+    """The vpu kernels (9, 11, 7, 5, 3) and ``anal_reduce``, parent
+    against this tree."""
     print("anal_reduce, each tree through its own wrapper (bits: this "
           "tree's output against the parent's; host: us a call, calls "
           "queued back to back):", flush=True)
@@ -457,7 +521,7 @@ def compare():
         if layout == "plain":
             _compare_plain(old, new, size, spin)
             continue
-        plan, pk, tab, S, f, a_pk = _vpu_inputs(grid, size, spin, layout)
+        plan, pk, tab, S, f, a_pk = _path_inputs(grid, size, spin, layout)
         sp = bool(spin)
         where = f"{cs.where(plan)} K 1 spin {spin}"
         # the fused path's rows through both kernels (kernel 7 without
@@ -502,7 +566,7 @@ def compare():
     print("kernel 9 at more maps (plans pick the vpu variant for K 1-7): "
           "map chunks of 4 and 8", flush=True)
     for K in (4, 7):
-        plan, pk, _, _, _, a_pk = _vpu_inputs("gl", 4096, 0, "fused", K)
+        plan, pk, _, _, _, a_pk = _path_inputs("gl", 4096, 0, "fused", K)
         _same_and_turns(
             f"synth_fused_vpu fused path {cs.where(plan)} K {K} spin 0", *(
                 functools.partial(tree.fc.synth_fused_vpu, a_pk, *pk,
@@ -515,6 +579,154 @@ def compare():
           "the smoke itself runs at l_max 1024):", flush=True)
     for spin in (0, 2):
         cs.main_path(dev, "cuda_vpu", 4096, 1, "packed", spin)
+
+
+#: (grid, size, spin, layout) of the mxu main paths whose analyses
+#: ``--compare`` runs on their own inputs: kernel 12 on the fused ones (and
+#: its bf16 instantiation on ``chip_smoke.py``'s BF16_PATHS), kernel 8 on
+#: the packed GL 2048 ones (at full width: the smoke runs the packed layout
+#: at l_max 1024), kernel 4 on the plain ones
+MXU_PATHS = tuple((grid, size, spin, layout)
+                  for layout in ("fused", "packed", "plain")
+                  for grid, size in (("gl", 2048), ("healpix", 1024))
+                  for spin in (0, 2)
+                  if layout != "packed" or grid == "gl")
+
+
+def _ptxas_mxu():
+    """Registers and spills of every mxu analysis instantiation, from both
+    trees' ``-Xptxas -v`` logs."""
+    for pre in ("parent_", ""):
+        for lib in build.SOURCES:
+            path = f"chiprun_out/ptxas_{pre}{lib}.log"
+            if not os.path.exists(path):
+                continue
+            with open(path) as fh:
+                blocks = fh.read().split("Compiling entry function '")[1:]
+            for block in blocks:
+                name = re.search(r"anal_(?:fused_)?mxu_kernelI\w+?EE",
+                                 block.split("'")[0])
+                if not name:
+                    continue
+                regs = re.search(r"Used (\d+) registers", block)
+                spill = re.search(r"(\d+) bytes stack frame, (\d+) bytes "
+                                  r"spill stores, (\d+) bytes spill loads",
+                                  block)
+                print(f"  {'parent' if pre else 'tree'} {name.group(0)}: "
+                      f"{regs.group(1) if regs else '?'} registers, stack "
+                      f"frame/spill stores/spill loads "
+                      f"{spill.groups() if spill else '?'}", flush=True)
+
+
+def _phase2_outputs(tree) -> dict:
+    """Every kernel output ``chip_smoke.py``'s phase 2 holds against a plain
+    version (staged, fused, packed and bf16 checks at CHECK_L_MAX, spin 0
+    and 2), computed through ``tree``'s kernels on the smoke's own operands:
+    {(name, what): output on the CPU}."""
+    got = {}
+
+    def held(name, out, want, what, pad=None, tol=cs.KERNEL_TOL):
+        got[(name, what)] = out.detach().cpu()
+        return 0.0
+
+    saved = (cs.lc, cs.fused_cuda, cs.held, cs.log, cs.cuda_time_ms)
+    cs.lc, cs.fused_cuda, cs.held = tree.lc, tree.fc, held
+    cs.log, cs.cuda_time_ms = (lambda msg: None), (lambda fn, reps=5: 0.0)
+    try:
+        for spin in (False, True):
+            for check in (cs.check_kernels, cs.check_fused_kernels,
+                          cs.check_packed_kernels, cs.check_bf16_kernels):
+                check(dev, spin)
+    finally:
+        cs.lc, cs.fused_cuda, cs.held, cs.log, cs.cuda_time_ms = saved
+    return got
+
+
+def _compare_phase2(old, new):
+    """chip_smoke.py's phase-2 outputs of both trees: each one that moved,
+    with both digests and its gap as a share of max|parent|."""
+    po, pn = _phase2_outputs(old), _phase2_outputs(new)
+    same = 0
+    for key, b in pn.items():
+        a = po[key]
+        if torch.equal(a, b):
+            same += 1
+            continue
+        gap = float((a - b).abs().max() / a.abs().max())
+        print(f"  {key[0]} {key[1]}: digests {cs.digest(a)} -> "
+              f"{cs.digest(b)}, trees differ by {gap:.3e} of max|parent|",
+              flush=True)
+    print(f"  {same} of {len(pn)} phase-2 outputs bit-equal to the "
+          "parent's", flush=True)
+
+
+def compare_mxu(old, new):
+    """The mxu analysis kernels (12 with its bf16 instantiation, 8, 4) on
+    chip_smoke.py's phase-2 operands and on their main paths, then kernel
+    11 at GL 4096 with K 4 and 7, parent against this tree."""
+    _ptxas_mxu()
+    print("chip_smoke.py's phase 2 through both trees:", flush=True)
+    _compare_phase2(old, new)
+    print("mxu analysis kernels, on chip_smoke.py's main-path inputs "
+          "(digests of the reduced analysis, as its log prints them):",
+          flush=True)
+    for grid, size, spin, layout in MXU_PATHS:
+        if layout == "plain":
+            _compare_plain(old, new, size, spin, "mxu", grid, 8)
+            continue
+        plan, pk, tab, S, f, _ = _path_inputs(grid, size, spin, layout, 8,
+                                              "mxu")
+        where = f"{cs.where(plan)} K 8 spin {spin}"
+        t = (tab,) if layout == "fused" else ()
+        bf16s = ((False, True) if layout == "fused"
+                 and (grid, size, 8, spin) in cs.BF16_PATHS else (False,))
+        for bf16 in bf16s:
+            kw = dict(l_max=plan.l_max, s_len=S, spin=bool(spin),
+                      **({"bf16": True} if bf16 else {}))
+
+            def run(tree, reduced=False):
+                if reduced:
+                    return getattr(tree.fc, f"anal_{layout}_mxu")(f, *pk, *t,
+                                                                  **kw)
+                fn = getattr(tree.fc, f"anal_{layout}_partials")
+                return lambda: fn("mxu", f, *pk, *t, **kw)
+
+            ro, rn = run(old, True), run(new, True)
+            torch.cuda.synchronize()
+            gap = float((ro - rn).abs().max() / ro.abs().max())
+            _turns(f"anal_{layout}_mxu{'_bf16' if bf16 else ''} {layout} "
+                   f"path {where}, tables "
+                   f"{'applied' if tab is not None and t else 'none'}: "
+                   f"digests {cs.digest(ro)} -> {cs.digest(rn)}, trees "
+                   f"differ by {gap:.3e} of max|parent|", run(old), run(new))
+            print(f"    SM clock, max: {_clocks()}", flush=True)
+            del ro, rn
+        del plan, pk, tab, f
+        torch.cuda.empty_cache()
+    print("kernel 11 at more maps (plans pick the vpu variant for K 1-7): "
+          "map chunks of 2, both trees", flush=True)
+    for K in (4, 7):
+        plan, pk, tab, S, f, _ = _path_inputs("gl", 4096, 0, "fused", K)
+        kw = dict(l_max=plan.l_max, s_len=S, spin=False)
+        ro, rn = (tree.fc.anal_fused_vpu(f, *pk, tab, **kw)
+                  for tree in (old, new))
+        torch.cuda.synchronize()
+        _turns(f"anal_fused_vpu fused path {cs.where(plan)} K {K} spin 0: "
+               f"bit-equal {torch.equal(ro, rn)}", *(
+                   functools.partial(tree.fc.anal_fused_partials, "vpu", f,
+                                     *pk, tab, **kw) for tree in (old, new)))
+        del plan, pk, tab, f, ro, rn
+        torch.cuda.empty_cache()
+
+
+def compare(parts):
+    old, new = trees["parent"], trees["this tree"]
+    for lib in build.SOURCES:
+        _sass_report(libs["parent"][lib], libs["this tree"][lib], lib)
+    if "vpu" in parts:
+        compare_vpu(old, new)
+    if "mxu" in parts:
+        compare_mxu(old, new)
     print("total s", time.time() - t0, flush=True)
 
 
@@ -526,7 +738,8 @@ def _clocks():
 
 
 if "--compare" in sys.argv:
-    compare()
+    compare([a for a in sys.argv[sys.argv.index("--compare") + 1:]
+             if a in ("vpu", "mxu")] or ["vpu", "mxu"])
     sys.exit(0)
 
 if "--first-calls" in sys.argv:

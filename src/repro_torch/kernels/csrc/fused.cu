@@ -94,13 +94,20 @@
 //                    order (the vpu analysis template of recurrence.cuh,
 //                    shared with anal_vpu): no per-l shuffle chain, the same
 //                    bits every run.
-//   anal_fused_mxu   replaces anal_fused_mxu, fused.py:666.  float32
-//                    operations bound: one block per (slot, 512-ring chunk,
-//                    chunk of <= 8 maps); per segment the chunk's FFT rows are
-//                    rotated into Delta in shared memory once, then each 32-l
-//                    P panel of each 128-ring tile is contracted against it
-//                    with register tiles and the ring groups are summed in a
-//                    fixed order into the chunk's partial rows.
+//   anal_fused_mxu   replaces anal_fused_mxu, fused.py:666.  Bound by
+//                    instruction issue and shared-memory loads: the
+//                    bit-faithful step and the 2K FFMA of each triple issue
+//                    far more than the float32 operations of the flop
+//                    bound.  One block of 256 threads per (slot, 512-ring
+//                    chunk, chunk of <= 8 maps); per segment the chunk's FFT
+//                    rows are rotated and combined into Delta in shared
+//                    memory once, channel-major, then the mxu analysis
+//                    template of mxu_anal.cuh (shared with anal_mxu) builds
+//                    each 32-l panel (16 with the fold) with a ring pair a
+//                    thread, the first steps peeled and no guard, contracts
+//                    it with 4 l x 8 channel register tiles fed by float4
+//                    loads, and sums the ring slices by a register butterfly
+//                    in one fixed order into the chunk's partial rows.
 //   synth_packed_vpu replaces synth_vpu_packed,
 //                    src/repro/kernels/legendre_pallas.py:591: synth_fused_vpu
 //                    without combine or rotation, (n_slots, Q, 2K, R).
@@ -113,12 +120,12 @@
 //   anal_packed_mxu  replaces anal_mxu_packed, legendre_pallas.py:937:
 //                    anal_fused_mxu on the parity planes as given.
 //                    All four are bound as their fused twins (the vpu ones
-//                    by instruction issue, the mxu ones by float32
-//                    operations): the P_lm triples and the per-step code are
-//                    the same, and the packed layout's point on this card,
-//                    as on the TPU, is that every slot walks a near-constant
-//                    2 l_max - m_max + 2 steps, so no block idles on the
-//                    triangle's short rows.
+//                    and the mxu analysis by instruction issue, the mxu
+//                    synthesis by float32 operations): the P_lm triples and
+//                    the per-step code are the same, and the packed layout's
+//                    point on this card, as on the TPU, is that every slot
+//                    walks a near-constant 2 l_max - m_max + 2 steps, so no
+//                    block idles on the triangle's short rows.
 //
 // bfloat16 branch (BF16 = true, the reference's bf16=True option of kernels
 // 10 and 12; fused mxu kernels only, fold on or off, spin 0 and 2): the
@@ -133,9 +140,10 @@
 // rows are the two halves of the N axis ([even | odd] coefficient columns in
 // synthesis, [plane 0 | plane 1] Delta columns in analysis, each row taking
 // the half of its parity).  Bound: the contraction at the tensor cores' bf16
-// rate (989 TFLOP/s) plus the float32 recurrence at 67 TFLOP/s; the first
-// tiling is one warp per 32 rings (synthesis) or per 32-ring slice of each
-// ring tile (analysis), fragments loaded straight from shared memory.
+// rate (989 TFLOP/s) plus the float32 recurrence at 67 TFLOP/s; one warp
+// per 32 rings (synthesis) or per 64-ring slice of the 512-ring chunk
+// (analysis, on the mxu analysis template's panel), fragments loaded
+// straight from shared memory.
 //
 // The TPU analysis kernels add into one output block across ring blocks in
 // sequential grid order (fused.py:477, :600; legendre_pallas.py:844, :955);
@@ -145,13 +153,14 @@
 // stream position kept) sums them: no atomics, identical bits on every
 // run.  Within a chunk each kernel sums its rings in one fixed order of its
 // own (the vpu kernels: per thread in ring order, then the 128 threads'
-// columns in four interleaved partial sums), which the plain versions'
-// einsum over rings does not share: they agree within the tolerance.
-
-#include <cuda_bf16.h>
+// columns in four interleaved partial sums; the mxu analysis: per thread
+// over its ring slice, then the slices by a register butterfly), which
+// the plain versions' einsum over rings does not share: they agree within
+// the tolerance.
 
 #include <cstdint>
 
+#include "mxu_anal.cuh"
 #include "recurrence.cuh"
 
 namespace {
@@ -233,28 +242,6 @@ __device__ __forceinline__ void zero_tail(float* __restrict__ part,
     if (c % KM < nk)
       part[(chunk_row + g) * 2 * K + channel<KM>(c, k0, K)] = 0.0f;
   }
-}
-
-// Two float32 values rounded to bfloat16 and packed into one register, lo in
-// the low half (the element of the smaller k or column index).
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16_rn(lo))) |
-         (static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16_rn(hi)))
-          << 16);
-}
-
-// d += a b on the tensor cores: a 16 x 16 row-major bf16 fragment, b a
-// 16 x 8 column-major bf16 fragment, d the 16 x 8 float32 accumulator.
-// Lane layout (g = lane / 4, q = lane % 4): a {(g, 2q..2q+1), (g + 8, 2q..),
-// (g, 2q+8..), (g + 8, 2q+8..)}, b {(2q..2q+1, g), (2q+8.., g)}, d {(g, 2q),
-// (g, 2q+1), (g + 8, 2q), (g + 8, 2q+1)}.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
 // ---------------------------------------------------------------------------
@@ -721,38 +708,16 @@ anal_fused_vpu_kernel(const float* __restrict__ f_pk,
 }
 
 // ---------------------------------------------------------------------------
-// anal_fused_mxu partials: per segment the chunk's rotated Delta sits in
-// shared memory; per 32-l panel, for each of the chunk's 4 ring tiles, the
-// block builds the (32 x 128) P panel and contracts it.  Thread
-// t = q * (8 * CG) + jg * CG + cg owns output rows jg*4 .. jg*4+3, local
-// channels cg*TC .. +TC, over ring split q of each tile.  f_pk (n_slots, 2,
-// P, R, 2K).  grid (n_chunks, n_slots, ceil(K / KM)), block 128, dynamic
-// shared memory.  BF16: warp w contracts rings 32 w .. 32 w + 31 of each
-// ring tile on the tensor cores (two m16 tiles of l, NT n8 tiles of the
-// [plane 0 | plane 1] Delta columns); its sums land in red_s row w.
+// anal_fused_mxu partials: per segment the block rotates the chunk's FFT
+// rows into Delta once, combines the fold's planes, stores them
+// channel-major in shared memory and runs the mxu analysis template
+// (mxu_anal.cuh) on the segment's row.  f_pk (n_slots, 2, P, R, 2K).
+// grid (n_chunks, n_slots, ceil(K / KM)), block kMxuThreads, dynamic
+// shared memory (MxuAnalShape).  BF16: the template's tensor-core
+// contraction.
 // ---------------------------------------------------------------------------
-template <int KM, bool FOLD, bool SPIN>
-struct AnalFusedMxuShape {
-  static constexpr int P = FOLD ? 2 : 1;
-  static constexpr int CC = 2 * KM;
-  static constexpr int TC = CC < 4 ? CC : 4;
-  static constexpr int CG = CC / TC;
-  static constexpr int TJ = 4;                     // rows per thread
-  static constexpr int JG = kLT / TJ;              // row groups (8)
-  static constexpr int Q = kTile / (JG * CG);      // ring splits
-  static constexpr int RS = kTile / Q;             // rings per split
-  static constexpr int kChunk = kMxuAnalTiles * kTile;
-  static constexpr int kPanelStride = kTile + 1;   // conflict-free columns
-  static constexpr size_t dw_floats = static_cast<size_t>(P) * kChunk * CC;
-  static constexpr size_t panel_floats = static_cast<size_t>(kLT) * kPanelStride;
-  static constexpr size_t red_floats = static_cast<size_t>(Q) * kLT * CC;
-  static constexpr size_t coef_floats = static_cast<size_t>(SPIN ? 3 : 2) * kLT;
-  static constexpr size_t smem_bytes =
-      (dw_floats + panel_floats + red_floats + coef_floats) * sizeof(float);
-};
-
 template <int KM, bool FOLD, bool COMBINE, bool SPIN, bool BF16 = false>
-__global__ void __launch_bounds__(kTile)
+__global__ void __launch_bounds__(kMxuThreads, kMxuBlocksPerSm)
 anal_fused_mxu_kernel(const float* __restrict__ f_pk,
                       const SlotMaps sm,
                       const float* __restrict__ x,
@@ -760,46 +725,30 @@ anal_fused_mxu_kernel(const float* __restrict__ f_pk,
                       const int* __restrict__ pms_pk,
                       const float* __restrict__ tab, float* __restrict__ part,
                       int S, int K, int R, int l_max) {
-  using Sh = AnalFusedMxuShape<KM, FOLD, SPIN>;
-  constexpr int P = Sh::P, CC = Sh::CC, TC = Sh::TC, CG = Sh::CG,
-                TJ = Sh::TJ, Q = Sh::Q, RS = Sh::RS;
-  extern __shared__ __align__(16) float smem[];
-  float* dw_s = smem;                                  // [P][kChunk][CC]
-  float* panel_s = dw_s + Sh::dw_floats;               // [kLT][kPanelStride]
-  float* red_s = panel_s + Sh::panel_floats;           // [Q][kLT][CC]
-  float* bl_s = red_s + Sh::red_floats;                // [kLT]
-  float* ratio_s = bl_s + kLT;                         // [kLT]
-  float* c_s = ratio_s + kLT;                          // [kLT] (SPIN only)
-
+  using Sh = MxuAnalShape<2 * KM, FOLD, BF16>;
+  constexpr int P = Sh::P, CC = Sh::CC, DS = Sh::DS;
+  extern __shared__ __align__(16) float smem[];   // d_s first
   const int si = blockIdx.y;
   const int chunk = blockIdx.x;
-  const int base = chunk * Sh::kChunk;
+  const int base = chunk * kMxuChunk;
   const int k0 = blockIdx.z * KM;
   const int nk = min(KM, K - k0);
   const int K2 = 2 * K;
   const int t = threadIdx.x;
-  const int cg = t % CG, jg = (t / CG) % Sh::JG, q = t / (CG * Sh::JG);
-  const int ntile = min(kMxuAnalTiles, (R - base + kTile - 1) / kTile);
   const size_t chunk_row = (static_cast<size_t>(si) * gridDim.x + chunk) * S;
-  constexpr int NC = P * CC;              // BF16: [plane 0 | plane 1] columns
-  constexpr int NT = (NC + 7) / 8;        // BF16: n8 tiles
-  constexpr int NQ = BF16 ? kTile / 32 : Q;   // partial rows in red_s
-  const int warp = t / 32, lg = (t % 32) / 4, lq = t % 4;
 
-  float xr[kMxuAnalTiles];
+  float xr[kMxuRings];
 #pragma unroll
-  for (int k = 0; k < kMxuAnalTiles; ++k) {
-    const int r = base + k * kTile + t;
-    xr[k] = (k < ntile && r < R) ? x[r] : 0.0f;
+  for (int k = 0; k < kMxuRings; ++k) {
+    const int r = base + kMxuRings * t + k;
+    xr[k] = r < R ? x[r] : 0.0f;
   }
   for (int seg = 0; seg < 2; ++seg) {
     const Seg sg = segment<SPIN>(sm, si, seg, S, l_max);
     if (sg.len == 0) continue;                     // block-uniform
-    const float p1 = p_first_coef(sg.m);
-    const int l_end = sg.lz + sg.len;
-    __syncthreads();                               // dw_s of seg 0 consumed
-    // rotate the chunk's FFT rows into Delta once, combine the planes
-    for (int rr = t; rr < Sh::kChunk; rr += kTile) {
+    // rotate the chunk's FFT rows into Delta once, combine the planes (the
+    // previous segment's last barrier let go of d_s)
+    for (int rr = t; rr < kMxuChunk; rr += kMxuThreads) {
       const int r = base + rr;
       for (int c = 0; c < KM; ++c) {
         float re[P], im[P];
@@ -813,156 +762,35 @@ anal_fused_mxu_kernel(const float* __restrict__ f_pk,
           if (ok && tab != nullptr)
             rotate(tab, tab_row(si, seg, p, P, R, r), R, &re[p], &im[p]);
         }
-        float* d0 = dw_s + static_cast<size_t>(rr) * CC;
+        float* d = smem + rr;
         if (FOLD && COMBINE) {
-          float* d1 = d0 + static_cast<size_t>(Sh::kChunk) * CC;
-          d0[c] = re[0] + re[P - 1];               // even = N + S
-          d0[KM + c] = im[0] + im[P - 1];
-          d1[c] = re[0] - re[P - 1];               // odd = N - S
-          d1[KM + c] = im[0] - im[P - 1];
-        } else {                                   // planes as given
+          d[c * DS] = re[0] + re[P - 1];                 // even = N + S
+          d[(KM + c) * DS] = im[0] + im[P - 1];
+          d[(CC + c) * DS] = re[0] - re[P - 1];          // odd = N - S
+          d[(CC + KM + c) * DS] = im[0] - im[P - 1];
+        } else {                                         // planes as given
 #pragma unroll
           for (int p = 0; p < P; ++p) {
-            float* dp = d0 + static_cast<size_t>(p) * Sh::kChunk * CC;
-            dp[c] = re[p];
-            dp[KM + c] = im[p];
+            d[(p * CC + c) * DS] = re[p];
+            d[(p * CC + KM + c) * DS] = im[p];
           }
         }
       }
     }
-    Rec s[kMxuAnalTiles];
-    float pmm_r[kMxuAnalTiles];
-    int pms_r[kMxuAnalTiles];
-#pragma unroll
-    for (int k = 0; k < kMxuAnalTiles; ++k) {
-      const int r = base + k * kTile + t;
-      const bool live = k < ntile && r < R;
-      const size_t srow = (static_cast<size_t>(si) * 2 + seg) * R + r;
-      pmm_r[k] = live ? pmm_pk[srow] : 0.0f;
-      pms_r[k] = live ? pms_pk[srow] : 0;
-    }
-
-    for (int l0 = sg.lz; l0 < l_end; l0 += kLT) {  // block-uniform
-      const int n = min(kLT, l_end - l0);
-      fill_coef<SPIN>(l0, sg.m, sg.mp, bl_s, ratio_s, c_s);
-      __syncthreads();
-      const int pb = FOLD ? ((l0 + sg.m) & 1) : 0;  // plane of even rows
-      float acc[TJ][TC];
-      float dacc[2][NT][4];
-#pragma unroll
-      for (int i = 0; i < TJ; ++i)
-#pragma unroll
-        for (int k = 0; k < TC; ++k) acc[i][k] = 0.0f;
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < NT; ++j)
-#pragma unroll
-          for (int k = 0; k < 4; ++k) dacc[i][j][k] = 0.0f;
-#pragma unroll
-      for (int k = 0; k < kMxuAnalTiles; ++k) {
-        if (k >= ntile) break;                     // block-uniform
-        for (int j = 0; j < kLT; ++j)              // build the P panel
-          panel_s[j * Sh::kPanelStride + t] =
-              j < n ? rec_step<SPIN>(&s[k], l0 + j, sg.lz, xr[k], bl_s,
-                                     ratio_s, c_s, j, p1, pmm_r[k], pms_r[k])
-                    : 0.0f;
-        __syncthreads();
-        if constexpr (BF16) {                      // contract on the tensor cores
-          auto pv = [&](int j, int ring) {
-            return panel_s[j * Sh::kPanelStride + ring];
-          };
-          auto dv = [&](int ring, int col) {
-            return col < NC
-                ? dw_s[(static_cast<size_t>(col / CC) * Sh::kChunk +
-                        k * kTile + ring) * CC + col % CC]
-                : 0.0f;
-          };
-#pragma unroll
-          for (int ks = 0; ks < 2; ++ks) {
-            const int rk = warp * 32 + ks * 16 + 2 * lq;
-            uint32_t a[2][4];
-#pragma unroll
-            for (int mt = 0; mt < 2; ++mt) {
-              const int j = mt * 16 + lg;
-              a[mt][0] = pack_bf16(pv(j, rk), pv(j, rk + 1));
-              a[mt][1] = pack_bf16(pv(j + 8, rk), pv(j + 8, rk + 1));
-              a[mt][2] = pack_bf16(pv(j, rk + 8), pv(j, rk + 9));
-              a[mt][3] = pack_bf16(pv(j + 8, rk + 8), pv(j + 8, rk + 9));
-            }
-#pragma unroll
-            for (int nt = 0; nt < NT; ++nt) {
-              const int col = nt * 8 + lg;
-              const uint32_t b[2] = {pack_bf16(dv(rk, col), dv(rk + 1, col)),
-                                     pack_bf16(dv(rk + 8, col),
-                                               dv(rk + 9, col))};
-#pragma unroll
-              for (int mt = 0; mt < 2; ++mt) mma_bf16(dacc[mt][nt], a[mt], b);
-            }
-          }
-          __syncthreads();                         // panel reused next tile
-          continue;
-        }
-        const float* d0 = dw_s + (static_cast<size_t>(pb) * Sh::kChunk +
-                                  k * kTile) * CC;
-        const float* d1 = dw_s + (static_cast<size_t>(FOLD ? 1 - pb : 0) *
-                                  Sh::kChunk + k * kTile) * CC;
-        for (int rr = 0; rr < RS; ++rr) {          // contract over rings
-          const int ring = q * RS + rr;
-          float pv[TJ], e0[TC], e1[TC];
-#pragma unroll
-          for (int i = 0; i < TJ; ++i)
-            pv[i] = panel_s[(jg * TJ + i) * Sh::kPanelStride + ring];
-#pragma unroll
-          for (int c = 0; c < TC; ++c) {
-            e0[c] = d0[ring * CC + cg * TC + c];
-            e1[c] = FOLD ? d1[ring * CC + cg * TC + c] : e0[c];
-          }
-#pragma unroll
-          for (int i = 0; i < TJ; ++i)
-#pragma unroll
-            for (int c = 0; c < TC; ++c)
-              acc[i][c] = fmaf(pv[i], (i & 1) ? e1[c] : e0[c], acc[i][c]);
-        }
-        __syncthreads();                           // panel reused next tile
-      }
-      if constexpr (BF16) {
-        // each row keeps the columns of its parity's plane
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-          for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              const int j = mt * 16 + lg + 8 * (e / 2);
-              const int col = nt * 8 + 2 * lq + e % 2;
-              if (col < NC && (!FOLD || col / CC == (pb ^ (j & 1))))
-                red_s[(warp * kLT + j) * CC + col % CC] = dacc[mt][nt][e];
-            }
-      } else {
-#pragma unroll
-        for (int i = 0; i < TJ; ++i)
-#pragma unroll
-          for (int c = 0; c < TC; ++c)
-            red_s[(q * kLT + jg * TJ + i) * CC + cg * TC + c] = acc[i][c];
-      }
-      __syncthreads();
-      for (int i = t; i < n * CC; i += kTile) {
-        const int j = i / CC, c = i % CC;
-        if (c % KM < nk) {
-          float total = 0.0f;
-#pragma unroll
-          for (int qq = 0; qq < NQ; ++qq)
-            total += red_s[(qq * kLT + j) * CC + c];
-          part[(chunk_row + sg.g0 + l0 - sg.lz + j) * K2 +
-               channel<KM>(c, k0, K)] = total;
-        }
-      }
-      __syncthreads();                             // red_s / beta reused
-    }
+    const size_t srow = (static_cast<size_t>(si) * 2 + seg) * R;
+    // stream position of multipole l: l + pos0
+    const long long pos0 =
+        static_cast<long long>(chunk_row) + sg.g0 - sg.lz;
+    mxu_anal_row<CC, FOLD, SPIN, BF16>(
+        smem, xr, min(kMxuChunk, R - base), sg.m, sg.mp, sg.lz,
+        sg.lz + sg.len, pmm_pk + srow, pms_pk + srow, base, R,
+        [&](int l, int c, float v) {
+          if (c % KM < nk)
+            part[(pos0 + l) * K2 + channel<KM>(c, k0, K)] = v;
+        });
   }
-  zero_tail<KM>(part, chunk_row, live_end<SPIN>(sm, si, S, l_max), S, k0,
-                nk, K);
+  zero_tail<KM, kMxuThreads>(part, chunk_row,
+                             live_end<SPIN>(sm, si, S, l_max), S, k0, nk, K);
 }
 
 // ---------------------------------------------------------------------------
@@ -1061,7 +889,7 @@ struct LaunchAnalVpu {
 template <int KM, bool FOLD, bool COMBINE, bool SPIN>
 struct LaunchAnalMxu {
   static int run(const FusedArgs& g) {
-    using Sh = AnalFusedMxuShape<KM, FOLD, SPIN>;
+    using Sh = MxuAnalShape<2 * KM, FOLD, false>;
     cudaError_t err = cudaFuncSetAttribute(
         anal_fused_mxu_kernel<KM, FOLD, COMBINE, SPIN>,
         cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -1069,7 +897,7 @@ struct LaunchAnalMxu {
     if (err != cudaSuccess) return static_cast<int>(err);
     dim3 grid(g.n_chunks, g.n_slots, (g.K + KM - 1) / KM);
     anal_fused_mxu_kernel<KM, FOLD, COMBINE, SPIN>
-        <<<grid, kTile, Sh::smem_bytes, g.stream>>>(
+        <<<grid, kMxuThreads, Sh::smem_bytes, g.stream>>>(
             g.in, g.sm, g.x, g.pmm, g.pms, g.tab, g.out, g.S, g.K, g.R,
             g.l_max);
     return static_cast<int>(cudaGetLastError());
@@ -1079,7 +907,7 @@ struct LaunchAnalMxu {
 template <int KM, bool FOLD, bool COMBINE, bool SPIN>
 struct LaunchAnalMxuBf16 {
   static int run(const FusedArgs& g) {
-    using Sh = AnalFusedMxuShape<KM, FOLD, SPIN>;
+    using Sh = MxuAnalShape<2 * KM, FOLD, true>;
     cudaError_t err = cudaFuncSetAttribute(
         anal_fused_mxu_kernel<KM, FOLD, COMBINE, SPIN, true>,
         cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -1087,7 +915,7 @@ struct LaunchAnalMxuBf16 {
     if (err != cudaSuccess) return static_cast<int>(err);
     dim3 grid(g.n_chunks, g.n_slots, (g.K + KM - 1) / KM);
     anal_fused_mxu_kernel<KM, FOLD, COMBINE, SPIN, true>
-        <<<grid, kTile, Sh::smem_bytes, g.stream>>>(
+        <<<grid, kMxuThreads, Sh::smem_bytes, g.stream>>>(
             g.in, g.sm, g.x, g.pmm, g.pms, g.tab, g.out, g.S, g.K, g.R,
             g.l_max);
     return static_cast<int>(cudaGetLastError());

@@ -62,13 +62,23 @@
 //               every output sums the 128 columns in one fixed order into
 //               the chunk's partial row.  No atomics, no per-l shuffle
 //               chain.
-//   anal_mxu    replaces anal_mxu, legendre_pallas.py:1042.  float32
-//               operations bound: one block per (m, 512-ring chunk, channel
-//               chunk of <= 16) with the chunk's weighted Delta resident in
-//               shared memory; per 32-l panel it builds the P panel of each of
-//               the chunk's 4 ring tiles in turn and contracts it (register
-//               tiles, ring range split over thread groups), then sums the
-//               groups in a fixed order into the chunk's partial rows.
+//   anal_mxu    replaces anal_mxu, legendre_pallas.py:1042.  Bound by
+//               instruction issue and shared-memory loads, as
+//               anal_fused_mxu (fused.cu), whose template it shares
+//               (mxu_anal.cuh): the bit-faithful step (~22 SASS
+//               instructions a triple) and the 2K FFMA of each triple issue
+//               far more than the float32 operations of the flop bound.
+//               One block of 256 threads per (m, 512-ring chunk, channel
+//               chunk of <= 16), the chunk's weighted Delta resident in
+//               shared memory, channel-major.  Per 32-l panel (16 with the
+//               fold) each thread steps a ring pair (seed and P_{m+1,m}
+//               peeled off, no guard, one coefficient load per l for
+//               both) into the panel; one barrier; a register-tiled
+//               contraction (4 l x 8 channels a thread over a ring slice,
+//               one float4 of P or Delta feeding 16 or 32 FFMA); the ring
+//               slices, lanes of one warp, summed by a register butterfly
+//               in one fixed order straight into the chunk's partial rows;
+//               one barrier.  No atomics.
 //   anal_reduce replaces the cross-ring-block accumulation the TPU kernels
 //               do in sequential grid order (legendre_pallas.py:430 and
 //               :1035), which has no counterpart across CUDA blocks.  Bytes
@@ -84,6 +94,7 @@
 
 #include <cstdint>
 
+#include "mxu_anal.cuh"
 #include "recurrence.cuh"
 
 namespace {
@@ -341,51 +352,25 @@ anal_vpu_kernel(const float* __restrict__ dw, const int* __restrict__ m_vals,
 }
 
 // ---------------------------------------------------------------------------
-// anal_mxu partials: per 32-l panel, for each of the chunk's 4 ring tiles,
-// build the (32 x 128) P panel and contract it against the tile's resident
-// weighted Delta.  Thread t = q * (8 * CG) + jg * CG + cg owns output rows
-// jg*4 .. jg*4+3, channels cg*TC .. +TC, over ring split q of each tile.
-// grid (n_chunks, Mp, ceil(K2 / CC)), block 128, dynamic shared memory.
+// anal_mxu partials: part[m][chunk][l][c] = sum over the chunk's rings of
+// dw_m(r) P_lm(r), through the mxu analysis template (mxu_anal.cuh): the
+// block copies the chunk's weighted Delta rows channel-major into shared
+// memory, then builds, contracts and reduces one panel at a time.
+// grid (n_chunks, Mp, ceil(K2 / CC)), block kMxuThreads, dynamic shared
+// memory (MxuAnalShape).
 // ---------------------------------------------------------------------------
 template <int CC, bool FOLD, bool SPIN>
-struct AnalMxuShape {
-  static constexpr int P = FOLD ? 2 : 1;
-  static constexpr int TC = CC < 4 ? CC : 4;
-  static constexpr int CG = CC / TC;
-  static constexpr int TJ = 4;                     // rows per thread
-  static constexpr int JG = kLT / TJ;              // row groups (8)
-  static constexpr int Q = kTile / (JG * CG);      // ring splits
-  static constexpr int RS = kTile / Q;             // rings per split
-  static constexpr int kChunk = kMxuAnalTiles * kTile;
-  static constexpr int kPanelStride = kTile + 1;   // conflict-free columns
-  static constexpr size_t dw_floats = static_cast<size_t>(P) * kChunk * CC;
-  static constexpr size_t panel_floats = static_cast<size_t>(kLT) * kPanelStride;
-  static constexpr size_t red_floats = static_cast<size_t>(Q) * kLT * CC;
-  static constexpr size_t coef_floats = static_cast<size_t>(SPIN ? 3 : 2) * kLT;
-  static constexpr size_t smem_bytes =
-      (dw_floats + panel_floats + red_floats + coef_floats) * sizeof(float);
-};
-
-template <int CC, bool FOLD, bool SPIN>
-__global__ void __launch_bounds__(kTile)
+__global__ void __launch_bounds__(kMxuThreads, kMxuBlocksPerSm)
 anal_mxu_kernel(const float* __restrict__ dw, const int* __restrict__ m_vals,
                 const int* __restrict__ mp_vals, const float* __restrict__ x,
                 const float* __restrict__ pmm, const int* __restrict__ pms,
                 float* __restrict__ part, int K2, int R, int l_end) {
-  using S = AnalMxuShape<CC, FOLD, SPIN>;
-  constexpr int P = S::P, TC = S::TC, CG = S::CG, TJ = S::TJ, Q = S::Q,
-                RS = S::RS;
-  extern __shared__ __align__(16) float smem[];
-  float* dw_s = smem;                                  // [P][kChunk][CC]
-  float* panel_s = dw_s + S::dw_floats;                // [kLT][kPanelStride]
-  float* red_s = panel_s + S::panel_floats;            // [Q][kLT][CC]
-  float* bl_s = red_s + S::red_floats;                 // [kLT]
-  float* ratio_s = bl_s + kLT;                         // [kLT]
-  float* c_s = ratio_s + kLT;                          // [kLT] (SPIN only)
-
+  using Sh = MxuAnalShape<CC, FOLD, false>;
+  constexpr int P = Sh::P;
+  extern __shared__ __align__(16) float smem[];   // d_s first
   const int mi = blockIdx.y;
   const int chunk = blockIdx.x;
-  const int base = chunk * S::kChunk;
+  const int base = chunk * kMxuChunk;
   const int c0 = blockIdx.z * CC;
   const int nch = min(CC, K2 - c0);
   const int m = m_vals[mi];
@@ -393,90 +378,27 @@ anal_mxu_kernel(const float* __restrict__ dw, const int* __restrict__ m_vals,
   const int mp = SPIN ? mp_vals[mi] : 0;
   const int lz = row_start<SPIN>(m, mp);     // reduce zeroes the rows below
   const int t = threadIdx.x;
-  const int cg = t % CG, jg = (t / CG) % S::JG, q = t / (CG * S::JG);
-  const int ntile = min(kMxuAnalTiles, (R - base + kTile - 1) / kTile);
-  const float p1 = p_first_coef(m);
-
-  for (int i = t; i < P * S::kChunk * CC; i += kTile) {
-    const int c = i % CC, rr = (i / CC) % S::kChunk, p = i / (CC * S::kChunk);
+  for (int i = t; i < P * kMxuChunk * CC; i += kMxuThreads) {
+    const int c = i % CC, rr = (i / CC) % kMxuChunk, p = i / (CC * kMxuChunk);
     const int r = base + rr;
-    dw_s[i] = (r < R && c < nch)
+    smem[(p * CC + c) * Sh::DS + rr] = (r < R && c < nch)
         ? dw[((static_cast<size_t>(mi) * P + p) * R + r) * K2 + c0 + c]
         : 0.0f;
   }
-  Rec s[kMxuAnalTiles];
-  float xr[kMxuAnalTiles], pmm_r[kMxuAnalTiles];
-  int pms_r[kMxuAnalTiles];
+  float xr[kMxuRings];
 #pragma unroll
-  for (int k = 0; k < kMxuAnalTiles; ++k) {
-    const int r = base + k * kTile + t;
-    const bool live = k < ntile && r < R;
-    const size_t row = static_cast<size_t>(mi) * R + r;
-    xr[k] = live ? x[r] : 0.0f;
-    pmm_r[k] = live ? pmm[row] : 0.0f;
-    pms_r[k] = live ? pms[row] : 0;
+  for (int k = 0; k < kMxuRings; ++k) {
+    const int r = base + kMxuRings * t + k;
+    xr[k] = r < R ? x[r] : 0.0f;
   }
-
-  for (int l0 = lz; l0 < l_end; l0 += kLT) {
-    const int n = min(kLT, l_end - l0);
-    fill_coef<SPIN>(l0, m, mp, bl_s, ratio_s, c_s);
-    __syncthreads();
-    const int pb = FOLD ? ((l0 + m) & 1) : 0;     // plane of even rows
-    float acc[TJ][TC];
-#pragma unroll
-    for (int i = 0; i < TJ; ++i)
-#pragma unroll
-      for (int k = 0; k < TC; ++k) acc[i][k] = 0.0f;
-#pragma unroll
-    for (int k = 0; k < kMxuAnalTiles; ++k) {
-      if (k >= ntile) break;                  // block-uniform
-      for (int j = 0; j < kLT; ++j)           // build the P panel
-        panel_s[j * S::kPanelStride + t] =
-            j < n ? rec_step<SPIN>(&s[k], l0 + j, lz, xr[k], bl_s, ratio_s,
-                                   c_s, j, p1, pmm_r[k], pms_r[k])
-                  : 0.0f;
-      __syncthreads();
-      const float* d0 = dw_s + (static_cast<size_t>(pb) * S::kChunk +
-                                k * kTile) * CC;
-      const float* d1 = dw_s + (static_cast<size_t>(FOLD ? 1 - pb : 0) *
-                                S::kChunk + k * kTile) * CC;
-      for (int rr = 0; rr < RS; ++rr) {       // contract over rings
-        const int ring = q * RS + rr;
-        float pv[TJ], e0[TC], e1[TC];
-#pragma unroll
-        for (int i = 0; i < TJ; ++i)
-          pv[i] = panel_s[(jg * TJ + i) * S::kPanelStride + ring];
-#pragma unroll
-        for (int c = 0; c < TC; ++c) {
-          e0[c] = d0[ring * CC + cg * TC + c];
-          e1[c] = FOLD ? d1[ring * CC + cg * TC + c] : e0[c];
-        }
-#pragma unroll
-        for (int i = 0; i < TJ; ++i)
-#pragma unroll
-          for (int c = 0; c < TC; ++c)
-            acc[i][c] = fmaf(pv[i], (i & 1) ? e1[c] : e0[c], acc[i][c]);
-      }
-      __syncthreads();                        // panel reused by next tile
-    }
-#pragma unroll
-    for (int i = 0; i < TJ; ++i)
-#pragma unroll
-      for (int c = 0; c < TC; ++c)
-        red_s[(q * kLT + jg * TJ + i) * CC + cg * TC + c] = acc[i][c];
-    __syncthreads();
-    for (int i = t; i < n * CC; i += kTile) {
-      const int j = i / CC, c = i % CC;
-      if (c < nch) {
-        float total = 0.0f;
-#pragma unroll
-        for (int qq = 0; qq < Q; ++qq) total += red_s[(qq * kLT + j) * CC + c];
-        part[((static_cast<size_t>(mi) * gridDim.x + chunk) * l_end + l0 + j) *
-                 K2 + c0 + c] = total;
-      }
-    }
-    __syncthreads();                         // red_s / beta reused next panel
-  }
+  const size_t row = static_cast<size_t>(mi) * R;
+  float* prow =                              // the chunk's partial rows
+      part + (static_cast<size_t>(mi) * gridDim.x + chunk) * l_end * K2 + c0;
+  mxu_anal_row<CC, FOLD, SPIN, false>(
+      smem, xr, min(kMxuChunk, R - base), m, mp, lz, l_end, pmm + row,
+      pms + row, base, R, [&](int l, int c, float v) {
+        if (c < nch) prow[static_cast<size_t>(l) * K2 + c] = v;
+      });
 }
 
 // ---------------------------------------------------------------------------
@@ -642,14 +564,15 @@ struct LaunchAnalVpu {
 template <int CC, bool FOLD, bool SPIN>
 struct LaunchAnalMxu {
   static int run(const AnalArgs& g) {
-    using S = AnalMxuShape<CC, FOLD, SPIN>;
+    using S = MxuAnalShape<CC, FOLD, false>;
     cudaError_t err = cudaFuncSetAttribute(
         anal_mxu_kernel<CC, FOLD, SPIN>,
         cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(S::smem_bytes));
     if (err != cudaSuccess) return static_cast<int>(err);
     dim3 grid(g.n_chunks, g.Mp, (g.K2 + CC - 1) / CC);
-    anal_mxu_kernel<CC, FOLD, SPIN><<<grid, kTile, S::smem_bytes, g.stream>>>(
+    anal_mxu_kernel<CC, FOLD, SPIN><<<grid, kMxuThreads, S::smem_bytes,
+                                      g.stream>>>(
         g.dw, g.m_vals, g.mp_vals, g.x, g.pmm, g.pms, g.part, g.K2, g.R,
         g.l_end);
     return static_cast<int>(cudaGetLastError());

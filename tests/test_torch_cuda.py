@@ -681,20 +681,10 @@ def test_vpu_analysis_template_matches_plain_versions(dev, spin, fold, K,
     with the fold off and on, spin 2, one and two maps per block (K 3 runs
     both), random rotation tables and none; identical bits on a rerun."""
     l_max = 256
-    if spin:
-        c = spin_operands(l_max, K, dev, seed=K)
-        lo = pack.build_layout(c["m2"], l_max, mp_vals=c["mp2"])
-        maps, x, pmm_pk, pms_pk = ops._prep(lo, c["x"], c["pmm"], c["pms"])
-    else:
-        lo, maps, x, pmm_pk, pms_pk, _, _, _ = fused_operands(
-            l_max, K, fold, dev, seed=K)
-    P, R = (2 if fold else 1), x.shape[0]
-    gen = torch.Generator().manual_seed(10 * K + spin)
-    f = (torch.rand((lo.n_slots, 2, P, R, 2 * K), generator=gen) * 2
-         - 1).to(dev)
-    tab = (torch.rand((lo.n_slots, 2, P, 4, R), generator=gen) * 2
-           - 1).to(dev) if tables == "random" else None
-    _vpu_template_check(dev, f, maps, x, pmm_pk, pms_pk, tab, lo, l_max,
+    lo, maps, x, pmm_pk, pms_pk, f, tab = _slot_operands(
+        l_max, K, bool(spin), fold, dev, 10 * K + spin)
+    _vpu_template_check(dev, f, maps, x, pmm_pk, pms_pk,
+                        tab if tables == "random" else None, lo, l_max,
                         bool(spin))
 
 
@@ -907,3 +897,202 @@ def test_anal_vpu_template_one_ring_past_a_chunk(dev, rings):
           - 1).to(dev)
     _anal_vpu_check(dw, t(m_vals, torch.int32), t(g.cos_theta, torch.float32),
                     t(pmm, torch.float32), t(pms, torch.int32), l_max, False)
+
+
+# ---------------------------------------------------------------------------
+# the mxu analysis template (csrc/mxu_anal.cuh): kernels 12 and 8 on the
+# slot layout, kernel 4 on the plain one
+# ---------------------------------------------------------------------------
+
+
+def _mxu_template_check(dev, f, maps, x, pmm_pk, pms_pk, tab, lo, l_max,
+                        spin):
+    """Kernel 12 (with ``tab``) and kernel 8 (planes as given, no tables)
+    on one set of operands: each within TOL of its plain version, dead
+    positions exactly zero, the same bits on a rerun."""
+    dead = torch.as_tensor(lo.a_row < 0, device=dev)
+    kw = dict(l_max=l_max, s_len=lo.S, spin=spin)
+    got = fused_cuda.anal_fused_mxu(f, maps, x, pmm_pk, pms_pk, tab, **kw)
+    want = kref.anal_fused_ref(f, maps, x, pmm_pk, pms_pk, tab,
+                               layout="mxu", **kw)
+    assert rel(got, want) < TOL and bool((got[dead] == 0).all())
+    assert torch.equal(fused_cuda.anal_fused_mxu(f, maps, x, pmm_pk, pms_pk,
+                                                 tab, **kw), got)
+    dk = f.reshape(lo.n_slots, -1, *f.shape[3:])
+    got = fused_cuda.anal_packed_mxu(dk, maps, x, pmm_pk, pms_pk, **kw)
+    want = kref.anal_packed_ref(dk, maps, x, pmm_pk, pms_pk, layout="mxu",
+                                **kw)
+    assert rel(got, want) < TOL and bool((got[dead] == 0).all())
+    assert torch.equal(fused_cuda.anal_packed_mxu(dk, maps, x, pmm_pk,
+                                                  pms_pk, **kw), got)
+
+
+def _slot_operands(l_max, K, spin, fold, dev, seed):
+    """A slot layout of the rows 0..l_max (spin: the 2M spin rows), its
+    packed seeds, and random FFT rows (n_slots, 2, P, R, 2K)."""
+    if spin:
+        c = spin_operands(l_max, K, dev, seed=K)
+        lo = pack.build_layout(c["m2"], l_max, mp_vals=c["mp2"])
+        maps, x, pmm_pk, pms_pk = ops._prep(lo, c["x"], c["pmm"], c["pms"])
+    else:
+        lo, maps, x, pmm_pk, pms_pk, _, _, _ = fused_operands(
+            l_max, K, fold, dev, seed=K)
+    gen = torch.Generator().manual_seed(seed)
+    P, R = (2 if fold else 1), x.shape[0]
+    f = (torch.rand((lo.n_slots, 2, P, R, 2 * K), generator=gen) * 2
+         - 1).to(dev)
+    tab = (torch.rand((lo.n_slots, 2, P, 4, R), generator=gen) * 2
+           - 1).to(dev)
+    return lo, maps, x, pmm_pk, pms_pk, f, tab
+
+
+@pytest.mark.parametrize("tables", ["random", "none"])
+@pytest.mark.parametrize("K", [1, 3, 8, 9])
+@pytest.mark.parametrize("spin,fold", [(0, False), (0, True), (2, False)])
+def test_mxu_analysis_template_matches_plain_versions(dev, spin, fold, K,
+                                                      tables):
+    """Kernels 12 and 8 at l_max 256 against their plain versions, within
+    TOL = 5e-5 x max|plain| (the same rounded recurrence, other sum
+    orders): spin 0 with the fold off (32-l panels) and on (16-l panels),
+    spin 2, map chunks of 1, 4 and 8 (K 3 leaves part of its chunk idle, K
+    9 runs two chunks), random rotation tables and none; every row's last
+    panel is short (257 - m rows); identical bits on a rerun."""
+    l_max = 256
+    lo, maps, x, pmm_pk, pms_pk, f, tab = _slot_operands(
+        l_max, K, bool(spin), fold, dev, 10 * K + spin)
+    _mxu_template_check(dev, f, maps, x, pmm_pk, pms_pk,
+                        tab if tables == "random" else None, lo, l_max,
+                        bool(spin))
+
+
+@pytest.mark.parametrize("K", [3, 8])
+def test_mxu_analysis_template_with_bucket_tables(dev, K):
+    """Kernels 12 and 8 on a HEALPix nside 64 plan's own seeds, layout and
+    bucket rotation tables (kernel 12 applies them in-kernel) against
+    their plain versions within TOL; identical bits on a rerun."""
+    plan = repro_torch.make_plan("healpix", nside=64, K=K, dtype="float32",
+                                 mode="cuda_mxu")
+    assert plan.layouts["anal"] == "fused"
+    a = torch.zeros(plan._alm_shape, dtype=torch.complex64, device=dev)
+    plan.map2alm(plan.alm2map(a))                # fills the plan's store
+    _, kw, _ = plan._fused_parts("mxu", False)
+    store = kw["store"]
+    maps, x, pmm_pk, pms_pk = store["prep"]
+    tab = store[("tables", "anal")]
+    assert tab is not None
+    gen = torch.Generator().manual_seed(K)
+    f = (torch.rand((kw["lo"].n_slots, 2, 1, x.shape[0], 2 * K),
+                    generator=gen) * 2 - 1).to(dev)
+    _mxu_template_check(dev, f, maps, x, pmm_pk, pms_pk, tab, kw["lo"],
+                        plan.l_max, False)
+
+
+def _one_past_a_chunk(rings, dev):
+    """Rows 0..256 with a padding row on a GL grid of ``rings`` rings, one
+    ring past a multiple of the 512-ring mxu chunk: (m_vals, x, pmm,
+    pms) as CUDA tensors."""
+    l_max = 256
+    g = grids.make_grid("gl", l_max=rings - 1)
+    assert g.n_rings == rings and rings % lc.ANAL_CHUNK["mxu"] == 1
+    m_vals = np.insert(np.arange(l_max + 1), 5, -1)
+    pmm, pms = kref.prepare_seeds(m_vals, g.sin_theta, legendre.log_mu(l_max))
+    t = lambda v, dt: torch.as_tensor(v, dtype=dt, device=dev)
+    return (t(m_vals, torch.int32), t(g.cos_theta, torch.float32),
+            t(pmm, torch.float32), t(pms, torch.int32))
+
+
+@pytest.mark.parametrize("rings", [513, 1025])
+def test_mxu_analysis_template_one_ring_past_a_chunk(dev, rings):
+    """R one ring past a multiple of the 512-ring chunk: the last chunk's
+    block builds a single ring quad.  Kernels 12 and 8 at K 8 against
+    their plain versions within TOL at l_max 256 (random tables),
+    identical bits on a rerun."""
+    m_t, x, pmm, pms = _one_past_a_chunk(rings, dev)
+    lo = pack.build_layout(m_t.cpu().numpy(), 256)
+    maps, x, pmm_pk, pms_pk = ops._prep(lo, x, pmm, pms)
+    gen = torch.Generator().manual_seed(rings)
+    f = (torch.rand((lo.n_slots, 2, 1, rings, 16), generator=gen) * 2
+         - 1).to(dev)
+    tab = (torch.rand((lo.n_slots, 2, 1, 4, rings), generator=gen) * 2
+           - 1).to(dev)
+    _mxu_template_check(dev, f, maps, x, pmm_pk, pms_pk, tab, lo, 256,
+                        False)
+
+
+@pytest.mark.parametrize("spin,fold", [(0, False), (0, True), (2, False)])
+def test_mxu_analysis_template_bf16(dev, spin, fold):
+    """Kernel 12's bf16 instantiation on the template's panel at K 8, l_max
+    256, random tables: within BF16_TOL = 1e-5 of its bf16 plain version
+    (both form exact bf16 products; only the float32 sums' order
+    differs), 0 < err < 1e-2 against the float32 kernel (the reference's
+    gate), dead positions exactly zero, identical bits on a rerun."""
+    l_max = 256
+    lo, maps, x, pmm_pk, pms_pk, f, tab = _slot_operands(
+        l_max, 8, bool(spin), fold, dev, 7 + spin)
+    dead = torch.as_tensor(lo.a_row < 0, device=dev)
+    kw = dict(l_max=l_max, s_len=lo.S, spin=bool(spin))
+    got = fused_cuda.anal_fused_mxu(f, maps, x, pmm_pk, pms_pk, tab,
+                                    bf16=True, **kw)
+    want = kref.anal_fused_ref(f, maps, x, pmm_pk, pms_pk, tab, bf16=True,
+                               **kw)
+    assert rel(got, want) < BF16_TOL and bool((got[dead] == 0).all())
+    f32 = fused_cuda.anal_fused_mxu(f, maps, x, pmm_pk, pms_pk, tab, **kw)
+    assert 0 < rel(got, f32) < 1e-2
+    assert torch.equal(fused_cuda.anal_fused_mxu(
+        f, maps, x, pmm_pk, pms_pk, tab, bf16=True, **kw), got)
+
+
+def _anal_mxu_check(dw, m_t, x, pmm, pms, l_max, fold, mp_t=None):
+    """Kernel 4 through anal_reduce: within TOL of its plain version, the
+    padding rows (m < 0) exact zeros, the same bits on a rerun."""
+    kw = dict(l_max=l_max, fold=fold, mp_vals=mp_t)
+    got = lc.anal_mxu(dw, m_t, x, pmm, pms, **kw)
+    want = kref.anal_ref(dw, m_t, x, pmm, pms, **kw)
+    assert rel(got, want) < TOL and bool((got[m_t < 0] == 0).all())
+    assert torch.equal(lc.anal_mxu(dw, m_t, x, pmm, pms, **kw), got)
+    return got
+
+
+@pytest.mark.parametrize("K", [1, 3, 8, 9])
+@pytest.mark.parametrize("spin,fold", [(0, False), (0, True), (2, False)])
+def test_anal_mxu_template_matches_plain_version(dev, spin, fold, K):
+    """Kernel 4 at l_max 256 on the plain layout against its plain version
+    within TOL: spin 0 with the fold off and on, spin 2 (rows below l0
+    exact zeros), channel chunks of 2, 8 and 16 (K 3 leaves part of its
+    chunk idle, K 9 runs a chunk of 16 and one of 2)."""
+    l_max = 256
+    if spin:
+        c = spin_operands(l_max, K, dev, seed=K)
+        got = _anal_mxu_check(c["dw"], c["m"], c["x"], c["pmm"], c["pms"],
+                              l_max, False, c["mp"])
+        assert bool((got[c["below"]] == 0).all())
+    else:
+        m_t, x, pmm, pms, _, dw = operands(l_max, K, fold, dev, seed=K)
+        _anal_mxu_check(dw, m_t, x, pmm, pms, l_max, fold)
+
+
+@pytest.mark.parametrize("K", [3, 8])
+def test_anal_mxu_template_on_a_healpix_plan(dev, K):
+    """Kernel 4 on a plain-layout HEALPix nside 64 plan's own rows and seeds
+    against its plain version within TOL; identical bits on a rerun."""
+    plan = repro_torch.make_plan("healpix", nside=64, K=K, dtype="float32",
+                                 mode="cuda_mxu", layout="plain")
+    m_t, x, pmm, pms, _ = plan._row_seeds()
+    P = 2 if plan.fold else 1
+    gen = torch.Generator().manual_seed(K)
+    dw = (torch.rand((m_t.shape[0], P, x.shape[0], 2 * K), generator=gen)
+          * 2 - 1).to(dev)
+    _anal_mxu_check(dw, m_t, x, pmm, pms, plan.l_max, plan.fold)
+
+
+@pytest.mark.parametrize("rings", [513, 1025])
+def test_anal_mxu_template_one_ring_past_a_chunk(dev, rings):
+    """R one ring past a multiple of the 512-ring chunk: the last chunk's
+    block builds a single ring quad.  Kernel 4 at K 8 against its plain
+    version within TOL at l_max 256 with a padding row, identical bits on
+    a rerun."""
+    m_t, x, pmm, pms = _one_past_a_chunk(rings, dev)
+    gen = torch.Generator().manual_seed(rings)
+    dw = (torch.rand((m_t.shape[0], 1, rings, 16), generator=gen) * 2
+          - 1).to(dev)
+    _anal_mxu_check(dw, m_t, x, pmm, pms, 256, False)
