@@ -22,7 +22,8 @@ GL ones: HEALPix (nside 1024, K 8, fused and plain, spin 0 and 2; nside
 through the ring-bucket or uniform phase stage, each synthesis and
 analysis rerun for identical bits (as is the analysis of the GL vpu fused
 and plain paths, whose template sums its rings in a fixed order of its
-own), and the vpu kernels held at full width with the equator fold; then
+own), the vpu kernels and the mxu synthesis kernels held at full width
+with the equator fold; then
 the bfloat16 branch of the fused
 mxu kernels (``Plan._make_fused_synth/_make_fused_anal("mxu",
 bf16=True)``) at GL 2048/K8 and HEALPix 1024/K8, held to the reference's
@@ -1355,9 +1356,10 @@ def check_vpu_fold_full_width(dev) -> None:
     path runs: on a fold plan's own seeds, slot layout and fold tables (GL
     l_max 4096, K 1) kernels 9 and 5 (random coefficients) and 11 and 7
     (random FFT rows), and on a plain-layout fold plan's rows and seeds
-    kernel 3 (random Delta rows); each held against its plain version at
-    KERNEL_TOL (empty segments, dead positions and padding rows exactly
-    zero) and rerun for identical bits."""
+    kernel 3 (random Delta rows) and kernel 1 (random coefficient rows);
+    each held against its plain version at KERNEL_TOL (empty segments,
+    dead positions and padding rows exactly zero) and rerun for identical
+    bits."""
     plan = repro_torch.make_plan("gl", 4096, K=1, dtype="float32",
                                  mode="cuda_vpu", fold=True)
     gen = torch.Generator().manual_seed(41)
@@ -1414,6 +1416,56 @@ def check_vpu_fold_full_width(dev) -> None:
     held("anal_vpu", out, kref.anal_ref(*args, **akw),
          f"{where(plan)} fold, K 1, plain layout", m_t < 0)
     rerun_same("anal_vpu", digest(out), lambda: lc.anal_vpu(*args, **akw))
+    del out, dw, args
+    L = plan.l_max + 1
+    keep = (torch.arange(L, device=dev)[None, :] >= m_t[:, None])
+    a = ((torch.rand((m_t.shape[0], L, 2), generator=gen) * 2 - 1).to(dev)
+         * keep[..., None])
+    args = (a, m_t, x, pmm, pms)
+    out = lc.synth_vpu(*args, **akw)
+    held("synth_vpu", out, kref.synth_ref(*args, **akw),
+         f"{where(plan)} fold, K 1, plain layout", m_t < 0)
+    rerun_same("synth_vpu", digest(out), lambda: lc.synth_vpu(*args, **akw))
+    del out, a, args
+    torch.cuda.empty_cache()
+
+
+def check_mxu_synth_fold_full_width(dev) -> None:
+    """The mxu synthesis template at full width with the equator fold, which
+    no main path runs (both planes' sums in registers, the fold combine on
+    them): on a fold plan's own seeds, slot layout and fold tables (GL
+    l_max 2048, K 8; 1025 rings, so the last 512-ring chunk holds one)
+    kernels 10 and 6 (random coefficients), each held against its plain
+    version at KERNEL_TOL (empty segments exactly zero) and rerun for
+    identical bits."""
+    plan = repro_torch.make_plan("gl", 2048, K=8, dtype="float32",
+                                 mode="cuda_mxu", fold=True)
+    gen = torch.Generator().manual_seed(43)
+    alm = random_alm_for(gen, plan, torch.float32, dev)
+    plan.map2alm(plan.alm2map(alm))               # fills the plan's store
+    _, kw, _ = plan._fused_parts("mxu", False)
+    lo, store = kw["lo"], kw["store"]
+    prep = store["prep"]
+    S = lo.S
+    empty = torch.as_tensor(lo.slot_seed == S, device=dev)
+    a_pk = torch.rand((lo.n_slots, S, 16), generator=gen) * 2 - 1
+    a_pk = a_pk.masked_fill_(torch.as_tensor(lo.a_row < 0)[..., None],
+                             0.0).to(dev)
+    tab = store[("tables", "synth")]
+    what = f"{where(plan)} fold, K 8, "
+    for kind, args, pad in (("fused", (a_pk, *prep, tab), (empty, 1)),
+                            ("packed", (a_pk, *prep), (empty, slice(2, 4)))):
+        synth = getattr(fused_cuda, f"synth_{kind}_mxu")
+        skw = dict(l_max=plan.l_max, fold=True)
+        out = synth(*args, **skw)
+        want = getattr(kref, f"synth_{kind}_ref")(*args, layout="mxu", **skw)
+        held(f"synth_{kind}_mxu", out, want, what
+             + ("fold tables" if kind == "fused" and tab is not None
+                else "no tables"), pad)
+        rerun_same(f"synth_{kind}_mxu", digest(out),
+                   lambda: synth(*args, **skw))
+        del out, want
+    del plan, prep, a_pk
     torch.cuda.empty_cache()
 
 
@@ -1532,9 +1584,12 @@ def main() -> int:
     for spin in SPINS:
         for mode, l_max, K, layout in MAIN_PATH:
             kernels += main_path(dev, mode, l_max, K, layout, spin)
-    log(f"{elapsed()}   -- the vpu templates (kernels 9, 5, 11, 7, 3) at "
-        "full width with the fold")
+    log(f"{elapsed()}   -- the vpu templates (kernels 9, 5, 11, 7, 3, 1) "
+        "at full width with the fold")
     check_vpu_fold_full_width(dev)
+    log(f"{elapsed()}   -- the mxu synthesis template (kernels 10, 6) at "
+        "full width with the fold")
+    check_mxu_synth_fold_full_width(dev)
     log(f"{elapsed()}   -- the ragged-grid paths: HEALPix, ring-uniform "
         "HEALPix, ECP")
     for grid, size, mode, K, layout, spins in RAGGED_PATHS:

@@ -3,6 +3,7 @@
     python3 scripts/chip_probe.py                 # bf16 kernels, bucket phase
     python3 scripts/chip_probe.py --first-calls   # first calls on HEALPix
     python3 scripts/chip_probe.py --compare       # parent against this tree
+    python3 scripts/chip_probe.py --compare synth # the synthesis kernels
 
 Every mode builds the kernels (their ``-Xptxas -v`` logs go to
 ``chiprun_out/``).  With no option it holds the bfloat16 branch of kernels
@@ -15,7 +16,7 @@ bits; and times the bucket phase stage and the fused directions at nside
 calls on a new HEALPix grid (plan, bucket index, first bucket FFTs) at
 nside 1024 and 2048.
 
-``--compare [vpu|mxu]`` measures a kernel change against the parent
+``--compare [vpu|mxu|synth]`` measures a kernel change against the parent
 commit in one call, on one card: unpack the parent first (``git archive
 <parent> | tar -x -C checkouts/parent``; ``/checkouts/`` is git-ignored).
 It imports the parent's kernel wrappers from there beside this tree's, so
@@ -23,14 +24,16 @@ each tree is called through its own wrappers and builds its own sources
 into its own ``_build`` directory (four ``nvcc`` together; run it before
 anything else builds this tree, or this tree's ``-Xptxas -v`` log is not
 written).  It writes both trees' ``-Xptxas -v`` logs and the SASS of the
-vpu kernels (9, 11 and 7 of ``fused``, 3 of ``legendre``) and of the mxu
-analyses (12 and its bf16 instantiation, 4) to ``chiprun_out/``, names
-every kernel whose SASS differs from the parent's, and counts the inner
-loops of the main paths' instantiations by opcode (for the mxu analyses
-also the SASS instructions a triple at 16 channels: the panel build's
-steady path over the steps it stores, plus the contraction loop's
-instructions over its FFMA).  Then, in turns (parent, this tree, this
-tree, parent; ``chip_smoke.cuda_time_ms``, mean of 5 each), each on
+vpu kernels (9, 11 and 7 of ``fused``, 1 and 3 of ``legendre``) and of
+the mxu kernels (12 and 10 with their bf16 instantiations, 4 and 2) to
+``chiprun_out/``, names every kernel whose SASS differs from the parent's,
+and counts the inner loops of the main paths' instantiations by opcode
+(for the mxu kernels also the SASS instructions a triple at 16 channels:
+the panel build's steady path over the steps it stores, plus the
+contraction loop's instructions over its FFMA; for the vpu synthesis at K
+1 the unguarded steady loop's path over its 2 steps of 4 rings).  Then,
+in turns (parent, this tree, this tree, parent;
+``chip_smoke.cuda_time_ms``, mean of 5 each), each on
 ``chip_smoke.py``'s own main-path inputs, printing both trees' digests
 (those its log prints) and the gap between the analyses:
 
@@ -59,10 +62,23 @@ tree, parent; ``chip_smoke.cuda_time_ms``, mean of 5 each), each on
   packed GL 2048/K8 paths at full width (the smoke runs them at l_max
   1024); kernel 4 (``anal_mxu``) on the plain paths of both grids; then
   kernel 11 at GL 4096 with K 4 and 7 (its map chunk of 2: each tree's,
-  timed, bits compared).
+  timed, bits compared);
+* ``synth``: the registers and stack, spill store and spill load bytes of
+  every synthesis instantiation of both trees; every output of
+  ``chip_smoke.py``'s phase 2 through both trees, as ``mxu`` does; then,
+  each with whether its outputs are equal to the parent's bit for bit and
+  its share of the issue rate (the SASS counts above x the path's
+  triples / (132 SMs x 128 lanes x the SM clock) over the time): kernel 1
+  (``synth_vpu``) on the plain GL 4096/K1 path, spin 0 and 2, and at K 4
+  and 7; kernel 10 (``synth_fused_mxu``) on the fused paths at GL 2048/K8
+  and HEALPix 1024/K8, spin 0 and 2, with its bf16 instantiation on
+  ``chip_smoke.py``'s BF16_PATHS; kernel 6 (``synth_packed_mxu``) on the
+  packed GL 2048/K8 paths at full width; kernel 2 (``synth_mxu``, not
+  changed) on the plain GL 2048/K8 paths as the control; kernels 9 and 5
+  on the fused and packed GL 4096/K1 paths, spin 0 and 2.
 
-With no part named both run.  Prints numbers only; the checks that pass
-or fail are ``chip_smoke.py``'s.
+With no part named all three run.  Prints numbers only; the checks that
+pass or fail are ``chip_smoke.py``'s.
 """
 import collections
 import functools
@@ -238,14 +254,18 @@ def _sass(path):
 
 #: per library: (name pattern, main-path instantiation) of the kernels
 #: whose SASS goes to ``chiprun_out/`` and whose loops are counted, spin 0
-#: and 2 (fused: kernels 9 and 11 at KM 1 and kernel 12, float32 and bf16,
-#: at KM 8, fold off; legendre: kernel 3 at KC 2 and kernel 4 at CC 16,
-#: fold off)
+#: and 2 (fused: kernels 9 and 11 at KM 1 and kernels 12 and 10, float32
+#: and bf16, at KM 8, fold off; legendre: kernels 1 and 3 at KC 2 and
+#: kernels 4 and 2 at CC 16, fold off)
 SASS_KERNELS = {
     "fused": ((r"(anal|synth)_fused_vpu_kernelI\w+?EE", "ILi1ELb0ELb1E"),
-              (r"anal_fused_mxu_kernelI\w+?EE", "ILi8ELb0ELb1E")),
-    "legendre": ((r"anal_vpu_kernelI\w+?EE", "ILi2ELb0E"),
-                 (r"anal_mxu_kernelI\w+?EE", "ILi16ELb0E"))}
+              (r"(anal|synth)_fused_mxu_kernelI\w+?EE", "ILi8ELb0ELb1E")),
+    "legendre": ((r"(anal|synth)_vpu_kernelI\w+?EE", "ILi2ELb0E"),
+                 (r"(anal|synth)_mxu_kernelI\w+?EE", "ILi16ELb0E"))}
+
+#: SASS instructions a triple of the main-path instantiations, filled by
+#: ``_sass_report``: {(tree, kernel name): count}
+PER_TRIPLE = {}
 
 #: channels a block contracts in the mxu main-path instantiations above
 MXU_CC = 16
@@ -269,12 +289,14 @@ def _loops(ins):
 
 
 def _mxu_per_triple(loops):
-    """SASS instructions a (row, l, ring) triple of an mxu analysis
-    instantiation at MXU_CC channels, from its loops: the panel build (the
-    loop with FMUL and shared stores: its steady path over the recurrence
-    steps it stores, STS 1, STS.64 2, STS.128 4) plus the contraction (the
-    loop with the most FFMA: its instructions times MXU_CC over its FFMA;
-    none on the tensor-core branch, whose contraction is unrolled)."""
+    """SASS instructions a (row, l, ring) triple of an mxu instantiation at
+    MXU_CC channels, from its loops: the panel build (the loop with FMUL
+    and shared stores: its steady path over the recurrence steps it
+    stores, STS 1, STS.64 2, STS.128 4) plus the contraction (the loop with
+    the most FFMA: its instructions times MXU_CC over its FFMA; none on the
+    tensor-core branch, whose contraction is unrolled; the float32 mxu
+    synthesis has no build loop: its one loop of steps and FFMA counts as
+    the contraction)."""
     build = contract = None
     for loop, steady, ops in loops:
         sts = sum({"": 1, "64": 2, "128": 4}.get(
@@ -324,6 +346,18 @@ def _sass_report(old_path, new_path, lib):
                         b, c = _mxu_per_triple(loops)
                         print(f"    a triple at {MXU_CC} channels: build "
                               f"{b}, contraction {c}", flush=True)
+                        # the float32 mxu synthesis steps and contracts in
+                        # one loop (counted as the contraction)
+                        PER_TRIPLE[(tag, name)] = (b or 0) + (c or 0)
+                    elif name.startswith("synth") and loops:
+                        # the steady steps of a full ring block: of the
+                        # loops with the most FFMA the unguarded (shortest)
+                        # one, two steps of 4 rings a pass at K 1
+                        steady = min(loops, key=lambda x: (
+                            -x[2].get("FFMA", 0), x[1]))[1]
+                        PER_TRIPLE[(tag, name)] = steady / 8
+                        print(f"    a triple at K 1: {steady / 8}",
+                              flush=True)
 
 
 def _steady_path(loop):
@@ -593,9 +627,10 @@ MXU_PATHS = tuple((grid, size, spin, layout)
                   if layout != "packed" or grid == "gl")
 
 
-def _ptxas_mxu():
-    """Registers and spills of every mxu analysis instantiation, from both
-    trees' ``-Xptxas -v`` logs."""
+def _ptxas(pattern=r"anal_(?:fused_)?mxu_kernelI\w+?EE"):
+    """Registers and spills of every instantiation whose name matches
+    ``pattern`` (default: the mxu analyses), from both trees' ``-Xptxas
+    -v`` logs."""
     for pre in ("parent_", ""):
         for lib in build.SOURCES:
             path = f"chiprun_out/ptxas_{pre}{lib}.log"
@@ -604,8 +639,7 @@ def _ptxas_mxu():
             with open(path) as fh:
                 blocks = fh.read().split("Compiling entry function '")[1:]
             for block in blocks:
-                name = re.search(r"anal_(?:fused_)?mxu_kernelI\w+?EE",
-                                 block.split("'")[0])
+                name = re.search(pattern, block.split("'")[0])
                 if not name:
                     continue
                 regs = re.search(r"Used (\d+) registers", block)
@@ -664,7 +698,7 @@ def compare_mxu(old, new):
     """The mxu analysis kernels (12 with its bf16 instantiation, 8, 4) on
     chip_smoke.py's phase-2 operands and on their main paths, then kernel
     11 at GL 4096 with K 4 and 7, parent against this tree."""
-    _ptxas_mxu()
+    _ptxas()
     print("chip_smoke.py's phase 2 through both trees:", flush=True)
     _compare_phase2(old, new)
     print("mxu analysis kernels, on chip_smoke.py's main-path inputs "
@@ -719,6 +753,100 @@ def compare_mxu(old, new):
         torch.cuda.empty_cache()
 
 
+def _triples(plan) -> int:
+    """(row, l >= l0, ring) triples of a plan's Legendre stage."""
+    m_t, x, _, _, mp_t = plan._row_seeds()
+    return cs.legendre_work(m_t.cpu().numpy(), plan.l_max + 1, x.shape[0],
+                            2 * plan.K, None if mp_t is None
+                            else mp_t.cpu().numpy())[0]
+
+
+def _issue(tree_ms, triples, kernel):
+    """This tree's share of the issue rate on a path: the SASS instructions
+    a triple of instantiation ``kernel`` (``_sass_report``) x the path's
+    triples over 132 SMs x 128 lanes x the SM clock under load, over its
+    time."""
+    clock = _clocks()
+    mhz = float(clock.split(",")[0].split()[0])
+    per = PER_TRIPLE.get(("tree", kernel))
+    rate = 132 * 128 * mhz * 1e6           # SASS instructions a second
+    share = ("?" if per is None else
+             f"{per * triples / rate / (tree_ms * 1e-3):.0%}")
+    print(f"    {triples:.4g} triples, {per} SASS a triple ({kernel}), "
+          f"{share} of the issue rate; SM clock, max: {clock}", flush=True)
+
+
+#: kernel 1 on the plain GL 4096 paths: (spin, K)
+SYNTH_VPU_PLAIN = ((0, 1), (2, 1), (0, 4), (0, 7))
+
+
+def compare_synth(old, new):
+    """The synthesis kernels (1, 10 with its bf16 instantiation, 6; 2 as
+    the control; 9 and 5 after the template move), parent against this
+    tree, on chip_smoke.py's phase-2 operands and main-path inputs."""
+    _ptxas(r"synth_\w*?kernelI\w+?EE")
+    print("chip_smoke.py's phase 2 through both trees:", flush=True)
+    _compare_phase2(old, new)
+    print("synthesis kernels on chip_smoke.py's main-path inputs (bits: "
+          "this tree's output against the parent's):", flush=True)
+    for spin, K in SYNTH_VPU_PLAIN + ((0, 8), (2, 8)):
+        var, size = ("vpu", 4096) if K < 8 else ("mxu", 2048)
+        plan, alm, maps = cs.run_main_path(dev, f"cuda_{var}", size, K,
+                                           "plain", spin)
+        m_t, x, pmm, pms, mp_t = plan._row_seeds()
+        a, _ = cs.path_rows(plan, alm, maps)
+        kw = dict(l_max=plan.l_max, mp_vals=mp_t)
+        what = f"synth_{var} plain path {cs.where(plan)} K {K} spin {spin}"
+        _, pn = _same_and_turns(what, *(
+            functools.partial(getattr(tree.lc, f"synth_{var}"), a, m_t, x,
+                              pmm, pms, **kw) for tree in (old, new)))
+        if K in (1, 8):
+            _issue(pn, _triples(plan), f"synth_{var}_kernelILi"
+                   f"{2 * K if K == 1 else 16}ELb0ELb{int(bool(spin))}EE")
+        del plan, alm, maps, a
+        torch.cuda.empty_cache()
+    for grid, size, spin, layout in MXU_PATHS:
+        if layout == "plain":
+            continue
+        plan, pk, _, _, _, a_pk = _path_inputs(grid, size, spin, layout, 8,
+                                               "mxu")
+        tab = (plan._fused_store[("tables", "synth")],) \
+            if layout == "fused" else ()
+        where = f"{cs.where(plan)} K 8 spin {spin}"
+        bf16s = ((False, True) if layout == "fused"
+                 and (grid, size, 8, spin) in cs.BF16_PATHS else (False,))
+        for bf16 in bf16s:
+            kw = dict(l_max=plan.l_max, spin=bool(spin),
+                      **({"bf16": True} if bf16 else {}))
+            name = f"synth_{layout}_mxu{'_bf16' if bf16 else ''}"
+            what = (f"{name} {layout} path {where}, tables "
+                    f"{'applied' if tab and tab[0] is not None else 'none'}")
+            _, pn = _same_and_turns(what, *(
+                functools.partial(getattr(tree.fc, f"synth_{layout}_mxu"),
+                                  a_pk, *pk, *tab, **kw)
+                for tree in (old, new)))
+            _issue(pn, _triples(plan), "synth_fused_mxu_kernelILi8ELb0ELb1E"
+                   f"Lb{int(bool(spin))}ELb{int(bf16)}EE")
+        del plan, pk, a_pk
+        torch.cuda.empty_cache()
+    print("kernels 9 and 5 (the template moved into recurrence.cuh):",
+          flush=True)
+    for layout in ("fused", "packed"):
+        for spin in (0, 2):
+            plan, pk, _, _, _, a_pk = _path_inputs("gl", 4096, spin, layout)
+            tab = (plan._fused_store[("tables", "synth")],) \
+                if layout == "fused" else ()
+            _same_and_turns(
+                f"synth_{layout}_vpu {layout} path {cs.where(plan)} K 1 "
+                f"spin {spin}", *(
+                    functools.partial(getattr(tree.fc, f"synth_{layout}_vpu"),
+                                      a_pk, *pk, *tab, l_max=plan.l_max,
+                                      spin=bool(spin))
+                    for tree in (old, new)))
+            del plan, pk, a_pk
+            torch.cuda.empty_cache()
+
+
 def compare(parts):
     old, new = trees["parent"], trees["this tree"]
     for lib in build.SOURCES:
@@ -727,6 +855,8 @@ def compare(parts):
         compare_vpu(old, new)
     if "mxu" in parts:
         compare_mxu(old, new)
+    if "synth" in parts:
+        compare_synth(old, new)
     print("total s", time.time() - t0, flush=True)
 
 
@@ -739,7 +869,7 @@ def _clocks():
 
 if "--compare" in sys.argv:
     compare([a for a in sys.argv[sys.argv.index("--compare") + 1:]
-             if a in ("vpu", "mxu")] or ["vpu", "mxu"])
+             if a in ("vpu", "mxu", "synth")] or ["vpu", "mxu", "synth"])
     sys.exit(0)
 
 if "--first-calls" in sys.argv:

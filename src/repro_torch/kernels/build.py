@@ -4,8 +4,9 @@ Each source in :data:`SOURCES` (``csrc/legendre.cu``, ``csrc/fused.cu``)
 compiles with its own ``nvcc`` process into ``_build/<name>_<hash>.so``
 next to this file (the directory is git-ignored); :func:`build` starts the
 missing ones together.  The hash covers the source, the shared headers
-``csrc/recurrence.cuh`` and ``csrc/mxu_anal.cuh`` and the flags, so an edited source or header
-rebuilds and an unchanged one loads at once.  The libraries have a plain C
+``csrc/recurrence.cuh``, ``csrc/mxu_anal.cuh`` and ``csrc/mxu_synth.cuh``
+and the flags, so an edited source or header rebuilds and an unchanged one
+loads at once.  The libraries have a plain C
 interface and are loaded with ctypes.  Needs ``nvcc`` (``$CUDA_HOME/bin``,
 ``/usr/local/cuda/bin`` or the PATH); nothing here runs at import time.
 """
@@ -26,7 +27,7 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 SOURCES = {name: os.path.join(_HERE, "csrc", f"{name}.cu")
            for name in ("legendre", "fused")}
 HEADERS = [os.path.join(_HERE, "csrc", name)
-           for name in ("recurrence.cuh", "mxu_anal.cuh")]
+           for name in ("recurrence.cuh", "mxu_anal.cuh", "mxu_synth.cuh")]
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]

@@ -70,13 +70,22 @@
 //                    rotation run on the registers and only the rotated rows
 //                    are written, (n_slots, 2, P, 2K, R): Delta never
 //                    reaches HBM.
-//   synth_fused_mxu  replaces synth_fused_mxu, fused.py:385.  float32
-//                    operations bound: per (slot, 128-ring tile) and segment
-//                    the block builds (32 l x 128 ring) P panels in shared
-//                    memory and contracts them against the (32 l x 2KM)
-//                    coefficient panel with register tiles (full float32, no
-//                    TF32), then stages the sums in shared memory and rotates
-//                    once per ring tile into (n_slots, 2, P, R, 2K).
+//   synth_fused_mxu  replaces synth_fused_mxu, fused.py:385.  Bound by
+//                    instruction issue, as synth_fused_vpu: the
+//                    bit-faithful step (~20 SASS instructions a (row, l,
+//                    ring) triple) and the 2K FFMA of each triple issue far
+//                    more than the float32 operations of the flop bound.
+//                    One block of 256 threads per (slot, 512-ring chunk,
+//                    chunk of <= 8 maps) on the mxu synthesis template of
+//                    mxu_synth.cuh: per segment each thread steps a ring
+//                    pair (seed and P_{m+1,m} peeled off, no guard, one
+//                    table entry an l for both) and adds each value times
+//                    the l's 2KM coefficients (broadcast float4 loads of
+//                    rows staged 256 l at a time) into its registers: no
+//                    panel, two barriers per 256 l, three blocks (24
+//                    warps) an SM without the fold.  Then the fold combine
+//                    and the rotation run on the registers of each ring,
+//                    into (n_slots, 2, P, R, 2K).
 //   anal_fused_vpu   replaces anal_fused_vpu, fused.py:526.  Bound by
 //                    instruction issue: the bit-faithful step issues ~23
 //                    SASS instructions a triple at K 1, of which the float32
@@ -119,9 +128,8 @@
 //                    template and design, COMBINE = false, no tables).
 //   anal_packed_mxu  replaces anal_mxu_packed, legendre_pallas.py:937:
 //                    anal_fused_mxu on the parity planes as given.
-//                    All four are bound as their fused twins (the vpu ones
-//                    and the mxu analysis by instruction issue, the mxu
-//                    synthesis by float32 operations): the P_lm triples and
+//                    All four are bound as their fused twins (by
+//                    instruction issue): the P_lm triples and
 //                    the per-step code are the same, and the packed layout's
 //                    point on this card, as on the TPU, is that every slot
 //                    walks a near-constant 2 l_max - m_max + 2 steps, so no
@@ -141,9 +149,9 @@
 // synthesis, [plane 0 | plane 1] Delta columns in analysis, each row taking
 // the half of its parity).  Bound: the contraction at the tensor cores' bf16
 // rate (989 TFLOP/s) plus the float32 recurrence at 67 TFLOP/s; one warp
-// per 32 rings (synthesis) or per 64-ring slice of the 512-ring chunk
-// (analysis, on the mxu analysis template's panel), fragments loaded
-// straight from shared memory.
+// per 64-ring slice of the 512-ring chunk on 32-l panels of P in shared
+// memory (the synthesis on mxu_synth.cuh's, the analysis on mxu_anal.cuh's
+// panel build), fragments loaded straight from shared memory.
 //
 // The TPU analysis kernels add into one output block across ring blocks in
 // sequential grid order (fused.py:477, :600; legendre_pallas.py:844, :955);
@@ -161,6 +169,7 @@
 #include <cstdint>
 
 #include "mxu_anal.cuh"
+#include "mxu_synth.cuh"
 #include "recurrence.cuh"
 
 namespace {
@@ -246,46 +255,10 @@ __device__ __forceinline__ void zero_tail(float* __restrict__ part,
 
 // ---------------------------------------------------------------------------
 // synth_fused_vpu: grid (ceil(R / (128 RT)), n_slots, ceil(K / KM)), block
-// 128.  Thread t carries rings base + k * 128 + t, k < RT = synth_rings(KM).
+// 128.  Thread t carries rings base + k * 128 + t, k < RT = synth_rings(KM),
+// through the vpu synthesis template (recurrence.cuh).
 // out (n_slots, 2, P, 2K, R).
 // ---------------------------------------------------------------------------
-// Rings a thread carries at map chunk km: 4 at km 1 and 2, 8 / km above, so
-// the accumulators (RT x P x 2 km) stay at <= 32 floats.
-__host__ __device__ constexpr int synth_rings(int km) {
-  return km <= 2 ? 4 : 8 / km;
-}
-
-// The steady steps j0 <= j < n of one tile: each of the thread's rings
-// (those below ntile unless FULL) advances by the three-term recurrence and
-// adds its products to its accumulators, the tile's coefficient row read
-// once for all of them.  With the fold, even j is plane 0 and odd j plane
-// P - 1 (the tile starts at an even l - m).
-template <int RT, int CC, int P, bool SPIN, bool FULL>
-__device__ __forceinline__ void vpu_synth_steps(
-    Rec (&s)[RT], const float (&xr)[RT], float (&acc)[RT][P][CC], int ntile,
-    int j, int n,
-    const float* t0, const float* t1, const float* t2,
-    const float (*a_s)[CC]) {
-  auto step = [&](int jj, int p) {
-    float a[CC];
-#pragma unroll
-    for (int c = 0; c < CC; ++c) a[c] = a_s[jj][c];
-#pragma unroll
-    for (int k = 0; k < RT; ++k) {
-      if (FULL || k < ntile) {
-        const float v = rec_general<SPIN>(&s[k], xr[k], t0, t1, t2, jj);
-#pragma unroll
-        for (int c = 0; c < CC; ++c) acc[k][p][c] = fmaf(v, a[c], acc[k][p][c]);
-      }
-    }
-  };
-  for (; j + 1 < n; j += 2) {
-    step(j, 0);
-    step(j + 1, P - 1);
-  }
-  if (j < n) step(j, 0);
-}
-
 template <int KM, bool FOLD, bool COMBINE, bool SPIN>
 __global__ void __launch_bounds__(kTile)
 synth_fused_vpu_kernel(const float* __restrict__ a_pk,
@@ -342,38 +315,12 @@ synth_fused_vpu_kernel(const float* __restrict__ a_pk,
       }
       fill_coef<SPIN>(l0, sg.m, sg.mp, bl_s, ratio_s, c_s);
       __syncthreads();
-      int j = 0;
-      if (l0 == sg.lz) {
-        // the seed (plane 0: l - m even), then (spin 0) P_{m+1,m} (plane
-        // P - 1); each sum starts as fmaf(v, a, 0.0f), as in the loop
-#pragma unroll
-        for (int k = 0; k < RT; ++k) {
-          if (k < ntile) {
-            const int r = base + k * kTile + t;
-            const bool live = r < R;
-            const float v = rec_seed(&s[k],
-                                     live ? pmm_pk[srow0 + r] : 0.0f,
-                                     live ? pms_pk[srow0 + r] : 0);
-#pragma unroll
-            for (int c = 0; c < CC; ++c)
-              acc[k][0][c] = fmaf(v, a_s[0][c], acc[k][0][c]);
-          }
-        }
-        j = 1;
-        if (!SPIN && n > 1) {
-          const float p1 = p_first_coef(sg.m);
-#pragma unroll
-          for (int k = 0; k < RT; ++k) {
-            if (k < ntile) {
-              const float v = rec_first(&s[k], xr[k], p1);
-#pragma unroll
-              for (int c = 0; c < CC; ++c)
-                acc[k][P - 1][c] = fmaf(v, a_s[1][c], acc[k][P - 1][c]);
-            }
-          }
-          j = 2;
-        }
-      }
+      // the seed and (spin 0) P_{m+1,m} peeled off the first tile
+      const int j = l0 == sg.lz
+          ? vpu_synth_first<RT, CC, P, SPIN>(s, xr, acc, ntile, n, sg.m,
+                                             base, R, pmm_pk + srow0,
+                                             pms_pk + srow0, a_s)
+          : 0;
       if (ntile == RT)                             // block-uniform
         vpu_synth_steps<RT, CC, P, SPIN, true>(s, xr, acc, ntile, j, n,
                                                bl_s, ratio_s, c_s, a_s);
@@ -411,15 +358,17 @@ synth_fused_vpu_kernel(const float* __restrict__ a_pk,
 }
 
 // ---------------------------------------------------------------------------
-// synth_fused_mxu: grid (ceil(R / 128), n_slots, ceil(K / KM)), block 128.
-// Thread t owns TR consecutive rings x TC local channels of the (128 x 2KM)
-// sums; the epilogue stages them in shared memory and rotates with one
-// thread per ring.  out (n_slots, 2, P, R, 2K).  BF16: warp w contracts
-// rings 32 w .. 32 w + 31 (two m16 tiles) against NT n8 tiles of the
-// [even | odd] coefficient columns on the tensor cores.
+// synth_fused_mxu: per segment the mxu synthesis template (mxu_synth.cuh)
+// steps the chunk's rings and sums their products in registers; the
+// kernel hands it the segment's coefficient rows and combines, rotates and
+// writes each ring's sums.  grid (ceil(R / 512), n_slots, ceil(K / KM)),
+// block kMxuThreads, dynamic shared memory and blocks an SM: MxuSynthShape.
+// out (n_slots, 2, P, R, 2K).  BF16: the template's tensor-core
+// contraction.
 // ---------------------------------------------------------------------------
 template <int KM, bool FOLD, bool COMBINE, bool SPIN, bool BF16 = false>
-__global__ void __launch_bounds__(kTile)
+__global__ void __launch_bounds__(
+    kMxuThreads, MxuSynthShape<2 * KM, FOLD, BF16>::MIN_BLOCKS)
 synth_fused_mxu_kernel(const float* __restrict__ a_pk,
                        const SlotMaps sm,
                        const float* __restrict__ x,
@@ -429,167 +378,61 @@ synth_fused_mxu_kernel(const float* __restrict__ a_pk,
                        int S, int K, int R, int l_max) {
   constexpr int P = FOLD ? 2 : 1;
   constexpr int CC = 2 * KM;
-  constexpr int TC = CC < 4 ? CC : 4;     // channels per thread
-  constexpr int CG = CC / TC;             // channel groups
-  constexpr int TR = CG;                  // rings per thread
-  __shared__ __align__(16) float panel_s[kLT][kTile];
-  __shared__ __align__(16) float coef_s[kLT][CC];
-  __shared__ float stage_s[P][kTile][CC + 1];
-  __shared__ float bl_s[kLT], ratio_s[kLT], c_s[SPIN ? kLT : 1];
+  extern __shared__ __align__(16) float smem[];
   const int si = blockIdx.y;
-  const int tile0 = blockIdx.x * kTile;
+  const int base = blockIdx.x * kMxuChunk;
   const int k0 = blockIdx.z * KM;
   const int nk = min(KM, K - k0);
   const int K2 = 2 * K;
   const int t = threadIdx.x;
-  const int cg = t % CG, rg = t / CG;
-  const int r = tile0 + t;                // this thread's recurrence ring
-  const bool live = r < R;
-  const float xr = live ? x[r] : 0.0f;
-  constexpr int NC = P * CC;              // BF16: [even | odd] columns
-  constexpr int NT = (NC + 7) / 8;        // BF16: n8 tiles
-  const int warp = t / 32, lg = (t % 32) / 4, lq = t % 4;
-
+  float xr[kMxuRings];
+#pragma unroll
+  for (int k = 0; k < kMxuRings; ++k) {
+    const int r = base + kMxuRings * t + k;
+    xr[k] = r < R ? x[r] : 0.0f;
+  }
   for (int seg = 0; seg < 2; ++seg) {
     const Seg sg = segment<SPIN>(sm, si, seg, S, l_max);
-    const size_t srow = (static_cast<size_t>(si) * 2 + seg) * R + r;
-    const float pmm_r = live ? pmm_pk[srow] : 0.0f;
-    const int pms_r = live ? pms_pk[srow] : 0;
-    const float p1 = p_first_coef(sg.m);
-    const int l_end = sg.lz + sg.len;
-    float acc[P][TR][TC];
-    float dacc[2][NT][4];
+    const size_t srow = (static_cast<size_t>(si) * 2 + seg) * R;
+    // stream position of multipole l: l + pos0
+    const long long pos0 = static_cast<long long>(si) * S + sg.g0 - sg.lz;
+    mxu_synth_row<CC, FOLD, SPIN, BF16>(
+        smem, xr, min(kMxuChunk, R - base), sg.m, sg.mp, sg.lz,
+        sg.lz + sg.len, pmm_pk + srow, pms_pk + srow, base, R,
+        [&](int l, int c) {
+          return c % KM < nk
+              ? a_pk[(pos0 + l) * K2 + channel<KM>(c, k0, K)] : 0.0f;
+        },
+        [&](int rr, const float (&v)[P][CC]) {
+          const int r = base + rr;
 #pragma unroll
-    for (int p = 0; p < P; ++p)
+          for (int k = 0; k < KM; ++k) {
+            if (k >= nk) continue;
+            float re[P], im[P];
 #pragma unroll
-      for (int i = 0; i < TR; ++i)
+            for (int p = 0; p < P; ++p) {
+              re[p] = v[p][k];
+              im[p] = v[p][KM + k];
+            }
+            if (FOLD && COMBINE) {
+              const float er = re[0], ei = im[0];
+              re[0] = er + re[P - 1];                // north
+              im[0] = ei + im[P - 1];
+              re[P - 1] = er - re[P - 1];            // south
+              im[P - 1] = ei - im[P - 1];
+            }
 #pragma unroll
-        for (int k = 0; k < TC; ++k) acc[p][i][k] = 0.0f;
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-#pragma unroll
-        for (int k = 0; k < 4; ++k) dacc[i][j][k] = 0.0f;
-    Rec s;
-    for (int l0 = sg.lz; l0 < l_end; l0 += kLT) {  // block-uniform
-      const int n = min(kLT, l_end - l0);
-      __syncthreads();                             // previous panel consumed
-      fill_coef<SPIN>(l0, sg.m, sg.mp, bl_s, ratio_s, c_s);
-      for (int i = t; i < kLT * CC; i += kTile) {
-        const int j = i / CC, c = i % CC;
-        coef_s[j][c] = (j < n && c % KM < nk)
-            ? a_pk[(static_cast<size_t>(si) * S + sg.g0 + l0 - sg.lz + j) *
-                       K2 + channel<KM>(c, k0, K)]
-            : 0.0f;
-      }
-      __syncthreads();
-      for (int j = 0; j < n; ++j)                  // build the P panel
-        panel_s[j][t] = rec_step<SPIN>(&s, l0 + j, sg.lz, xr, bl_s, ratio_s,
-                                       c_s, j, p1, pmm_r, pms_r);
-      __syncthreads();
-      if constexpr (BF16) {                        // contract on the tensor cores
-        // panel rows past n are stale: read as zero
-        auto pv = [&](int j, int ring) {
-          return j < n ? panel_s[j][ring] : 0.0f;
-        };
-        auto cv = [&](int j, int col) {
-          const bool on = col < NC &&
-              (!FOLD || ((l0 + j + sg.m) & 1) == col / CC);
-          return on ? coef_s[j][col % CC] : 0.0f;
-        };
-#pragma unroll
-        for (int ks = 0; ks < kLT / 16; ++ks) {
-          const int lk = ks * 16 + 2 * lq;
-          uint32_t a[2][4];
-#pragma unroll
-          for (int mt = 0; mt < 2; ++mt) {
-            const int rr = warp * 32 + mt * 16 + lg;
-            a[mt][0] = pack_bf16(pv(lk, rr), pv(lk + 1, rr));
-            a[mt][1] = pack_bf16(pv(lk, rr + 8), pv(lk + 1, rr + 8));
-            a[mt][2] = pack_bf16(pv(lk + 8, rr), pv(lk + 9, rr));
-            a[mt][3] = pack_bf16(pv(lk + 8, rr + 8), pv(lk + 9, rr + 8));
+            for (int p = 0; p < P; ++p) {
+              if (tab != nullptr)
+                rotate(tab, tab_row(si, seg, p, P, R, r), R, &re[p], &im[p]);
+              const size_t o =
+                  (((static_cast<size_t>(si) * 2 + seg) * P + p) * R + r) *
+                  K2;
+              out[o + k0 + k] = re[p];
+              out[o + K + k0 + k] = im[p];
+            }
           }
-#pragma unroll
-          for (int nt = 0; nt < NT; ++nt) {
-            const int col = nt * 8 + lg;
-            const uint32_t b[2] = {pack_bf16(cv(lk, col), cv(lk + 1, col)),
-                                   pack_bf16(cv(lk + 8, col),
-                                             cv(lk + 9, col))};
-#pragma unroll
-            for (int mt = 0; mt < 2; ++mt) mma_bf16(dacc[mt][nt], a[mt], b);
-          }
-        }
-        continue;
-      }
-      for (int j = 0; j < n; ++j) {                // contract over l
-        float pv[TR], cv[TC];
-#pragma unroll
-        for (int i = 0; i < TR; ++i) pv[i] = panel_s[j][rg * TR + i];
-#pragma unroll
-        for (int k = 0; k < TC; ++k) cv[k] = coef_s[j][cg * TC + k];
-        if (FOLD && ((l0 + j + sg.m) & 1)) {
-#pragma unroll
-          for (int i = 0; i < TR; ++i)
-#pragma unroll
-            for (int k = 0; k < TC; ++k)
-              acc[P - 1][i][k] = fmaf(pv[i], cv[k], acc[P - 1][i][k]);
-        } else {
-#pragma unroll
-          for (int i = 0; i < TR; ++i)
-#pragma unroll
-            for (int k = 0; k < TC; ++k)
-              acc[0][i][k] = fmaf(pv[i], cv[k], acc[0][i][k]);
-        }
-      }
-    }
-    __syncthreads();                               // stage_s consumed
-    if constexpr (BF16) {
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int ring = warp * 32 + mt * 16 + lg + 8 * (e / 2);
-            const int col = nt * 8 + 2 * lq + e % 2;
-            if (col < NC) stage_s[col / CC][ring][col % CC] = dacc[mt][nt][e];
-          }
-    } else {
-#pragma unroll
-      for (int p = 0; p < P; ++p)
-#pragma unroll
-        for (int i = 0; i < TR; ++i)
-#pragma unroll
-          for (int k = 0; k < TC; ++k)
-            stage_s[p][rg * TR + i][cg * TC + k] = acc[p][i][k];
-    }
-    __syncthreads();
-    if (!live) continue;
-    for (int k = 0; k < nk; ++k) {
-      float re[P], im[P];
-#pragma unroll
-      for (int p = 0; p < P; ++p) {
-        re[p] = stage_s[p][t][k];
-        im[p] = stage_s[p][t][KM + k];
-      }
-      if (FOLD && COMBINE) {
-        const float er = re[0], ei = im[0];
-        re[0] = er + re[P - 1];                    // north
-        im[0] = ei + im[P - 1];
-        re[P - 1] = er - re[P - 1];                // south
-        im[P - 1] = ei - im[P - 1];
-      }
-#pragma unroll
-      for (int p = 0; p < P; ++p) {
-        if (tab != nullptr)
-          rotate(tab, tab_row(si, seg, p, P, R, r), R, &re[p], &im[p]);
-        const size_t o =
-            (((static_cast<size_t>(si) * 2 + seg) * P + p) * R + r) * K2;
-        out[o + k0 + k] = re[p];
-        out[o + K + k0 + k] = im[p];
-      }
-    }
+        });
   }
 }
 
@@ -846,25 +689,35 @@ struct LaunchSynthVpu {
   }
 };
 
+// Kernel 10 (6 with COMBINE = false) in float32 or bfloat16.
+template <int KM, bool FOLD, bool COMBINE, bool SPIN, bool BF16>
+int launch_synth_mxu(const FusedArgs& g) {
+  using Sh = MxuSynthShape<2 * KM, FOLD, BF16>;
+  cudaError_t err = cudaFuncSetAttribute(
+      synth_fused_mxu_kernel<KM, FOLD, COMBINE, SPIN, BF16>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(Sh::smem_bytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid((g.R + kMxuChunk - 1) / kMxuChunk, g.n_slots,
+            (g.K + KM - 1) / KM);
+  synth_fused_mxu_kernel<KM, FOLD, COMBINE, SPIN, BF16>
+      <<<grid, kMxuThreads, Sh::smem_bytes, g.stream>>>(
+          g.in, g.sm, g.x, g.pmm, g.pms, g.tab, g.out, g.S, g.K, g.R,
+          g.l_max);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int KM, bool FOLD, bool COMBINE, bool SPIN>
 struct LaunchSynthMxu {
   static int run(const FusedArgs& g) {
-    dim3 grid((g.R + kTile - 1) / kTile, g.n_slots, (g.K + KM - 1) / KM);
-    synth_fused_mxu_kernel<KM, FOLD, COMBINE, SPIN>
-        <<<grid, kTile, 0, g.stream>>>(g.in, g.sm, g.x, g.pmm, g.pms, g.tab,
-                                       g.out, g.S, g.K, g.R, g.l_max);
-    return static_cast<int>(cudaGetLastError());
+    return launch_synth_mxu<KM, FOLD, COMBINE, SPIN, false>(g);
   }
 };
 
 template <int KM, bool FOLD, bool COMBINE, bool SPIN>
 struct LaunchSynthMxuBf16 {
   static int run(const FusedArgs& g) {
-    dim3 grid((g.R + kTile - 1) / kTile, g.n_slots, (g.K + KM - 1) / KM);
-    synth_fused_mxu_kernel<KM, FOLD, COMBINE, SPIN, true>
-        <<<grid, kTile, 0, g.stream>>>(g.in, g.sm, g.x, g.pmm, g.pms, g.tab,
-                                       g.out, g.S, g.K, g.R, g.l_max);
-    return static_cast<int>(cudaGetLastError());
+    return launch_synth_mxu<KM, FOLD, COMBINE, SPIN, true>(g);
   }
 };
 

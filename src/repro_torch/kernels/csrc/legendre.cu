@@ -35,12 +35,21 @@
 // Kernels (TPU kernel each replaces; what bounds it on the H100; design):
 //
 //   synth_vpu   replaces synth_vpu, src/repro/kernels/legendre_pallas.py:222.
-//               float32 operations bound (paper Alg. 4): one thread per ring,
-//               one block per (128-ring tile, m, channel chunk of <= 16); the
-//               l loop runs inside the thread from l = m, the warp-uniform
-//               a_lm rows of each 32-l tile are staged through shared memory
-//               and the accumulators stay in registers.  Larger 2K runs more
-//               channel chunks, each recomputing the recurrence.
+//               Bound by instruction issue, as synth_fused_vpu (fused.cu),
+//               whose template it shares (recurrence.cuh): the bit-faithful
+//               step issues ~22 SASS instructions a triple at K 1 against
+//               the 6 float32 instructions (8 operations) of the flop bound.
+//               One block per (128 RT-ring block, m, channel chunk of
+//               <= 16); each thread carries RT = synth_rings(KC / 2) rings
+//               (4 at KC 2 and 4, 2 at 8, 1 at 16: <= 32 accumulators),
+//               base + k * 128 + t, so the writes stay coalesced.  Per
+//               32-l tile the block stages the a rows and the recurrence
+//               table in shared memory; the seed and P_{m+1,m} are peeled
+//               off the l loop, full ring blocks run unguarded and the
+//               fold's planes are a two-step unroll, so the steady step
+//               has no branch and loads its a row once for all RT rings.
+//               Each ring's sum is one fmaf chain over ascending l from
+//               0.0f, the bits of one ring a thread.
 //   synth_mxu   replaces synth_mxu, legendre_pallas.py:326.  float32
 //               operations bound: per (m, 128-ring tile) the block builds a
 //               (32 l x 128 ring) P panel in shared memory, then contracts it
@@ -100,8 +109,10 @@
 namespace {
 
 // ---------------------------------------------------------------------------
-// synth_vpu: Delta_m(r) = sum_l a_lm P_lm(x_r), one ring per thread.
-// grid (ceil(R / 128), Mp, ceil(K2 / KC)), block 128.
+// synth_vpu: Delta_m(r) = sum_l a_lm P_lm(x_r) through the vpu synthesis
+// template (recurrence.cuh): thread t carries rings base + k * 128 + t,
+// k < RT = synth_rings(KC / 2).  grid (ceil(R / (128 RT)), Mp,
+// ceil(K2 / KC)), block 128.
 // ---------------------------------------------------------------------------
 template <int KC, bool FOLD, bool SPIN>
 __global__ void __launch_bounds__(kTile)
@@ -110,64 +121,74 @@ synth_vpu_kernel(const float* __restrict__ a, const int* __restrict__ m_vals,
                  const float* __restrict__ pmm, const int* __restrict__ pms,
                  float* __restrict__ out, int L1, int K2, int R, int l_end) {
   constexpr int P = FOLD ? 2 : 1;
+  constexpr int RT = synth_rings(KC / 2);
   __shared__ __align__(16) float a_s[kLT][KC];
   __shared__ float bl_s[kLT], ratio_s[kLT], c_s[SPIN ? kLT : 1];
   const int mi = blockIdx.y;
-  const int r = blockIdx.x * kTile + threadIdx.x;
+  const int base = blockIdx.x * RT * kTile;
+  const int t = threadIdx.x;
   const int c0 = blockIdx.z * KC;
   const int nch = min(KC, K2 - c0);
   const int m = m_vals[mi];
   const int mp = SPIN ? mp_vals[mi] : 0;
   const int lz = row_start<SPIN>(m, mp);
-  const bool live = r < R;
-  float acc[P][KC];
+  // ring tiles with a live ring (the tail block's tiles past ntile hold
+  // none, so r < R alone tells a live ring)
+  const int ntile = min(RT, (R - base + kTile - 1) / kTile);
+  float acc[RT][P][KC];
 #pragma unroll
-  for (int p = 0; p < P; ++p)
+  for (int k = 0; k < RT; ++k)
 #pragma unroll
-    for (int c = 0; c < KC; ++c) acc[p][c] = 0.0f;
+    for (int p = 0; p < P; ++p)
+#pragma unroll
+      for (int c = 0; c < KC; ++c) acc[k][p][c] = 0.0f;
 
-  if (m >= 0) {   // block-uniform
-    const size_t row = static_cast<size_t>(mi) * R + r;
-    const float xr = live ? x[r] : 0.0f;
-    const float pmm_r = live ? pmm[row] : 0.0f;
-    const int pms_r = live ? pms[row] : 0;
-    const float p1 = p_first_coef(m);
-    Rec s;
-    for (int l0 = lz; l0 < l_end; l0 += kLT) {
+  if (m >= 0) {   // block-uniform; a padding row writes zeros
+    const size_t row = static_cast<size_t>(mi) * R;
+    float xr[RT];
+#pragma unroll
+    for (int k = 0; k < RT; ++k) {
+      const int r = base + k * kTile + t;
+      xr[k] = r < R ? x[r] : 0.0f;
+    }
+    Rec s[RT];
+    for (int l0 = lz; l0 < l_end; l0 += kLT) {   // block-uniform
       const int n = min(kLT, l_end - l0);
-      __syncthreads();                       // previous tile consumed
-      for (int i = threadIdx.x; i < kLT * KC; i += kTile) {
-        const int j = i / KC, c = i % KC;
-        a_s[j][c] = (j < n && c < nch)
-            ? a[(static_cast<size_t>(mi) * L1 + l0 + j) * K2 + c0 + c]
-            : 0.0f;
+      __syncthreads();                           // previous tile consumed
+#pragma unroll
+      for (int i0 = 0; i0 < kLT * KC; i0 += kTile) {  // KC / 4 entries a thread
+        const int i = i0 + t, j = i / KC, c = i % KC;
+        if (i < kLT * KC)
+          a_s[j][c] = (j < n && c < nch)
+              ? a[(static_cast<size_t>(mi) * L1 + l0 + j) * K2 + c0 + c]
+              : 0.0f;
       }
       fill_coef<SPIN>(l0, m, mp, bl_s, ratio_s, c_s);
       __syncthreads();
-      for (int j = 0; j < n; ++j) {
-        const int l = l0 + j;
-        const float v = rec_step<SPIN>(&s, l, lz, xr, bl_s, ratio_s, c_s, j,
-                                       p1, pmm_r, pms_r);
-        if (FOLD && ((l + m) & 1)) {
-#pragma unroll
-          for (int c = 0; c < KC; ++c)
-            acc[P - 1][c] = fmaf(v, a_s[j][c], acc[P - 1][c]);
-        } else {
-#pragma unroll
-          for (int c = 0; c < KC; ++c)
-            acc[0][c] = fmaf(v, a_s[j][c], acc[0][c]);
-        }
-      }
+      // the seed and (spin 0) P_{m+1,m} peeled off the first tile
+      const int j = l0 == lz
+          ? vpu_synth_first<RT, KC, P, SPIN>(s, xr, acc, ntile, n, m, base,
+                                             R, pmm + row, pms + row, a_s)
+          : 0;
+      if (ntile == RT)                           // block-uniform
+        vpu_synth_steps<RT, KC, P, SPIN, true>(s, xr, acc, ntile, j, n,
+                                               bl_s, ratio_s, c_s, a_s);
+      else
+        vpu_synth_steps<RT, KC, P, SPIN, false>(s, xr, acc, ntile, j, n,
+                                                bl_s, ratio_s, c_s, a_s);
     }
   }
-  if (live) {
+#pragma unroll
+  for (int k = 0; k < RT; ++k) {
+    const int r = base + k * kTile + t;
+    if (r >= R) continue;
 #pragma unroll
     for (int p = 0; p < P; ++p)
 #pragma unroll
       for (int c = 0; c < KC; ++c)
         if (c < nch)
           out[((static_cast<size_t>(mi) * P + p) * R + r) * K2 + c0 + c] =
-              acc[p][c];
+              acc[k][p][c];
   }
 }
 
@@ -524,7 +545,8 @@ struct AnalArgs {
 template <int KC, bool FOLD, bool SPIN>
 struct LaunchSynthVpu {
   static int run(const SynthArgs& g) {
-    dim3 grid((g.R + kTile - 1) / kTile, g.Mp, (g.K2 + KC - 1) / KC);
+    constexpr int kRings = synth_rings(KC / 2) * kTile;
+    dim3 grid((g.R + kRings - 1) / kRings, g.Mp, (g.K2 + KC - 1) / KC);
     synth_vpu_kernel<KC, FOLD, SPIN><<<grid, kTile, 0, g.stream>>>(
         g.a, g.m_vals, g.mp_vals, g.x, g.pmm, g.pms, g.out, g.L1, g.K2, g.R,
         g.l_end);

@@ -22,7 +22,9 @@
 //
 // The header also holds the vpu analysis template's peeled first steps,
 // steady steps and fixed-order ring reduction, shared by anal_vpu
-// (legendre.cu) and anal_fused_vpu / anal_packed_vpu (fused.cu).
+// (legendre.cu) and anal_fused_vpu / anal_packed_vpu (fused.cu), and the
+// vpu synthesis template's peeled first steps and steady steps, shared by
+// synth_vpu (legendre.cu) and synth_fused_vpu / synth_packed_vpu (fused.cu).
 
 #pragma once
 
@@ -399,6 +401,91 @@ __device__ __forceinline__ float vpu_column_sum(const float* row) {
   for (int off = 1; off < H; off <<= 1)
     total += __shfl_xor_sync(0xffffffffu, total, off);
   return total;
+}
+
+// ---------------------------------------------------------------------------
+// The vpu synthesis template, shared by synth_vpu (legendre.cu, kernel 1)
+// and synth_fused_vpu / synth_packed_vpu (fused.cu, kernels 9 and 5).  A
+// block of kTile threads carries RT = synth_rings(maps) ring tiles, thread
+// t the rings base + k * kTile + t, each with its accumulators acc[k][plane]
+// [channel] in registers; per 32-l tile the kernel stages the tile's
+// coefficient rows a_s and its recurrence table, then the first steps
+// (the row's first tile only) and the steady steps add each ring's
+// products in ascending l: every sum is one fmaf chain from 0.0f.
+// ---------------------------------------------------------------------------
+
+// Rings a thread carries at map chunk km (channel chunk 2 km): 4 at km 1
+// and 2, 8 / km above, so the accumulators (RT x P x 2 km) stay at <= 32
+// floats.
+__host__ __device__ constexpr int synth_rings(int km) {
+  return km <= 2 ? 4 : 8 / km;
+}
+
+// The first steps of a row's first tile: the seed at lz (plane 0; its
+// seeds pmm[r], pms[r] read here), then, for spin 0 and n > 1, P_{m+1,m}
+// (plane P - 1), each of the thread's rings below ntile adding its
+// products, each sum starting as fmaf(v, a, 0.0f) as in the steady steps.
+// Returns the first entry left to the steady steps.
+template <int RT, int CC, int P, bool SPIN>
+__device__ __forceinline__ int vpu_synth_first(
+    Rec (&s)[RT], const float (&xr)[RT], float (&acc)[RT][P][CC], int ntile,
+    int n, int m, int base, int R, const float* __restrict__ pmm,
+    const int* __restrict__ pms, const float (*a_s)[CC]) {
+#pragma unroll
+  for (int k = 0; k < RT; ++k) {
+    if (k < ntile) {
+      const int r = base + k * kTile + static_cast<int>(threadIdx.x);
+      const bool live = r < R;
+      const float v = rec_seed(&s[k], live ? pmm[r] : 0.0f,
+                               live ? pms[r] : 0);
+#pragma unroll
+      for (int c = 0; c < CC; ++c)
+        acc[k][0][c] = fmaf(v, a_s[0][c], acc[k][0][c]);
+    }
+  }
+  if (SPIN || n < 2) return 1;
+  const float p1 = p_first_coef(m);
+#pragma unroll
+  for (int k = 0; k < RT; ++k) {
+    if (k < ntile) {
+      const float v = rec_first(&s[k], xr[k], p1);
+#pragma unroll
+      for (int c = 0; c < CC; ++c)
+        acc[k][P - 1][c] = fmaf(v, a_s[1][c], acc[k][P - 1][c]);
+    }
+  }
+  return 2;
+}
+
+// The steady steps j0 <= j < n of one tile: each of the thread's rings
+// (those below ntile unless FULL) advances by the three-term recurrence and
+// adds its products to its accumulators, the tile's coefficient row read
+// once for all of them.  With the fold, even j is plane 0 and odd j plane
+// P - 1 (the tile starts at an even l - m).
+template <int RT, int CC, int P, bool SPIN, bool FULL>
+__device__ __forceinline__ void vpu_synth_steps(
+    Rec (&s)[RT], const float (&xr)[RT], float (&acc)[RT][P][CC], int ntile,
+    int j, int n,
+    const float* t0, const float* t1, const float* t2,
+    const float (*a_s)[CC]) {
+  auto step = [&](int jj, int p) {
+    float a[CC];
+#pragma unroll
+    for (int c = 0; c < CC; ++c) a[c] = a_s[jj][c];
+#pragma unroll
+    for (int k = 0; k < RT; ++k) {
+      if (FULL || k < ntile) {
+        const float v = rec_general<SPIN>(&s[k], xr[k], t0, t1, t2, jj);
+#pragma unroll
+        for (int c = 0; c < CC; ++c) acc[k][p][c] = fmaf(v, a[c], acc[k][p][c]);
+      }
+    }
+  };
+  for (; j + 1 < n; j += 2) {
+    step(j, 0);
+    step(j + 1, P - 1);
+  }
+  if (j < n) step(j, 0);
 }
 
 // Map (or channel) chunk per block: the smallest power of two >= n, from

@@ -735,30 +735,31 @@ def test_vpu_analysis_template_one_ring_past_a_chunk(dev, rings):
                         False)
 
 
-def _vpu_synth_check(dev, a_pk, maps, x, pmm_pk, pms_pk, tab, lo, l_max,
-                     fold, spin):
+def _slot_synth_check(dev, a_pk, maps, x, pmm_pk, pms_pk, tab, lo, l_max,
+                     fold, spin, var="vpu"):
     """Kernel 9 (with ``tab``) and kernel 5 (planes kept apart, no tables)
-    on one set of operands: each within TOL of its plain version, the empty
-    segment's planes exactly zero, the same bits on a rerun; with the fold
-    off kernel 5 equals kernel 9 without tables bit for bit."""
+    on one set of operands, or with ``var="mxu"`` kernels 10 and 6: each
+    within TOL of its plain version, the empty segment's planes exactly
+    zero, the same bits on a rerun; with the fold off the packed kernel
+    equals the fused one without tables bit for bit."""
     empty = torch.as_tensor(lo.slot_seed == lo.S, device=dev)
     kw = dict(l_max=l_max, fold=fold, spin=spin)
-    got = fused_cuda.synth_fused_vpu(a_pk, maps, x, pmm_pk, pms_pk, tab, **kw)
+    fused_k = getattr(fused_cuda, f"synth_fused_{var}")
+    packed_k = getattr(fused_cuda, f"synth_packed_{var}")
+    got = fused_k(a_pk, maps, x, pmm_pk, pms_pk, tab, **kw)
     want = kref.synth_fused_ref(a_pk, maps, x, pmm_pk, pms_pk, tab,
-                                layout="vpu", **kw)
+                                layout=var, **kw)
     assert rel(got, want) < TOL and bool((got[empty, 1] == 0).all())
-    assert torch.equal(fused_cuda.synth_fused_vpu(a_pk, maps, x, pmm_pk,
-                                                  pms_pk, tab, **kw), got)
-    got = fused_cuda.synth_packed_vpu(a_pk, maps, x, pmm_pk, pms_pk, **kw)
-    want = kref.synth_packed_ref(a_pk, maps, x, pmm_pk, pms_pk, layout="vpu",
+    assert torch.equal(fused_k(a_pk, maps, x, pmm_pk, pms_pk, tab, **kw),
+                       got)
+    got = packed_k(a_pk, maps, x, pmm_pk, pms_pk, **kw)
+    want = kref.synth_packed_ref(a_pk, maps, x, pmm_pk, pms_pk, layout=var,
                                  **kw)
     P = 2 if fold else 1
     assert rel(got, want) < TOL and bool((got[empty, P:] == 0).all())
-    assert torch.equal(fused_cuda.synth_packed_vpu(a_pk, maps, x, pmm_pk,
-                                                   pms_pk, **kw), got)
+    assert torch.equal(packed_k(a_pk, maps, x, pmm_pk, pms_pk, **kw), got)
     if not fold:
-        fs = fused_cuda.synth_fused_vpu(a_pk, maps, x, pmm_pk, pms_pk, None,
-                                        **kw)
+        fs = fused_k(a_pk, maps, x, pmm_pk, pms_pk, None, **kw)
         assert torch.equal(got, fs.reshape(got.shape))
 
 
@@ -792,7 +793,7 @@ def test_vpu_synthesis_template_matches_plain_versions(dev, spin, fold, K,
     gen = torch.Generator().manual_seed(10 * K + spin + 1)
     tab = (torch.rand((lo.n_slots, 2, P, 4, R), generator=gen) * 2
            - 1).to(dev) if tables == "random" else None
-    _vpu_synth_check(dev, a_pk, maps, x, pmm_pk, pms_pk, tab, lo, l_max,
+    _slot_synth_check(dev, a_pk, maps, x, pmm_pk, pms_pk, tab, lo, l_max,
                      fold, bool(spin))
 
 
@@ -811,7 +812,7 @@ def test_vpu_synthesis_template_with_bucket_tables(dev, K):
     maps, x, pmm_pk, pms_pk = store["prep"]
     tab = store[("tables", "synth")]
     assert tab is not None
-    _vpu_synth_check(dev, _random_a_pk(lo, K, K, dev), maps, x, pmm_pk,
+    _slot_synth_check(dev, _random_a_pk(lo, K, K, dev), maps, x, pmm_pk,
                      pms_pk, tab, lo, plan.l_max, tab.shape[2] == 2, False)
 
 
@@ -835,7 +836,7 @@ def test_vpu_synthesis_template_one_ring_past_a_block(dev, rings, K):
     gen = torch.Generator().manual_seed(rings)
     tab = (torch.rand((lo.n_slots, 2, 1, 4, rings), generator=gen) * 2
            - 1).to(dev)
-    _vpu_synth_check(dev, _random_a_pk(lo, K, rings, dev), maps, x, pmm_pk,
+    _slot_synth_check(dev, _random_a_pk(lo, K, rings, dev), maps, x, pmm_pk,
                      pms_pk, tab, lo, l_max, False, False)
 
 
@@ -1096,3 +1097,177 @@ def test_anal_mxu_template_one_ring_past_a_chunk(dev, rings):
     dw = (torch.rand((m_t.shape[0], 1, rings, 16), generator=gen) * 2
           - 1).to(dev)
     _anal_mxu_check(dw, m_t, x, pmm, pms, 256, False)
+
+
+# ---------------------------------------------------------------------------
+# kernel 1 (synth_vpu) on the vpu synthesis template (csrc/recurrence.cuh)
+# ---------------------------------------------------------------------------
+
+
+def _synth_vpu_check(a, m_t, x, pmm, pms, l_max, fold, mp_t=None):
+    """Kernel 1: within TOL of its plain version, the padding rows (m < 0)
+    exact zeros, the same bits on a rerun."""
+    kw = dict(l_max=l_max, fold=fold, mp_vals=mp_t)
+    got = lc.synth_vpu(a, m_t, x, pmm, pms, **kw)
+    want = kref.synth_ref(a, m_t, x, pmm, pms, **kw)
+    assert rel(got, want) < TOL and bool((got[m_t < 0] == 0).all())
+    assert torch.equal(lc.synth_vpu(a, m_t, x, pmm, pms, **kw), got)
+
+
+@pytest.mark.parametrize("K", [1, 2, 3, 7])
+@pytest.mark.parametrize("spin,fold", [(0, False), (0, True), (2, False)])
+def test_synth_vpu_template_matches_plain_version(dev, spin, fold, K):
+    """Kernel 1 at l_max 256 on the plain layout against its plain version:
+    spin 0 with the fold off and on, spin 2, channel chunks of 2, 4, 8 and
+    16 (4, 4, 2 and 1 rings a thread; K 3 and 7 leave part of the chunk
+    idle), a padding row written as zeros."""
+    l_max = 256
+    if spin:
+        c = spin_operands(l_max, K, dev, seed=K)
+        _synth_vpu_check(c["a"], c["m"], c["x"], c["pmm"], c["pms"], l_max,
+                         False, c["mp"])
+    else:
+        m_t, x, pmm, pms, a, _ = operands(l_max, K, fold, dev, seed=K)
+        _synth_vpu_check(a, m_t, x, pmm, pms, l_max, fold)
+
+
+@pytest.mark.parametrize("K,rings", [(1, 513), (2, 513), (3, 257),
+                                     (7, 129)])
+def test_synth_vpu_template_one_ring_past_a_block(dev, K, rings):
+    """R one ring past a full ring block (128 x 4, 4, 2, 1 rings at channel
+    chunks 2, 4, 8, 16): the last block carries a single live ring, the
+    others run unguarded.  Kernel 1 against its plain version at l_max 256
+    with a padding row, identical bits on a rerun."""
+    l_max = 256
+    g = grids.make_grid("gl", l_max=rings - 1)
+    assert g.n_rings == rings and (rings - 1) % 128 == 0
+    m_vals = np.insert(np.arange(l_max + 1), 5, -1)
+    pmm, pms = kref.prepare_seeds(m_vals, g.sin_theta, legendre.log_mu(l_max))
+    t = lambda v, dt: torch.as_tensor(v, dtype=dt, device=dev)
+    gen = torch.Generator().manual_seed(rings + K)
+    keep = torch.as_tensor(np.arange(l_max + 1)[None, :] >= m_vals[:, None])
+    a = (torch.rand((len(m_vals), l_max + 1, 2 * K), generator=gen) * 2
+         - 1) * keep[..., None]
+    _synth_vpu_check(a.to(dev), t(m_vals, torch.int32),
+                     t(g.cos_theta, torch.float32), t(pmm, torch.float32),
+                     t(pms, torch.int32), l_max, False)
+
+
+@pytest.mark.parametrize("K", [1, 3])
+def test_synth_vpu_template_on_a_healpix_plan(dev, K):
+    """Kernel 1 on a plain-layout HEALPix nside 64 plan's own rows and seeds
+    (with its fold) against its plain version; identical bits on a
+    rerun."""
+    plan = repro_torch.make_plan("healpix", nside=64, K=K, dtype="float32",
+                                 mode="cuda_vpu", layout="plain")
+    m_t, x, pmm, pms, _ = plan._row_seeds()
+    gen = torch.Generator().manual_seed(K)
+    a = torch.rand((m_t.shape[0], plan.l_max + 1, 2 * K), generator=gen)
+    m = m_t.cpu()
+    keep = torch.arange(plan.l_max + 1)[None, :] >= m[:, None]
+    a = ((a * 2 - 1) * keep[..., None]).to(dev)
+    _synth_vpu_check(a, m_t, x, pmm, pms, plan.l_max, plan.fold)
+
+
+# ---------------------------------------------------------------------------
+# the mxu synthesis template (csrc/mxu_synth.cuh): kernels 10 and 6, and
+# kernel 10's bf16 branch
+# ---------------------------------------------------------------------------
+
+
+def _slot_synth_operands(l_max, K, spin, fold, dev, seed):
+    """A slot layout of the rows 0..l_max with a padding row (spin: the 2M
+    spin rows), its packed seeds and coefficients, and random rotation
+    tables (n_slots, 2, P, 4, R)."""
+    if spin:
+        c = spin_operands(l_max, K, dev, seed=K)
+        lo = pack.build_layout(c["m2"], l_max, mp_vals=c["mp2"])
+        maps, x, pmm_pk, pms_pk = ops._prep(lo, c["x"], c["pmm"], c["pms"])
+        a_pk = ops._pack_a(c["a"], lo).contiguous()
+    else:
+        lo, maps, x, pmm_pk, pms_pk, a_pk, _, _ = fused_operands(
+            l_max, K, fold, dev, seed=K)
+    P, R = (2 if fold else 1), x.shape[0]
+    gen = torch.Generator().manual_seed(seed)
+    tab = (torch.rand((lo.n_slots, 2, P, 4, R), generator=gen) * 2
+           - 1).to(dev)
+    return lo, maps, x, pmm_pk, pms_pk, a_pk, tab
+
+
+@pytest.mark.parametrize("tables", ["random", "none"])
+@pytest.mark.parametrize("K", [1, 3, 8, 9])
+@pytest.mark.parametrize("spin,fold", [(0, False), (0, True), (2, False)])
+def test_mxu_synthesis_template_matches_plain_versions(dev, spin, fold, K,
+                                                       tables):
+    """Kernels 10 and 6 at l_max 256 against their plain versions within
+    TOL: spin 0 with the fold off and on (both planes' sums in registers),
+    spin 2, map chunks of 1, 4 and 8 (2 rings x all channels a thread at 1
+    and 4, 4 rings x 8 channels at 8; K 3 leaves part of its chunk idle, K
+    9 runs two chunks), random rotation tables and none; every row's last
+    panel is short; identical bits on a rerun."""
+    l_max = 256
+    lo, maps, x, pmm_pk, pms_pk, a_pk, tab = _slot_synth_operands(
+        l_max, K, bool(spin), fold, dev, 10 * K + spin + 3)
+    _slot_synth_check(dev, a_pk, maps, x, pmm_pk, pms_pk,
+                     tab if tables == "random" else None, lo, l_max, fold,
+                     bool(spin), "mxu")
+
+
+@pytest.mark.parametrize("K", [3, 8])
+def test_mxu_synthesis_template_with_bucket_tables(dev, K):
+    """Kernels 10 and 6 on a HEALPix nside 64 plan's own seeds, layout and
+    bucket rotation tables (kernel 10 applies them in-kernel) against their
+    plain versions within TOL; identical bits on a rerun."""
+    plan = repro_torch.make_plan("healpix", nside=64, K=K, dtype="float32",
+                                 mode="cuda_mxu")
+    assert plan.layouts["synth"] == "fused"
+    a = torch.zeros(plan._alm_shape, dtype=torch.complex64, device=dev)
+    plan.map2alm(plan.alm2map(a))                # fills the plan's store
+    _, kw, _ = plan._fused_parts("mxu", False)
+    lo, store = kw["lo"], kw["store"]
+    maps, x, pmm_pk, pms_pk = store["prep"]
+    tab = store[("tables", "synth")]
+    assert tab is not None
+    _slot_synth_check(dev, _random_a_pk(lo, K, K + 5, dev), maps, x, pmm_pk,
+                     pms_pk, tab, lo, plan.l_max, tab.shape[2] == 2, False,
+                     "mxu")
+
+
+@pytest.mark.parametrize("rings", [513, 2049])
+def test_mxu_synthesis_template_one_ring_past_a_chunk(dev, rings):
+    """R one ring past a multiple of the 512-ring chunk (2049: GL 2048's
+    ring count): the last chunk's block builds and contracts a single ring
+    quad.  Kernels 10 and 6 at K 8 against their plain versions within TOL
+    at l_max 256 (random tables), identical bits on a rerun."""
+    m_t, x, pmm, pms = _one_past_a_chunk(rings, dev)
+    lo = pack.build_layout(m_t.cpu().numpy(), 256)
+    maps, x, pmm_pk, pms_pk = ops._prep(lo, x, pmm, pms)
+    gen = torch.Generator().manual_seed(rings + 1)
+    tab = (torch.rand((lo.n_slots, 2, 1, 4, rings), generator=gen) * 2
+           - 1).to(dev)
+    _slot_synth_check(dev, _random_a_pk(lo, 8, rings, dev), maps, x, pmm_pk,
+                     pms_pk, tab, lo, 256, False, False, "mxu")
+
+
+@pytest.mark.parametrize("spin,fold", [(0, False), (0, True), (2, False)])
+def test_mxu_synthesis_template_bf16(dev, spin, fold):
+    """Kernel 10's bf16 instantiation on the template's panel at K 8, l_max
+    256, random tables: within BF16_TOL = 1e-5 of its bf16 plain version
+    (both form exact bf16 products; only the float32 sums' order
+    differs), 0 < err < 1e-2 against the float32 kernel (the reference's
+    gate), the empty segment's planes exactly zero, identical bits on a
+    rerun."""
+    l_max = 256
+    lo, maps, x, pmm_pk, pms_pk, a_pk, tab = _slot_synth_operands(
+        l_max, 8, bool(spin), fold, dev, 9 + spin)
+    empty = torch.as_tensor(lo.slot_seed == lo.S, device=dev)
+    kw = dict(l_max=l_max, fold=fold, spin=bool(spin))
+    got = fused_cuda.synth_fused_mxu(a_pk, maps, x, pmm_pk, pms_pk, tab,
+                                     bf16=True, **kw)
+    want = kref.synth_fused_ref(a_pk, maps, x, pmm_pk, pms_pk, tab,
+                                bf16=True, **kw)
+    assert rel(got, want) < BF16_TOL and bool((got[empty, 1] == 0).all())
+    f32 = fused_cuda.synth_fused_mxu(a_pk, maps, x, pmm_pk, pms_pk, tab, **kw)
+    assert 0 < rel(got, f32) < 1e-2
+    assert torch.equal(fused_cuda.synth_fused_mxu(
+        a_pk, maps, x, pmm_pk, pms_pk, tab, bf16=True, **kw), got)
