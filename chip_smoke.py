@@ -1435,9 +1435,10 @@ def check_mxu_synth_fold_full_width(dev) -> None:
     no main path runs (both planes' sums in registers, the fold combine on
     them): on a fold plan's own seeds, slot layout and fold tables (GL
     l_max 2048, K 8; 1025 rings, so the last 512-ring chunk holds one)
-    kernels 10 and 6 (random coefficients), each held against its plain
-    version at KERNEL_TOL (empty segments exactly zero) and rerun for
-    identical bits."""
+    kernels 10 and 6 (random coefficients), and on a plain-layout fold
+    plan's rows and seeds kernel 2 (random coefficient rows); each held
+    against its plain version at KERNEL_TOL (empty segments and padding
+    rows exactly zero) and rerun for identical bits."""
     plan = repro_torch.make_plan("gl", 2048, K=8, dtype="float32",
                                  mode="cuda_mxu", fold=True)
     gen = torch.Generator().manual_seed(43)
@@ -1466,6 +1467,20 @@ def check_mxu_synth_fold_full_width(dev) -> None:
                    lambda: synth(*args, **skw))
         del out, want
     del plan, prep, a_pk
+    plan = repro_torch.make_plan("gl", 2048, K=8, dtype="float32",
+                                 mode="cuda_mxu", fold=True, layout="plain")
+    m_t, x, pmm, pms, _ = plan._row_seeds()
+    L = plan.l_max + 1
+    keep = (torch.arange(L, device=dev)[None, :] >= m_t[:, None])
+    a = ((torch.rand((m_t.shape[0], L, 16), generator=gen) * 2 - 1).to(dev)
+         * keep[..., None])
+    args = (a, m_t, x, pmm, pms)
+    akw = dict(l_max=plan.l_max, fold=True)
+    out = lc.synth_mxu(*args, **akw)
+    held("synth_mxu", out, kref.synth_ref(*args, **akw),
+         f"{where(plan)} fold, K 8, plain layout", m_t < 0)
+    rerun_same("synth_mxu", digest(out), lambda: lc.synth_mxu(*args, **akw))
+    del out, a, args, plan
     torch.cuda.empty_cache()
 
 
@@ -1587,8 +1602,8 @@ def main() -> int:
     log(f"{elapsed()}   -- the vpu templates (kernels 9, 5, 11, 7, 3, 1) "
         "at full width with the fold")
     check_vpu_fold_full_width(dev)
-    log(f"{elapsed()}   -- the mxu synthesis template (kernels 10, 6) at "
-        "full width with the fold")
+    log(f"{elapsed()}   -- the mxu synthesis template (kernels 10, 6, 2) "
+        "at full width with the fold")
     check_mxu_synth_fold_full_width(dev)
     log(f"{elapsed()}   -- the ragged-grid paths: HEALPix, ring-uniform "
         "HEALPix, ECP")

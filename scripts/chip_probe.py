@@ -68,19 +68,25 @@ in turns (parent, this tree, this tree, parent;
   ``chip_smoke.py``'s phase 2 through both trees, as ``mxu`` does; then,
   each with whether its outputs are equal to the parent's bit for bit and
   its share of the issue rate (the SASS counts above x the path's
-  triples / (132 SMs x 128 lanes x the SM clock) over the time): kernel 1
-  (``synth_vpu``) on the plain GL 4096/K1 path, spin 0 and 2, and at K 4
-  and 7; kernel 10 (``synth_fused_mxu``) on the fused paths at GL 2048/K8
-  and HEALPix 1024/K8, spin 0 and 2, with its bf16 instantiation on
-  ``chip_smoke.py``'s BF16_PATHS; kernel 6 (``synth_packed_mxu``) on the
-  packed GL 2048/K8 paths at full width; kernel 2 (``synth_mxu``, not
-  changed) on the plain GL 2048/K8 paths as the control; kernels 9 and 5
-  on the fused and packed GL 4096/K1 paths, spin 0 and 2.
+  triples / (132 SMs x 128 lanes x the SM clock) over the time): kernel 2
+  (``synth_mxu``) on the plain paths at GL 2048/K8 and HEALPix 1024/K8,
+  spin 0 and 2; as the controls kernel 1 (``synth_vpu``) on the plain GL
+  4096/K1 path, spin 0 and 2, and at K 4 and 7, kernel 10
+  (``synth_fused_mxu``) on the fused paths at GL 2048/K8 and HEALPix
+  1024/K8, spin 0 and 2, with its bf16 instantiation on
+  ``chip_smoke.py``'s BF16_PATHS, kernel 6 (``synth_packed_mxu``) on the
+  packed GL 2048/K8 paths at full width, and kernels 9 and 5 on the fused
+  and packed GL 4096/K1 paths, spin 0 and 2; last, the plan-level outputs
+  the other parts do not reach, both directions through both trees on
+  ``chip_smoke.py``'s own inputs: its packed paths (l_max 1024) and its
+  ragged-grid paths (HEALPix bucket, ring-uniform HEALPix, ECP), each
+  ``alm2map`` and ``map2alm`` with both digests, bit equality and the gap.
 
 With no part named all three run.  Prints numbers only; the checks that
 pass or fail are ``chip_smoke.py``'s.
 """
 import collections
+import contextlib
 import functools
 import inspect
 import os
@@ -776,23 +782,28 @@ def _issue(tree_ms, triples, kernel):
           f"{share} of the issue rate; SM clock, max: {clock}", flush=True)
 
 
-#: kernel 1 on the plain GL 4096 paths: (spin, K)
-SYNTH_VPU_PLAIN = ((0, 1), (2, 1), (0, 4), (0, 7))
+#: the plain paths of the staged synthesis: (grid, size, spin, K); K 8
+#: runs kernel 2 (``synth_mxu``), K < 8 kernel 1 (``synth_vpu``)
+SYNTH_PLAIN = (("gl", 2048, 0, 8), ("gl", 2048, 2, 8),
+               ("healpix", 1024, 0, 8), ("healpix", 1024, 2, 8),
+               ("gl", 4096, 0, 1), ("gl", 4096, 2, 1), ("gl", 4096, 0, 4),
+               ("gl", 4096, 0, 7))
 
 
 def compare_synth(old, new):
-    """The synthesis kernels (1, 10 with its bf16 instantiation, 6; 2 as
-    the control; 9 and 5 after the template move), parent against this
-    tree, on chip_smoke.py's phase-2 operands and main-path inputs."""
+    """The synthesis kernels (2; 1, 10 with its bf16 instantiation, 6, 9
+    and 5 as the controls), parent against this tree, on chip_smoke.py's
+    phase-2 operands and main-path inputs; then the plan-level outputs of
+    chip_smoke.py's packed and ragged-grid paths through both trees."""
     _ptxas(r"synth_\w*?kernelI\w+?EE")
     print("chip_smoke.py's phase 2 through both trees:", flush=True)
     _compare_phase2(old, new)
     print("synthesis kernels on chip_smoke.py's main-path inputs (bits: "
           "this tree's output against the parent's):", flush=True)
-    for spin, K in SYNTH_VPU_PLAIN + ((0, 8), (2, 8)):
-        var, size = ("vpu", 4096) if K < 8 else ("mxu", 2048)
+    for grid, size, spin, K in SYNTH_PLAIN:
+        var = "mxu" if K == 8 else "vpu"
         plan, alm, maps = cs.run_main_path(dev, f"cuda_{var}", size, K,
-                                           "plain", spin)
+                                           "plain", spin, grid)
         m_t, x, pmm, pms, mp_t = plan._row_seeds()
         a, _ = cs.path_rows(plan, alm, maps)
         kw = dict(l_max=plan.l_max, mp_vals=mp_t)
@@ -844,6 +855,62 @@ def compare_synth(old, new):
                                       spin=bool(spin))
                     for tree in (old, new)))
             del plan, pk, a_pk
+            torch.cuda.empty_cache()
+    print("plan-level outputs of chip_smoke.py's packed and ragged-grid "
+          "paths, both directions through both trees:", flush=True)
+    _compare_plans(old, new)
+
+
+#: (grid, size, mode, K, layout, spins) of ``chip_smoke.py``'s paths whose
+#: plan-level outputs no other part of ``--compare`` reaches: its packed
+#: paths (l_max 1024) and its ragged-grid paths
+OTHER_PATHS = tuple(("gl", l_max, mode, K, layout, cs.SPINS)
+                    for mode, l_max, K, layout in cs.MAIN_PATH
+                    if layout == "packed") + cs.RAGGED_PATHS
+
+
+@contextlib.contextmanager
+def _kernels_of(tree):
+    """Route every plan's kernel calls through ``tree``'s wrappers: the
+    plans reach them as ``repro_torch.kernels.legendre_cuda`` and
+    ``.fused_cuda``, imported where they launch."""
+    import repro_torch.kernels as pkg
+    names = ("legendre_cuda", "fused_cuda")
+    saved = [getattr(pkg, n) for n in names]
+    for n, mod in zip(names, (tree.lc, tree.fc)):
+        setattr(pkg, n, mod)
+    try:
+        yield
+    finally:
+        for n, mod in zip(names, saved):
+            setattr(pkg, n, mod)
+
+
+def _compare_plans(old, new):
+    """``alm2map`` and ``map2alm`` (one analysis) of each of OTHER_PATHS on
+    ``chip_smoke.py``'s own plan and inputs, through both trees' kernels:
+    both digests, whether they are equal bit for bit, and the gap as a
+    share of max|parent|."""
+    for grid, size, mode, K, layout, spins in OTHER_PATHS:
+        for spin in spins:
+            plan, alm, maps = cs.run_main_path(dev, mode, size, K, layout,
+                                               spin, grid)
+            for direction, fn in (("alm2map", lambda: plan.alm2map(alm)),
+                                  ("map2alm", lambda: plan.map2alm(maps))):
+                outs = []
+                for tree in (old, new):
+                    with _kernels_of(tree):
+                        outs.append(fn())
+                torch.cuda.synchronize()
+                a, b = (torch.view_as_real(o) if o.is_complex() else o
+                        for o in outs)
+                gap = float((a - b).abs().max() / a.abs().max())
+                print(f"  {mode} [{layout}] spin {spin} {cs.where(plan)} K "
+                      f"{K} {direction}: digests {cs.digest(a)} -> "
+                      f"{cs.digest(b)}, bit-equal {torch.equal(a, b)}, trees "
+                      f"differ by {gap:.3e} of max|parent|", flush=True)
+                del outs, a, b
+            del plan, alm, maps
             torch.cuda.empty_cache()
 
 

@@ -34,7 +34,7 @@
 // Every template also has its spin branch (SPIN = true, selected by non-null
 // mp0/mp1 slot maps): the Wigner-d rows (m, m') of the spin-2 transforms, run
 // by the reference's `_f32_step_spin` (legendre_pallas.py:116) through
-// recurrence.cuh's fill_coef / rec_step.  A segment then starts at
+// recurrence.cuh's fill_coef / rec_general.  A segment then starts at
 // l0 = max(m, |m'|) (segment(), live_end()), as the spin slot layout of
 // kernels/pack.py places it; the phase rotation and the channel layout are
 // spin-blind.  The spin-2 plans never fold, so SPIN comes with FOLD = false

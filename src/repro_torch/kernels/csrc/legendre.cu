@@ -50,12 +50,21 @@
 //               has no branch and loads its a row once for all RT rings.
 //               Each ring's sum is one fmaf chain over ascending l from
 //               0.0f, the bits of one ring a thread.
-//   synth_mxu   replaces synth_mxu, legendre_pallas.py:326.  float32
-//               operations bound: per (m, 128-ring tile) the block builds a
-//               (32 l x 128 ring) P panel in shared memory, then contracts it
-//               against the (32 l x CC) coefficient panel with a register-tiled
-//               product in full float32 on the CUDA cores (no TF32, no wgmma:
-//               same error band as synth_vpu).
+//   synth_mxu   replaces synth_mxu, legendre_pallas.py:326.  Bound by
+//               instruction issue, as synth_fused_mxu (fused.cu), whose
+//               template it shares (mxu_synth.cuh): the bit-faithful step
+//               (~20 SASS instructions a triple) and the 2K FFMA of each
+//               triple issue far more than the float32 operations of the
+//               flop bound.  One block of 256 threads per (m, 512-ring
+//               chunk, channel chunk of <= 16); each thread steps a ring
+//               pair (seed and P_{m+1,m} peeled off, no guard, one table
+//               entry an l for both) and adds each value times the l's
+//               coefficients (broadcast float4 loads of rows staged 256 l
+//               at a time) into its registers, the fold's planes a two-step
+//               unroll: no panel, two barriers per 256 l, three blocks (24
+//               warps) an SM without the fold.  Full float32 on the CUDA
+//               cores (no TF32, no wgmma); each output is one fmaf chain
+//               over ascending l from 0.0f, the bits of one ring a thread.
 //   anal_vpu    replaces anal_vpu, legendre_pallas.py:436 (paper Alg. 5).
 //               Bound by instruction issue, as anal_fused_vpu (fused.cu),
 //               whose template it shares (recurrence.cuh): the bit-faithful
@@ -104,6 +113,7 @@
 #include <cstdint>
 
 #include "mxu_anal.cuh"
+#include "mxu_synth.cuh"
 #include "recurrence.cuh"
 
 namespace {
@@ -193,102 +203,57 @@ synth_vpu_kernel(const float* __restrict__ a, const int* __restrict__ m_vals,
 }
 
 // ---------------------------------------------------------------------------
-// synth_mxu: per (m, 128-ring tile) a (32 x 128) P panel in shared memory,
-// contracted against the (32 x CC) coefficient panel.  Thread t owns TR
-// consecutive rings x TC channels of the (128 x CC) output tile.
-// grid (ceil(R / 128), Mp, ceil(K2 / CC)), block 128.
+// synth_mxu: Delta_m(r) = sum_l a_lm P_lm(x_r) through the mxu synthesis
+// template (mxu_synth.cuh): thread t steps the ring pair base + 2t,
+// base + 2t + 1 of the block's 512-ring chunk and sums its products over l
+// in registers; the kernel hands the template the row's coefficients and
+// writes both fold planes as they are.  A padding row (m < 0) runs as an
+// empty row, whose sums are exact zeros.  grid (ceil(R / 512), Mp,
+// ceil(K2 / CC)), block kMxuThreads, dynamic shared memory and blocks an
+// SM: MxuSynthShape.
 // ---------------------------------------------------------------------------
 template <int CC, bool FOLD, bool SPIN>
-__global__ void __launch_bounds__(kTile)
+__global__ void __launch_bounds__(
+    kMxuThreads, MxuSynthShape<CC, FOLD, false>::MIN_BLOCKS)
 synth_mxu_kernel(const float* __restrict__ a, const int* __restrict__ m_vals,
                  const int* __restrict__ mp_vals, const float* __restrict__ x,
                  const float* __restrict__ pmm, const int* __restrict__ pms,
                  float* __restrict__ out, int L1, int K2, int R, int l_end) {
   constexpr int P = FOLD ? 2 : 1;
-  constexpr int TC = CC < 4 ? CC : 4;     // channels per thread
-  constexpr int CG = CC / TC;             // channel groups
-  constexpr int TR = CG;                  // rings per thread (128 / (128/CG))
-  __shared__ __align__(16) float panel_s[kLT][kTile];
-  __shared__ __align__(16) float coef_s[kLT][CC];
-  __shared__ float bl_s[kLT], ratio_s[kLT], c_s[SPIN ? kLT : 1];
+  extern __shared__ __align__(16) float smem[];
   const int mi = blockIdx.y;
-  const int tile0 = blockIdx.x * kTile;
+  const int base = blockIdx.x * kMxuChunk;
   const int c0 = blockIdx.z * CC;
   const int nch = min(CC, K2 - c0);
   const int m = m_vals[mi];
   const int mp = SPIN ? mp_vals[mi] : 0;
-  const int lz = row_start<SPIN>(m, mp);
+  const int lz = m < 0 ? l_end : row_start<SPIN>(m, mp);
   const int t = threadIdx.x;
-  const int cg = t % CG, rg = t / CG;
-  float acc[P][TR][TC];
+  float xr[kMxuRings];
 #pragma unroll
-  for (int p = 0; p < P; ++p)
+  for (int k = 0; k < kMxuRings; ++k) {
+    const int r = base + kMxuRings * t + k;
+    xr[k] = r < R ? x[r] : 0.0f;
+  }
+  const size_t row = static_cast<size_t>(mi) * R;
+  const float* arow = a + static_cast<size_t>(mi) * L1 * K2 + c0;
+  mxu_synth_row<CC, FOLD, SPIN, false>(
+      smem, xr, min(kMxuChunk, R - base), m, mp, lz, l_end, pmm + row,
+      pms + row, base, R,
+      [&](int l, int c) {
+        return c < nch ? arow[static_cast<size_t>(l) * K2 + c] : 0.0f;
+      },
+      [&](int rr, const float (&v)[P][CC]) {
+        const int r = base + rr;
 #pragma unroll
-    for (int i = 0; i < TR; ++i)
+        for (int p = 0; p < P; ++p) {
+          float* o = out + ((static_cast<size_t>(mi) * P + p) * R + r) * K2 +
+                     c0;
 #pragma unroll
-      for (int k = 0; k < TC; ++k) acc[p][i][k] = 0.0f;
-
-  if (m >= 0) {   // block-uniform
-    const int r = tile0 + t;
-    const bool live = r < R;
-    const size_t row = static_cast<size_t>(mi) * R + r;
-    const float xr = live ? x[r] : 0.0f;
-    const float pmm_r = live ? pmm[row] : 0.0f;
-    const int pms_r = live ? pms[row] : 0;
-    const float p1 = p_first_coef(m);
-    Rec s;
-    for (int l0 = lz; l0 < l_end; l0 += kLT) {
-      const int n = min(kLT, l_end - l0);
-      __syncthreads();                       // previous panel consumed
-      fill_coef<SPIN>(l0, m, mp, bl_s, ratio_s, c_s);
-      for (int i = t; i < kLT * CC; i += kTile) {
-        const int j = i / CC, c = i % CC;
-        coef_s[j][c] = (j < n && c < nch)
-            ? a[(static_cast<size_t>(mi) * L1 + l0 + j) * K2 + c0 + c]
-            : 0.0f;
-      }
-      __syncthreads();
-      for (int j = 0; j < n; ++j)             // build the P panel
-        panel_s[j][t] = rec_step<SPIN>(&s, l0 + j, lz, xr, bl_s, ratio_s,
-                                       c_s, j, p1, pmm_r, pms_r);
-      __syncthreads();
-      for (int j = 0; j < n; ++j) {           // contract over l
-        float pv[TR], cv[TC];
-#pragma unroll
-        for (int i = 0; i < TR; ++i) pv[i] = panel_s[j][rg * TR + i];
-#pragma unroll
-        for (int k = 0; k < TC; ++k) cv[k] = coef_s[j][cg * TC + k];
-        const int p = (FOLD && ((l0 + j + m) & 1)) ? P - 1 : 0;
-        if (p) {
-#pragma unroll
-          for (int i = 0; i < TR; ++i)
-#pragma unroll
-            for (int k = 0; k < TC; ++k)
-              acc[P - 1][i][k] = fmaf(pv[i], cv[k], acc[P - 1][i][k]);
-        } else {
-#pragma unroll
-          for (int i = 0; i < TR; ++i)
-#pragma unroll
-            for (int k = 0; k < TC; ++k)
-              acc[0][i][k] = fmaf(pv[i], cv[k], acc[0][i][k]);
+          for (int c = 0; c < CC; ++c)
+            if (c < nch) o[c] = v[p][c];
         }
-      }
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < TR; ++i) {
-    const int r = tile0 + rg * TR + i;
-    if (r >= R) continue;
-#pragma unroll
-    for (int p = 0; p < P; ++p)
-#pragma unroll
-      for (int k = 0; k < TC; ++k) {
-        const int c = cg * TC + k;
-        if (c < nch)
-          out[((static_cast<size_t>(mi) * P + p) * R + r) * K2 + c0 + c] =
-              acc[p][i][k];
-      }
-  }
+      });
 }
 
 // ---------------------------------------------------------------------------
@@ -557,8 +522,15 @@ struct LaunchSynthVpu {
 template <int CC, bool FOLD, bool SPIN>
 struct LaunchSynthMxu {
   static int run(const SynthArgs& g) {
-    dim3 grid((g.R + kTile - 1) / kTile, g.Mp, (g.K2 + CC - 1) / CC);
-    synth_mxu_kernel<CC, FOLD, SPIN><<<grid, kTile, 0, g.stream>>>(
+    using S = MxuSynthShape<CC, FOLD, false>;
+    cudaError_t err = cudaFuncSetAttribute(
+        synth_mxu_kernel<CC, FOLD, SPIN>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(S::smem_bytes));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    dim3 grid((g.R + kMxuChunk - 1) / kMxuChunk, g.Mp, (g.K2 + CC - 1) / CC);
+    synth_mxu_kernel<CC, FOLD, SPIN><<<grid, kMxuThreads, S::smem_bytes,
+                                       g.stream>>>(
         g.a, g.m_vals, g.mp_vals, g.x, g.pmm, g.pms, g.out, g.L1, g.K2, g.R,
         g.l_end);
     return static_cast<int>(cudaGetLastError());

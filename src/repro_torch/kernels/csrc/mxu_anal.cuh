@@ -10,7 +10,7 @@
 // (d_s[plane][c][ring]).  Per panel of HL rows (32; 16 with the fold):
 //   1. build: thread t steps rings 2t, 2t + 1 through the rows with the
 //      steps of recurrence.cuh (seed and P_{m+1,m} peeled off the row's
-//      first panel, so every P_lm keeps the bits of rec_advance), reading
+//      first panel, so every P_lm keeps the plain version's bits), reading
 //      each row's coefficients once for both rings (one float4 table entry)
 //      and storing both values with one 8-byte store; threads whose ring
 //      quad holds no live ring skip it.  One barrier.

@@ -1,8 +1,9 @@
-// The mxu synthesis template, carrying synth_fused_mxu / synth_packed_mxu
-// (fused.cu, kernels 10 and 6, with kernel 10's bfloat16 branch).  The
-// kernels keep only their prologue (the block's coefficient rows, handed
-// over one (l, channel) at a time) and their epilogue (fold combine,
-// rotation, the place each output goes).
+// The mxu synthesis template, carrying synth_mxu (legendre.cu, kernel 2)
+// and synth_fused_mxu / synth_packed_mxu (fused.cu, kernels 10 and 6, with
+// kernel 10's bfloat16 branch).  The kernels keep only their prologue (the
+// block's coefficient rows, handed over one (l, channel) at a time) and
+// their epilogue (kernel 2: both fold planes as they are; kernels 10 and 6:
+// fold combine, rotation; the place each output goes).
 //
 // A block of 256 threads carries one row (m, m') of a 512-ring chunk at a
 // time, thread t the ring pair 2t, 2t + 1.  Every 256
@@ -12,7 +13,7 @@
 // float32:
 //   each step advances the thread's rings by the steps of recurrence.cuh
 //   (seed and P_{m+1,m} peeled off the row's first group, so every P_lm
-//   keeps the bits of rec_advance, and no per-step branch or guard) and
+//   keeps the plain version's bits, and no per-step branch or guard) and
 //   adds each ring's value times the l's CC coefficients (broadcast
 //   16-byte loads, four channels at a time) into its accumulators
 //   acc[ring][plane][channel] in registers.  Synthesis sums over l, not

@@ -17,8 +17,8 @@
 // them per 32-l tile into shared memory (fill_spin, the counterpart of
 // fill_beta) and each ring's step is five operations and the rescale.  The
 // kernels select the branch with a `bool SPIN` template parameter through
-// fill_coef / rec_step; their SPIN = false instantiations run fill_beta and
-// rec_advance as before.
+// fill_coef / rec_general (mxu_fill in the mxu templates); their SPIN =
+// false instantiations run fill_beta and rec_next.
 //
 // The header also holds the vpu analysis template's peeled first steps,
 // steady steps and fixed-order ring reduction, shared by anal_vpu
@@ -125,27 +125,10 @@ __device__ __forceinline__ float next_mant(const Rec* s, float x, float bl,
                    __fmul_rn(ratio, s->pp));
 }
 
-// One step at multipole l >= m (block-uniform branches): the seed at l == m,
-// P_{m+1,m} = sqrt(2m+3) x P_mm at l == m + 1, the three-term recurrence
-// after.  Returns the descaled P_{l,m}.  One rec_finish after the branch:
-// a rec_finish in each branch duplicates the rescale in the loop of every
-// kernel that takes this step (kernel 9's loop grew from 94 to 133 SASS
-// instructions and its time by 15% on the H100).
-__device__ __forceinline__ float rec_advance(Rec* s, int l, int m, float x,
-                                             float bl, float ratio, float p1,
-                                             float pmm, int pms) {
-  if (l == m) return rec_seed(s, pmm, pms);
-  float c;
-  if (l == m + 1) {
-    c = first_mant(s, x, p1);
-  } else {
-    c = next_mant(s, x, bl, ratio);
-  }
-  return rec_finish(s, c);
-}
-
-// The step at l == m + 1 alone, and the three-term step alone (l >= m + 2):
-// rec_advance's two branches, for loops that peel the first steps off.
+// The step at l == m + 1 alone, and the three-term step alone (l >= m + 2),
+// each ending in one rec_finish: the kernels peel the seed and the first
+// step off their l loops, so the steady step has no branch (a rescale in
+// each branch of one step for every l cost kernel 9 15% on the H100).
 __device__ __forceinline__ float rec_first(Rec* s, float x, float p1) {
   return rec_finish(s, first_mant(s, x, p1));
 }
@@ -213,17 +196,6 @@ __device__ __forceinline__ float rec_next_spin(Rec* s, float x, float a,
                                  __fmul_rn(c, s->pp)));
 }
 
-// One Wigner-d step at multipole l >= lz = max(m, |m'|) (block-uniform
-// branches): the seed at l == lz, the three-term recurrence after (at
-// lz + 1 its c is 0).  Returns the descaled lambda_{l,m}.
-__device__ __forceinline__ float rec_advance_spin(Rec* s, int l, int lz,
-                                                  float x, float a, float b,
-                                                  float c, float seed,
-                                                  int seed_scale) {
-  if (l == lz) return rec_seed(s, seed, seed_scale);
-  return rec_next_spin(s, x, a, b, c);
-}
-
 // The coefficient table of one 32-l tile of a row: beta and the beta ratio
 // in t0, t1 (spin 0), or a, b, c in t0, t1, t2 (spin).
 template <bool SPIN>
@@ -233,21 +205,6 @@ __device__ __forceinline__ void fill_coef(int l0, int m, int mp, float* t0,
     fill_spin(l0, m, mp, t0, t1, t2);
   } else {
     fill_beta(l0, m, t0, t1);
-  }
-}
-
-// One step of row (m, m') at l from its first multipole lz (m for spin 0),
-// with tile entry j of the table fill_coef filled.
-template <bool SPIN>
-__device__ __forceinline__ float rec_step(Rec* s, int l, int lz, float x,
-                                          const float* t0, const float* t1,
-                                          const float* t2, int j, float p1,
-                                          float seed, int seed_scale) {
-  if constexpr (SPIN) {
-    return rec_advance_spin(s, l, lz, x, t0[j], t1[j], t2[j], seed,
-                            seed_scale);
-  } else {
-    return rec_advance(s, l, lz, x, t0[j], t1[j], p1, seed, seed_scale);
   }
 }
 

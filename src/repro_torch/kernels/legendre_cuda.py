@@ -168,7 +168,9 @@ def synth_vpu(a, m_vals, x, pmm, pms, *, l_max: int, fold: bool = False,
 
 def synth_mxu(a, m_vals, x, pmm, pms, *, l_max: int, fold: bool = False,
               mp_vals=None):
-    """Synthesis as (l x ring) P panels contracted in float32."""
+    """Synthesis on the mxu synthesis template (``csrc/mxu_synth.cuh``): a
+    ring pair a thread, its values times each l's coefficient row summed in
+    float32 registers."""
     return _synth("synth_mxu", a, m_vals, x, pmm, pms, l_max=l_max, fold=fold,
                   mp_vals=mp_vals)
 

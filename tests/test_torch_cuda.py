@@ -1271,3 +1271,67 @@ def test_mxu_synthesis_template_bf16(dev, spin, fold):
     assert 0 < rel(got, f32) < 1e-2
     assert torch.equal(fused_cuda.synth_fused_mxu(
         a_pk, maps, x, pmm_pk, pms_pk, tab, bf16=True, **kw), got)
+
+
+# ---------------------------------------------------------------------------
+# kernel 2 (synth_mxu) on the mxu synthesis template (csrc/mxu_synth.cuh)
+# ---------------------------------------------------------------------------
+
+
+def _synth_mxu_operands(l_max, rings, K, fold, spin, dev, seed):
+    """The rows 0..l_max (spin: the 2M spin rows) on a GL grid of ``rings``
+    rings (its northern half with the fold), one row mid-table made a
+    padding row (m = -1), their seeds, and random coefficient rows zero
+    below l0 = max(m, |m'|): (a, m_vals, x, pmm, pms, mp_vals)."""
+    g = grids.make_grid("gl", l_max=rings - 1)
+    assert g.n_rings == rings
+    if spin:
+        m_vals, mp_vals = ops.spin_rows(np.arange(l_max + 1))
+        m_vals[l_max // 2] = -1
+        x = g.cos_theta
+        pmm, pms = kref.prepare_seeds_spin(m_vals, mp_vals, x, g.sin_theta,
+                                           m_max=l_max)
+        l0 = np.maximum(m_vals, np.abs(mp_vals))
+    else:
+        m_vals, mp_vals = np.insert(np.arange(l_max + 1), l_max // 2, -1), None
+        nh = (rings + 1) // 2
+        sin = g.sin_theta[:nh] if fold else g.sin_theta
+        x = g.cos_theta[:nh] if fold else g.cos_theta
+        pmm, pms = kref.prepare_seeds(m_vals, sin, legendre.log_mu(l_max))
+        l0 = m_vals
+    L = l_max + 1
+    keep = torch.as_tensor((np.arange(L)[None, :] >= l0[:, None])
+                           & (m_vals >= 0)[:, None])
+    gen = torch.Generator().manual_seed(seed)
+    a = (torch.rand((len(m_vals), L, 2 * K), generator=gen) * 2 - 1) \
+        * keep[..., None]
+    t = lambda v, dt: torch.as_tensor(v, dtype=dt, device=dev)
+    return (a.to(dev), t(m_vals, torch.int32), t(x, torch.float32),
+            t(pmm, torch.float32), t(pms, torch.int32),
+            None if mp_vals is None else t(mp_vals, torch.int32))
+
+
+@pytest.mark.parametrize("rings", [1025, 2049])
+@pytest.mark.parametrize("K", [1, 3, 8, 12])
+@pytest.mark.parametrize("spin,fold", [(0, False), (0, True), (2, False)])
+def test_synth_mxu_template_matches_plain_version(dev, spin, fold, K, rings):
+    """Kernel 2 on the plain layout against its plain version within TOL,
+    the padding row (m = -1, mid-table) exactly zero, identical bits on a
+    rerun.  l_max 300 (spin 2: 258, the first l_max at which a spin row
+    walks more than 256 multipoles; beyond it the spin rows' gap from the
+    plain version's order of float32 sums nears TOL, whose band is stated
+    for l_max 256): the rows of more than 256 multipoles cross a group of
+    the template, so their sums wait in shared memory across the next
+    table fill.  R one ring past a multiple
+    of the 512-ring chunk (1025, 2049; with the fold their northern
+    halves 513 and 1025).  K 1, 3, 8, 12: channel blocks of 2, 8 (6
+    live), 16, and 16 + 8; the fold on and off and the spin branch."""
+    l_max = 258 if spin else 300
+    a, m_t, x, pmm, pms, mp_t = _synth_mxu_operands(
+        l_max, rings, K, fold, bool(spin), dev, 100 * K + rings + spin)
+    assert x.shape[0] % lc.ANAL_CHUNK["mxu"] == 1
+    kw = dict(l_max=l_max, fold=fold, mp_vals=mp_t)
+    got = lc.synth_mxu(a, m_t, x, pmm, pms, **kw)
+    want = kref.synth_ref(a, m_t, x, pmm, pms, **kw)
+    assert rel(got, want) < TOL and bool((got[m_t < 0] == 0).all())
+    assert torch.equal(lc.synth_mxu(a, m_t, x, pmm, pms, **kw), got)
