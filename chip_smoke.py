@@ -16,18 +16,27 @@ the plans on the card (dot identities on every layout, one full-width
 step whose backward must run the other direction's kernels).  Every phase
 runs twice: for the spin-0 transform pair and for the spin-2 one
 (``make_plan(..., spin=2)``: (E, B) alm <-> (Q, U) maps), whose paths
-launch the spin branch of every kernel.  The ragged-grid paths follow the
-GL ones: HEALPix (nside 1024, K 8, fused and plain, spin 0 and 2; nside
-2048, K 1, fused), ring-uniform HEALPix (nside 1024) and ECP (l_max 2048)
-through the ring-bucket or uniform phase stage, each synthesis and
+launch the spin branch of every kernel.  The costliest checks (the GL
+4096/K1 spin-2 paths, the vpu fold check, the bf16 spin-2 path) run their
+kernels at full depth on every ring and hold them against their plain
+versions on every 8th ring (``RING_STRIDE``), for the time limit.  The
+ragged-grid paths follow
+the GL ones: HEALPix (nside 1024, K 8, fused and plain, spin 0 and 2;
+nside 2048, K 1, fused), ring-uniform HEALPix (nside 1024) and ECP (l_max
+2048) through the ring-bucket or uniform phase stage, each synthesis and
 analysis rerun for identical bits (as is the analysis of the GL vpu fused
 and plain paths, whose template sums its rings in a fixed order of its
-own), the vpu kernels and the mxu synthesis kernels held at full width
-with the equator fold; then
-the bfloat16 branch of the fused
-mxu kernels (``Plan._make_fused_synth/_make_fused_anal("mxu",
+own), the vpu kernels (GL 4096/K1) and the mxu synthesis kernels (GL
+2048/K8) held with the equator fold; then the bfloat16 branch of the
+fused mxu kernels (``Plan._make_fused_synth/_make_fused_anal("mxu",
 bf16=True)``) at GL 2048/K8 and HEALPix 1024/K8, held to the reference's
-band against float32 and to its plain version.
+band against float32 and to its plain version.  Last, the cost model and
+the measured autotune (``make_plan(mode="model")`` and ``mode="auto"``
+with its decision cached on disk) at GL 2048/K8, spin 0 and 2: every
+corner's prediction beside its measurement, the choice held to the
+measured minimum, a second build that measures nothing, and the chosen
+plan's round trip.  Each phase and each path logs its wall seconds and
+the seconds of its plain-version calls, gathered in a timeline at the end.
 Prints the card's name and power limit, one JSON line of per-kernel
 numbers, and as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -37,11 +46,14 @@ rest of the repository.
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -142,6 +154,51 @@ _T0 = time.perf_counter()
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+#: (label, wall s, plain-version s) of each stamped phase and path, in order
+TIMELINE: list = []
+#: the labels being stamped (outermost first), and their plain-version s
+_ACTIVE: list = []
+_PLAIN_S: dict = {}
+
+
+@contextlib.contextmanager
+def stamped(label: str):
+    """Stamp a phase or path: its wall seconds and the seconds its
+    plain-version calls took (nested stamps count in each) go to TIMELINE,
+    and the seconds are logged as the stamp closes."""
+    _ACTIVE.append(label)
+    _PLAIN_S[label] = 0.0
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        _ACTIVE.pop()
+        wall = time.perf_counter() - t0
+        TIMELINE.append((label, wall, _PLAIN_S.pop(label)))
+        log(f"  {elapsed()} [{label}] {wall:.1f} s, plain versions "
+            f"{TIMELINE[-1][2]:.1f} s")
+
+
+def count_plain_seconds() -> None:
+    """Wrap each plain version of ``kernels.ref`` (the ``*_ref``
+    functions) so that its calls, synchronised on both sides, add their
+    wall seconds to every stamp open."""
+    for name in kref.__all__:
+        if not name.endswith("_ref"):
+            continue
+
+        def timed(*args, _fn=getattr(kref, name), **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = _fn(*args, **kw)
+            torch.cuda.synchronize()
+            for label in _ACTIVE:
+                _PLAIN_S[label] += time.perf_counter() - t0
+            return out
+
+        setattr(kref, name, timed)
 
 
 def elapsed() -> str:
@@ -639,6 +696,22 @@ MAIN_PATH = (("cuda_mxu", 2048, 8, "fused"), ("cuda_vpu", 4096, 1, "fused"),
              ("cuda_mxu", 2048, 8, "plain"), ("cuda_vpu", 4096, 1, "plain"),
              ("cuda_mxu", 1024, 8, "packed"), ("cuda_vpu", 1024, 1, "packed"))
 SPINS = (0, 2)
+#: the ring stride of the plain versions on the costliest checks: there the
+#: kernels run on every ring of the full-depth shape (the analyses on their
+#: inputs with the other rings set to zero) and are held against their
+#: plain versions on every RING_STRIDE-th ring only.  The plain versions'
+#: cost grows with the rings, while the error growth that matters grows
+#: with l, which keeps its full depth.
+RING_STRIDE = 8
+#: (mode, l_max, layout, spin) of the MAIN_PATH entries held on a ring
+#: subset: the GL 4096/K1 spin-2 paths (the spin branch of kernels 9, 11,
+#: 1 and 3), whose plain versions contract the spin update through an
+#: emulated FMA (``kref.fma_f32``)
+RING_SUBSET_PATHS = {("cuda_vpu", 4096, "fused", 2),
+                     ("cuda_vpu", 4096, "plain", 2)}
+#: l_max of the vpu templates' fold check (GL, K 1), the main shape; held
+#: on a ring subset
+FOLD_VPU_L_MAX = 4096
 #: (grid, size, mode, K, layout, spins): the ragged-grid paths at full width
 #: (size: nside of the HEALPix family, l_max of ECP; l_max = 2 nside)
 RAGGED_PATHS = (
@@ -648,8 +721,10 @@ RAGGED_PATHS = (
     ("healpix_ring", 1024, "cuda_mxu", 8, "fused", (0,)),
     ("ecp", 2048, "cuda_mxu", 8, "fused", (0,)),
 )
-#: (grid, size, K, spin) of the bf16 paths (mxu, the fused default layout)
-BF16_PATHS = (("gl", 2048, 8, 0), ("gl", 2048, 8, 2), ("healpix", 1024, 8, 0))
+#: (grid, size, K, spin, ring stride of the plain versions) of the bf16
+#: paths (mxu, the fused default layout)
+BF16_PATHS = (("gl", 2048, 8, 0, 1), ("gl", 2048, 8, 2, RING_STRIDE),
+              ("healpix", 1024, 8, 0, 1))
 
 #: the kernels each layout's path must launch, for a variant and spin (the
 #: spin-2 paths launch each kernel's spin branch, and anal_reduce)
@@ -766,10 +841,43 @@ def plain_ms(fn) -> tuple:
     return out, (time.perf_counter() - t0) * 1e3
 
 
-def time_kernels(mode: str, l_max: int, K: int, run: tuple) -> dict:
+def ring_subset(R: int, stride: int, dev):
+    """The ring indices the plain versions run on: every ``stride``-th of
+    ``R`` (None with stride 1: every ring)."""
+    return None if stride == 1 else torch.arange(0, R, stride, device=dev)
+
+
+def on_rings(idx, t, axis: int = -1):
+    """``t``'s rings ``idx`` along ``axis`` (``t`` itself where ``idx`` or
+    ``t`` is None)."""
+    if idx is None or t is None:
+        return t
+    return t.index_select(axis % t.dim(), idx).contiguous()
+
+
+def rings_only(idx, t, axis: int):
+    """``t`` with every ring outside ``idx`` (along ``axis``) set to zero,
+    the analysis input whose kernel output the plain version on those
+    rings gives (``t`` itself where ``idx`` is None)."""
+    if idx is None:
+        return t
+    keep = torch.zeros(t.shape[axis], dtype=t.dtype, device=t.device)
+    keep[idx] = 1
+    shape = [1] * t.dim()
+    shape[axis] = -1
+    return (t * keep.view(shape)).contiguous()
+
+
+def subset_note(stride: int) -> str:
+    return "" if stride == 1 else f", plain version on every {stride}th ring"
+
+
+def time_kernels(mode: str, l_max: int, K: int, run: tuple,
+                 stride: int = 1) -> dict:
     """Each kernel of one main path at the shapes that path gave it: held
-    against its plain version on the same inputs, then kernel time, plain
-    version time, bound, and the library call where one exists."""
+    against its plain version on the same inputs (every ``stride``-th ring:
+    :data:`RING_STRIDE`), then kernel time, plain version time, bound, and
+    the library call where one exists."""
     var = mode[5:]
     plan, alm, maps = run
     l_max = plan.l_max
@@ -777,7 +885,9 @@ def time_kernels(mode: str, l_max: int, K: int, run: tuple) -> dict:
     sfx = tag(plan.spin)
     a, dw = path_rows(plan, alm, maps)
     K2, R, L = 2 * K, x.shape[0], l_max + 1
-    what = f"l_max {l_max}, K {K} (main path)"
+    what = f"l_max {l_max}, K {K} (main path{subset_note(stride)})"
+    idx = ring_subset(R, stride, x.device)
+    x_c, pmm_c, pms_c = (on_rings(idx, t) for t in (x, pmm, pms))
     mp_np = None if mp_t is None else mp_t.cpu().numpy()
     triples, flops = legendre_work(m_t.cpu().numpy(), L, R, K2, mp_np)
     synth = getattr(lc, f"synth_{var}")
@@ -791,19 +901,24 @@ def time_kernels(mode: str, l_max: int, K: int, run: tuple) -> dict:
 
     out_s, part = run_s(), run_a()
     out_a = lc.anal_reduce(part, m_t, **rkw)
-    want_s, plain_s = plain_ms(lambda: kref.synth_ref(a, m_t, x, pmm, pms,
-                                                      **rkw))
-    want_a, plain_a = plain_ms(lambda: kref.anal_ref(dw, m_t, x, pmm, pms,
-                                                     **rkw))
+    # on a ring subset: the synthesis's rings, the analysis of the input
+    # with the other rings zero
+    out_c = out_a if idx is None else lc.anal_reduce(
+        lc.anal_partials(var, rings_only(idx, dw, 2), m_t, x, pmm, pms,
+                         **rkw), m_t, **rkw)
+    want_s, plain_s = plain_ms(lambda: kref.synth_ref(
+        a, m_t, x_c, pmm_c, pms_c, **rkw))
+    want_a, plain_a = plain_ms(lambda: kref.anal_ref(
+        on_rings(idx, dw, 2), m_t, x_c, pmm_c, pms_c, **rkw))
     want_r, plain_r = plain_ms(lambda: kref.anal_reduce_ref(part, m_t,
                                                             **rkw))
-    err_s = held(f"synth_{var}{sfx}", out_s, want_s, what)
-    err_a = held(f"anal_{var}{sfx}", out_a, want_a, what)
+    err_s = held(f"synth_{var}{sfx}", on_rings(idx, out_s, 2), want_s, what)
+    err_a = held(f"anal_{var}{sfx}", out_c, want_a, what)
     err_r = held("anal_reduce", out_a, want_r, what)
     if plan.spin:
         below_zero(f"anal_{var}{sfx}", out_a, m_t.cpu().numpy(), mp_np)
     dig_a = digest(out_a)
-    del want_s, want_a, want_r, out_s, out_a
+    del want_s, want_a, want_r, out_s, out_a, out_c
     ms_s, ms_a = cuda_time_ms(run_s), cuda_time_ms(run_a)
     ms_r = cuda_time_ms(lambda: lc.anal_reduce(part, m_t, **rkw))
     rerun_same(f"anal_{var}{sfx}", dig_a,
@@ -832,13 +947,14 @@ def time_kernels(mode: str, l_max: int, K: int, run: tuple) -> dict:
 
 
 def identity_tables(var: str, out_a, want_a, f_pk, prep, l_max: int,
-                    S: int, what: str, spin: bool) -> None:
+                    S: int, what: str, spin: bool, idx=None) -> None:
     """The fused analysis with explicit identity tables against the skipped
     tables of the main path: the kernel must give the same bits (1 re +
     0 im == re), while the plain version, which then contracts a rotated
     copy instead of a view of the rows, may round its ring sums in another
     order.  Logs both, so a change in the gap between runs is seen to come
-    from the plain version or from the kernel."""
+    from the plain version or from the kernel.  With ring indices ``idx``
+    ``f_pk`` holds zeros off them and the plain version runs on them."""
     n_slots, _, P = f_pk.shape[:3]
     R = prep[1].shape[0]
     ident = torch.zeros((n_slots, 2, P, 4, R), device=f_pk.device)
@@ -849,8 +965,11 @@ def identity_tables(var: str, out_a, want_a, f_pk, prep, l_max: int,
     sfx = tag(spin)
     same_bits(f"anal_fused_{var}{sfx} with identity tables = without, "
               f"{what}", kernel, out_a)
-    plain = kref.anal_fused_ref(f_pk, *prep, ident, l_max=l_max, s_len=S,
-                                layout=var, spin=spin)
+    pmaps, x, pmm_pk, pms_pk = prep
+    plain = kref.anal_fused_ref(
+        on_rings(idx, f_pk, -1 if var == "vpu" else -2), pmaps,
+        *(on_rings(idx, t) for t in (x, pmm_pk, pms_pk, ident)),
+        l_max=l_max, s_len=S, layout=var, spin=spin)
     gap = float((out_a - plain).abs().max() / plain.abs().max())
     log(f"  anal_fused_{var}{sfx} plain version with identity tables: digest "
         f"{digest(plain)} (without: {digest(want_a)}), kernel vs it "
@@ -858,9 +977,10 @@ def identity_tables(var: str, out_a, want_a, f_pk, prep, l_max: int,
 
 
 def time_fused_kernels(mode: str, l_max: int, K: int, run: tuple,
-                       bf16: bool = False) -> dict:
+                       bf16: bool = False, stride: int = 1) -> dict:
     """Each kernel of one fused main path at the shapes that path gave it
-    (the plan's own packed seeds and tables), as :func:`time_kernels`;
+    (the plan's own packed seeds and tables), as :func:`time_kernels`
+    (``stride`` too);
     ``bf16`` the bfloat16 branch of the mxu kernels, held at
     BF16_KERNEL_TOL, its bound the contraction at the tensor cores' rate
     plus the float32 recurrence."""
@@ -891,7 +1011,11 @@ def time_fused_kernels(mode: str, l_max: int, K: int, run: tuple,
     del fp
     K2, R, L, S = 2 * K, x.shape[0], l_max + 1, lo.S
     what = (f"{where(plan)}, K {K} (fused main path"
-            + (", bf16)" if bf16 else ")"))
+            + (", bf16" if bf16 else "") + subset_note(stride) + ")")
+    idx = ring_subset(R, stride, x.device)
+    rax = -1 if var == "vpu" else -2          # the ring axis of f and out
+    x_c, pmm_c, pms_c, tab_s_c, tab_a_c = (
+        on_rings(idx, t) for t in (x, pmm_pk, pms_pk, tab_s, tab_a))
     triples, flops = legendre_work(rows, L, R, K2, mp_rows)
     synth = getattr(fused_cuda, f"synth_fused_{var}")
 
@@ -911,26 +1035,32 @@ def time_fused_kernels(mode: str, l_max: int, K: int, run: tuple,
 
     out_s, part = run_s(), run_a()
     out_a = reduce(part)
+    # on a ring subset: the synthesis's rings, the analysis of the rows
+    # with the other rings zero
+    f_c = rings_only(idx, f_pk, rax)
+    out_c = out_a if idx is None else reduce(fused_cuda.anal_fused_partials(
+        var, f_c, pmaps, x, pmm_pk, pms_pk, tab_a, l_max=l_max, s_len=S,
+        spin=spin, **bkw))
     want_s, plain_s = plain_ms(lambda: kref.synth_fused_ref(
-        a_pk, pmaps, x, pmm_pk, pms_pk, tab_s, l_max=l_max, layout=var,
+        a_pk, pmaps, x_c, pmm_c, pms_c, tab_s_c, l_max=l_max, layout=var,
         spin=spin, bf16=bf16))
     want_a, plain_a = plain_ms(lambda: kref.anal_fused_ref(
-        f_pk, pmaps, x, pmm_pk, pms_pk, tab_a, l_max=l_max, s_len=S,
-        layout=var, spin=spin, bf16=bf16))
+        on_rings(idx, f_pk, rax), pmaps, x_c, pmm_c, pms_c, tab_a_c,
+        l_max=l_max, s_len=S, layout=var, spin=spin, bf16=bf16))
     want_r, plain_r = plain_ms(lambda: kref.anal_reduce_ref(
         part, None, l_max=l_max, slot_maps=sm))
     empty = torch.as_tensor(lo.slot_seed == S, device=x.device)
     dead = torch.as_tensor(lo.a_row < 0, device=x.device)
-    err_s = held(f"synth_fused_{var}{bf}{sfx}", out_s, want_s, what,
-                 (empty, 1), tol=tol)
-    err_a = held(f"anal_fused_{var}{bf}{sfx}", out_a, want_a, what, dead,
+    err_s = held(f"synth_fused_{var}{bf}{sfx}", on_rings(idx, out_s, rax),
+                 want_s, what, (empty, 1), tol=tol)
+    err_a = held(f"anal_fused_{var}{bf}{sfx}", out_c, want_a, what, dead,
                  tol=tol)
     err_r = held("anal_reduce", out_a, want_r, what)
     dig_a = digest(out_a)
     if tab_a is None and not bf16:
-        identity_tables(var, out_a, want_a, f_pk, (pmaps, x, pmm_pk, pms_pk),
-                        l_max, S, what, spin)
-    del want_s, want_a, want_r, out_s, out_a
+        identity_tables(var, out_c, want_a, f_c, (pmaps, x, pmm_pk, pms_pk),
+                        l_max, S, what, spin, idx)
+    del want_s, want_a, want_r, out_s, out_a, out_c, f_c
     ms_s, ms_a = cuda_time_ms(run_s), cuda_time_ms(run_a)
     ms_r = cuda_time_ms(lambda: reduce(part))
     rerun_same(f"anal_fused_{var}{bf}{sfx}", dig_a, lambda: reduce(run_a()))
@@ -1293,12 +1423,13 @@ def check_gradients(dev, spin: int = 0) -> None:
 
 
 def main_path(dev, mode: str, l_max: int, K: int, layout: str,
-              spin: int, grid: str = "gl") -> list:
+              spin: int, grid: str = "gl", stride: int = 1) -> list:
     """Drive one main path with the launch counters set to 0 just before it
     and read just after; fail if a kernel of the path never launched or
     one outside it did.  Then hold and time each of its kernels at the
-    path's own inputs, and time both directions.  Returns the path's
-    entries of the ``kernels`` JSON line."""
+    path's own inputs (the plain versions on every ``stride``-th ring),
+    and time both directions.  Returns the path's entries of the
+    ``kernels`` JSON line."""
     reset_launches()
     run = run_main_path(dev, mode, l_max, K, layout, spin, grid)
     torch.cuda.synchronize()
@@ -1324,8 +1455,11 @@ def main_path(dev, mode: str, l_max: int, K: int, layout: str,
         # 3) the fixed-order ring reduction and the chunk-order reduce
         rerun_same("analysis", digest(plan.map2alm(maps)),
                    lambda: plan.map2alm(maps))
-    timed = {"fused": time_fused_kernels, "plain": time_kernels,
-             "packed": time_packed_kernels}[layout](mode, l_max, K, run)
+    if layout == "packed":
+        timed = time_packed_kernels(mode, l_max, K, run)
+    else:
+        timed = {"fused": time_fused_kernels, "plain": time_kernels}[layout](
+            mode, l_max, K, run, stride=stride)
     out = []
     for name, r in timed.items():
         bms, by = r["bound"]
@@ -1352,15 +1486,16 @@ def main_path(dev, mode: str, l_max: int, K: int, layout: str,
 
 
 def check_vpu_fold_full_width(dev) -> None:
-    """The vpu templates at full width with the equator fold, which no main
-    path runs: on a fold plan's own seeds, slot layout and fold tables (GL
-    l_max 4096, K 1) kernels 9 and 5 (random coefficients) and 11 and 7
+    """The vpu templates with the equator fold, which no main path runs: on
+    a fold plan's own seeds, slot layout and fold tables (GL l_max
+    FOLD_VPU_L_MAX, K 1) kernels 9 and 5 (random coefficients) and 11 and 7
     (random FFT rows), and on a plain-layout fold plan's rows and seeds
     kernel 3 (random Delta rows) and kernel 1 (random coefficient rows);
-    each held against its plain version at KERNEL_TOL (empty segments,
-    dead positions and padding rows exactly zero) and rerun for identical
-    bits."""
-    plan = repro_torch.make_plan("gl", 4096, K=1, dtype="float32",
+    each held against its plain version at KERNEL_TOL on every
+    RING_STRIDE-th ring (the analyses' inputs zero on the other rings;
+    empty segments, dead positions and padding rows exactly zero) and
+    rerun for identical bits."""
+    plan = repro_torch.make_plan("gl", FOLD_VPU_L_MAX, K=1, dtype="float32",
                                  mode="cuda_vpu", fold=True)
     gen = torch.Generator().manual_seed(41)
     alm = random_alm_for(gen, plan, torch.float32, dev)
@@ -1369,7 +1504,8 @@ def check_vpu_fold_full_width(dev) -> None:
     lo, store = kw["lo"], kw["store"]
     prep = store["prep"]
     R, S = prep[1].shape[0], lo.S
-    what = f"{where(plan)} fold, K 1, "
+    idx = ring_subset(R, RING_STRIDE, dev)
+    what = f"{where(plan)} fold, K 1{subset_note(RING_STRIDE)}, "
     dead = torch.as_tensor(lo.a_row < 0, device=dev)
     empty = torch.as_tensor(lo.slot_seed == S, device=dev)
     # the FFT rows first, so the analysis digests stay comparable across
@@ -1379,13 +1515,18 @@ def check_vpu_fold_full_width(dev) -> None:
     a_pk = a_pk.masked_fill_(torch.as_tensor(lo.a_row < 0)[..., None],
                              0.0).to(dev)
     tab = store[("tables", "synth")]
+    pmaps, seeds = prep[0], prep[1:]
+    seeds_c = tuple(on_rings(idx, t) for t in seeds)
     for kind, args, pad in (("fused", (a_pk, *prep, tab), (empty, 1)),
                             ("packed", (a_pk, *prep), (empty, slice(2, 4)))):
         synth = getattr(fused_cuda, f"synth_{kind}_vpu")
         skw = dict(l_max=plan.l_max, fold=True)
         out = synth(*args, **skw)
-        want = getattr(kref, f"synth_{kind}_ref")(*args, layout="vpu", **skw)
-        held(f"synth_{kind}_vpu", out, want, what
+        args_c = (a_pk, pmaps, *seeds_c) + (
+            (on_rings(idx, tab),) if kind == "fused" else ())
+        want = getattr(kref, f"synth_{kind}_ref")(*args_c, layout="vpu",
+                                                  **skw)
+        held(f"synth_{kind}_vpu", on_rings(idx, out), want, what
              + ("fold tables" if kind == "fused" and tab is not None
                 else "no tables"), pad)
         rerun_same(f"synth_{kind}_vpu", digest(out),
@@ -1393,11 +1534,16 @@ def check_vpu_fold_full_width(dev) -> None:
         del out, want
     tab = store[("tables", "anal")]
     kw = dict(l_max=plan.l_max, s_len=S)
-    for kind, args in (("fused", (f, *prep, tab)),
-                       ("packed", (f.reshape(lo.n_slots, 4, 2, R), *prep))):
+    f = rings_only(idx, f, -1)
+    for kind, f_k, tabs in (
+            ("fused", f, (tab, on_rings(idx, tab))),
+            ("packed", f.reshape(lo.n_slots, 4, 2, R), ())):
         anal = getattr(fused_cuda, f"anal_{kind}_vpu")
+        args = (f_k, *prep, *tabs[:1])
         out = anal(*args, **kw)
-        want = getattr(kref, f"anal_{kind}_ref")(*args, layout="vpu", **kw)
+        want = getattr(kref, f"anal_{kind}_ref")(
+            on_rings(idx, f_k), pmaps, *seeds_c, *tabs[1:], layout="vpu",
+            **kw)
         held(f"anal_{kind}_vpu", out, want, what
              + ("fold tables" if kind == "fused" and tab is not None
                 else "no tables"), dead)
@@ -1405,16 +1551,20 @@ def check_vpu_fold_full_width(dev) -> None:
                    lambda: anal(*args, **kw))
         del out, want
     del plan, prep, a_pk, f
-    plan = repro_torch.make_plan("gl", 4096, K=1, dtype="float32",
+    plan = repro_torch.make_plan("gl", FOLD_VPU_L_MAX, K=1, dtype="float32",
                                  mode="cuda_vpu", fold=True, layout="plain")
     m_t, x, pmm, pms, _ = plan._row_seeds()
+    seeds_c = tuple(on_rings(idx, t) for t in (x, pmm, pms))
     dw = (torch.rand((m_t.shape[0], 2, x.shape[0], 2), generator=gen) * 2
           - 1).to(dev)
+    dw = rings_only(idx, dw, 2)
     args = (dw, m_t, x, pmm, pms)
     akw = dict(l_max=plan.l_max, fold=True)
     out = lc.anal_vpu(*args, **akw)
-    held("anal_vpu", out, kref.anal_ref(*args, **akw),
-         f"{where(plan)} fold, K 1, plain layout", m_t < 0)
+    held("anal_vpu", out, kref.anal_ref(on_rings(idx, dw, 2), m_t, *seeds_c,
+                                        **akw),
+         f"{where(plan)} fold, K 1, plain layout{subset_note(RING_STRIDE)}",
+         m_t < 0)
     rerun_same("anal_vpu", digest(out), lambda: lc.anal_vpu(*args, **akw))
     del out, dw, args
     L = plan.l_max + 1
@@ -1423,8 +1573,10 @@ def check_vpu_fold_full_width(dev) -> None:
          * keep[..., None])
     args = (a, m_t, x, pmm, pms)
     out = lc.synth_vpu(*args, **akw)
-    held("synth_vpu", out, kref.synth_ref(*args, **akw),
-         f"{where(plan)} fold, K 1, plain layout", m_t < 0)
+    held("synth_vpu", on_rings(idx, out, 2),
+         kref.synth_ref(a, m_t, *seeds_c, **akw),
+         f"{where(plan)} fold, K 1, plain layout{subset_note(RING_STRIDE)}",
+         m_t < 0)
     rerun_same("synth_vpu", digest(out), lambda: lc.synth_vpu(*args, **akw))
     del out, a, args
     torch.cuda.empty_cache()
@@ -1484,14 +1636,16 @@ def check_mxu_synth_fold_full_width(dev) -> None:
     torch.cuda.empty_cache()
 
 
-def bf16_path(dev, grid: str, size: int, K: int, spin: int) -> list:
+def bf16_path(dev, grid: str, size: int, K: int, spin: int,
+              stride: int = 1) -> list:
     """The bfloat16 branch of kernels 10 and 12 as the reference reaches it,
     ``Plan._make_fused_synth/_make_fused_anal("mxu", bf16=True)`` on the
     default (fused, mxu) plan: the counters set to 0 just before one
     synthesis and one analysis and read just after (the bf16 kernels and
     anal_reduce once each, nothing else); each direction against float32
     within the reference's band; times beside float32; each bf16 kernel
-    held against its bf16 plain version at the path's own inputs.
+    held against its bf16 plain version at the path's own inputs (on every
+    ``stride``-th ring).
     Returns the path's entries of the ``kernels`` JSON line."""
     plan = make_grid_plan(grid, size, K=K, dtype="float32", spin=spin)
     if plan.backends["synth"] != "cuda_mxu" or plan.layouts["synth"] != \
@@ -1527,7 +1681,7 @@ def bf16_path(dev, grid: str, size: int, K: int, spin: int) -> list:
         raise AssertionError(f"bf16 {grid} spin {spin}: {e_s}, {e_a}")
     del m16, a16
     timed = time_fused_kernels("cuda_mxu", size, K, (plan, alm, m32),
-                               bf16=True)
+                               bf16=True, stride=stride)
     out = []
     for name, r in timed.items():
         if "bf16" not in name:
@@ -1556,6 +1710,89 @@ RAGGED_ANCHORS = (("healpix", 256, (0, 2), ("fused", "plain", "packed")),
                   ("ecp", 512, (0,), ("fused",)))
 #: nside of the HEALPix dot identities (l_max 256, the GL checks' band)
 DOT_NSIDE = 128
+#: (grid, l_max, K) of phase 6, the cost model and the measured autotune:
+#: the sht_cmb synth_2k_k8 shape, and phase 6's budget in seconds
+AUTOTUNE_SHAPE = ("gl", 2048, 8)
+AUTOTUNE_BUDGET_S = 90.0
+
+
+def autotune_path(spin: int) -> None:
+    """Phase 6 at one spin: ``make_plan(mode="model")`` (each corner's
+    predicted time and the choice), then ``mode="auto"`` with its decision
+    on disk in a fresh directory (each corner's measured time beside its
+    prediction; every corner finite; the choice per direction the measured
+    minimum, backend and layout), then ``clear_plan_cache()`` and a second
+    build, which must read the decision back and measure no corner, then
+    the chosen plan's round trip."""
+    from repro_torch.core import transform
+    from repro_torch.roofline import chardb
+    grid, l_max, K = AUTOTUNE_SHAPE
+    kw = dict(K=K, dtype="float32", spin=spin)
+    model = repro_torch.make_plan(grid, l_max, mode="model", **kw)
+    directory = tempfile.mkdtemp(prefix="chip_smoke_cache_")
+    try:
+        before = chardb.stats()["measured"]
+        t0 = time.perf_counter()
+        plan = repro_torch.make_plan(grid, l_max, mode="auto", cache="disk",
+                                     cache_dir=directory, **kw)
+        t_auto = time.perf_counter() - t0
+        n = chardb.stats()["measured"] - before
+        pred, meas = model.predicted_s, plan.measured_s
+        log(f"  spin {spin} {where(plan)} K {K}: {n} corners measured in "
+            f"{t_auto:.1f} s (decision {plan.cache_events['decision']})")
+        for b in plan.candidates:
+            lays = plan._kernel_layouts() if b in transform.KERNEL_BACKENDS \
+                else (None,)
+            for d in ("synth", "anal"):
+                for lay in lays:
+                    key = d if lay is None else f"{d}_{lay}"
+                    p_s, m_s = pred[b][key], meas[b][key]
+                    log(f"    {b:8s} {(lay or '-'):6s} {d:5s}: predicted "
+                        f"{p_s * 1e3:9.3f} ms, measured {m_s * 1e3:9.3f} ms "
+                        f"(measured / predicted {m_s / p_s:.3f})")
+                    if not np.isfinite(m_s):
+                        raise AssertionError(f"autotune spin {spin}: corner "
+                                             f"{b} {lay} {d} not finite")
+        for d in ("synth", "anal"):
+            corners = {(b, lay): meas[b][d if lay is None else f"{d}_{lay}"]
+                       for b in plan.candidates
+                       for lay in (plan._kernel_layouts()
+                                   if b in transform.KERNEL_BACKENDS
+                                   else (None,))}
+            best = min(corners, key=corners.get)
+            chosen = (plan.backends[d], plan.layouts[d])
+            log(f"  spin {spin} {d}: model chose {model.backends[d]} "
+                f"[{model.layouts[d]}], autotune chose {chosen[0]} "
+                f"[{chosen[1]}], measured minimum {best[0]} [{best[1]}]")
+            if chosen != best:
+                raise AssertionError(f"autotune spin {spin} {d}: chose "
+                                     f"{chosen}, measured minimum {best}")
+        transform.clear_plan_cache()
+        before = chardb.stats()["measured"]
+        again = repro_torch.make_plan(grid, l_max, mode="auto",
+                                      cache="disk", cache_dir=directory, **kw)
+        n2 = chardb.stats()["measured"] - before
+        log(f"  spin {spin} second build: decision "
+            f"{again.cache_events.get('decision')}, {n2} corners measured")
+        if again.cache_events.get("decision") != "hit" or n2 != 0:
+            raise AssertionError(f"autotune spin {spin}: second build "
+                                 f"{again.cache_events}, measured {n2}")
+        if (again.backends, again.layouts) != (plan.backends, plan.layouts):
+            raise AssertionError(f"autotune spin {spin}: cached decision "
+                                 "differs from the measured one")
+        gen = torch.Generator().manual_seed(29 + spin)
+        alm = random_alm_for(gen, again, torch.float32, again.device).to(
+            torch.complex64)
+        err = spectra.d_err(alm, again.map2alm(again.alm2map(alm)))
+        log(f"  spin {spin} chosen plan {again.backends} {again.layouts}: "
+            f"round-trip d_err {err:.3e} (limit {ROUNDTRIP_TOL:g})")
+        if not err < ROUNDTRIP_TOL:
+            raise AssertionError(f"autotune spin {spin}: round trip {err}")
+        log("  " + again.report().replace("\n", "\n  "))
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+        transform.clear_plan_cache()
+        torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -1573,8 +1810,10 @@ def main() -> int:
     log(f"card: {card}")
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
 
+    count_plain_seconds()
     t0 = time.perf_counter()
-    built = build.build()
+    with stamped("phase 1"):
+        built = build.build()
     log(f"phase 1: kernels built in {time.perf_counter() - t0:.1f} s "
         f"({', '.join(sorted(built))}, one nvcc each, run together)")
     for name, (_, build_log) in sorted(built.items()):
@@ -1584,60 +1823,85 @@ def main() -> int:
 
     log(f"{elapsed()} phase 2: kernels against their plain versions, limit "
         f"{KERNEL_TOL:g}")
-    for spin in SPINS:
-        log(f"  -- spin {spin}" + (": the kernels' spin branch on the 2M "
-                                   "Wigner-d rows" if spin else ""))
-        check_kernels(dev, bool(spin))
-        check_fused_kernels(dev, bool(spin))
-        check_packed_kernels(dev, bool(spin))
-        check_bf16_kernels(dev, bool(spin))
-        check_bucket_chains(dev, spin)
+    with stamped("phase 2"):
+        for spin in SPINS:
+            log(f"  -- spin {spin}" + (": the kernels' spin branch on the "
+                                       "2M Wigner-d rows" if spin else ""))
+            with stamped(f"phase 2 spin {spin}"):
+                check_kernels(dev, bool(spin))
+                check_fused_kernels(dev, bool(spin))
+                check_packed_kernels(dev, bool(spin))
+                check_bf16_kernels(dev, bool(spin))
+                check_bucket_chains(dev, spin)
 
     log(f"{elapsed()} phase 3: main paths at full width; each kernel "
         "against its plain version at the shapes the path gave it")
     kernels = []
-    for spin in SPINS:
-        for mode, l_max, K, layout in MAIN_PATH:
-            kernels += main_path(dev, mode, l_max, K, layout, spin)
-    log(f"{elapsed()}   -- the vpu templates (kernels 9, 5, 11, 7, 3, 1) "
-        "at full width with the fold")
-    check_vpu_fold_full_width(dev)
-    log(f"{elapsed()}   -- the mxu synthesis template (kernels 10, 6, 2) "
-        "at full width with the fold")
-    check_mxu_synth_fold_full_width(dev)
-    log(f"{elapsed()}   -- the ragged-grid paths: HEALPix, ring-uniform "
-        "HEALPix, ECP")
-    for grid, size, mode, K, layout, spins in RAGGED_PATHS:
-        for spin in spins:
-            kernels += main_path(dev, mode, size, K, layout, spin, grid)
-    log(f"{elapsed()}   -- the bfloat16 branch of kernels 10 and 12")
-    for grid, size, K, spin in BF16_PATHS:
-        kernels += bf16_path(dev, grid, size, K, spin)
+    with stamped("phase 3"):
+        for spin in SPINS:
+            for mode, l_max, K, layout in MAIN_PATH:
+                stride = RING_STRIDE if (mode, l_max, layout, spin) in \
+                    RING_SUBSET_PATHS else 1
+                with stamped(f"gl {l_max} {mode} {layout} spin {spin}"):
+                    kernels += main_path(dev, mode, l_max, K, layout, spin,
+                                         stride=stride)
+        log(f"{elapsed()}   -- the vpu templates (kernels 9, 5, 11, 7, 3, "
+            f"1) with the fold at l_max {FOLD_VPU_L_MAX}")
+        with stamped("vpu templates with the fold"):
+            check_vpu_fold_full_width(dev)
+        log(f"{elapsed()}   -- the mxu synthesis template (kernels 10, 6, 2) "
+            "at full width with the fold")
+        with stamped("mxu synthesis template with the fold"):
+            check_mxu_synth_fold_full_width(dev)
+        log(f"{elapsed()}   -- the ragged-grid paths: HEALPix, ring-uniform "
+            "HEALPix, ECP")
+        for grid, size, mode, K, layout, spins in RAGGED_PATHS:
+            for spin in spins:
+                with stamped(f"{grid} {size} {mode} {layout} spin {spin}"):
+                    kernels += main_path(dev, mode, size, K, layout, spin,
+                                         grid)
+        log(f"{elapsed()}   -- the bfloat16 branch of kernels 10 and 12")
+        for grid, size, K, spin, stride in BF16_PATHS:
+            with stamped(f"{grid} {size} bf16 spin {spin}"):
+                kernels += bf16_path(dev, grid, size, K, spin, stride)
 
     log(f"{elapsed()} phase 4: float64 anchor")
-    for spin in SPINS:
-        f64_anchor(dev, spin)
-    for grid, size, spins, layouts in RAGGED_ANCHORS:
-        for spin in spins:
-            f64_anchor(dev, spin, grid, size, layouts)
+    with stamped("phase 4"):
+        for spin in SPINS:
+            f64_anchor(dev, spin)
+        for grid, size, spins, layouts in RAGGED_ANCHORS:
+            for spin in spins:
+                f64_anchor(dev, spin, grid, size, layouts)
 
     log(f"{elapsed()} phase 5: gradients on the card")
-    for spin in SPINS:
-        check_gradients(dev, spin)
-    for spin in SPINS:
-        for mode, K in (("cuda_vpu", 1), ("cuda_mxu", 8)):
-            for layout in ("fused", "plain"):
-                plan = repro_torch.make_plan("healpix", nside=DOT_NSIDE, K=K,
-                                             dtype="float32", mode=mode,
-                                             layout=layout, spin=spin)
-                err = dot_identity_err(plan, 17 + spin)
-                log(f"  {mode} [{layout}] spin {spin} {where(plan)} K {K}: "
-                    f"<A x, y> vs <x, A^T y> through autograd, rel. gap "
-                    f"{err:.3e} (limit {DOT_TOL:g})")
-                if not err < DOT_TOL:
-                    raise AssertionError(f"healpix {mode} [{layout}] spin "
-                                         f"{spin}: dot identity {err}")
+    with stamped("phase 5"):
+        for spin in SPINS:
+            check_gradients(dev, spin)
+        for spin in SPINS:
+            for mode, K in (("cuda_vpu", 1), ("cuda_mxu", 8)):
+                for layout in ("fused", "plain"):
+                    plan = repro_torch.make_plan(
+                        "healpix", nside=DOT_NSIDE, K=K, dtype="float32",
+                        mode=mode, layout=layout, spin=spin)
+                    err = dot_identity_err(plan, 17 + spin)
+                    log(f"  {mode} [{layout}] spin {spin} {where(plan)} K "
+                        f"{K}: <A x, y> vs <x, A^T y> through autograd, rel. "
+                        f"gap {err:.3e} (limit {DOT_TOL:g})")
+                    if not err < DOT_TOL:
+                        raise AssertionError(f"healpix {mode} [{layout}] "
+                                             f"spin {spin}: dot identity "
+                                             f"{err}")
 
+    log(f"{elapsed()} phase 6: cost model and measured autotune at "
+        f"{AUTOTUNE_SHAPE[0]} l_max {AUTOTUNE_SHAPE[1]} K "
+        f"{AUTOTUNE_SHAPE[2]} (budget {AUTOTUNE_BUDGET_S:g} s)")
+    with stamped("phase 6"):
+        for spin in SPINS:
+            autotune_path(spin)
+
+    log("timeline: wall s | plain-version s")
+    for label, wall, plain in TIMELINE:
+        log(f"  {label:40s} {wall:8.1f} | {plain:8.1f}")
     log(f"chip_smoke wall time {time.perf_counter() - t_start:.1f} s "
         "(kernel build included)")
     print(json.dumps({"kernels": kernels}), flush=True)

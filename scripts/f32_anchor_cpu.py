@@ -24,9 +24,10 @@ a few rows on every ring of GL l_max 2048 against the same recurrence in
 float64, through the port's step and the reference's, each from its own
 seeds and from the other's, and through variants of the port's step
 (rsqrt, coefficients rounded from float64, the update contracted into
-fused multiply-adds as XLA's CPU build contracts the reference's); then
-the spin-2 round trip of ``roundtrip`` with the contracted update.  About
-27 minutes, 25 of them in that round trip.
+fused multiply-adds as XLA's CPU build contracts the reference's, which
+the port's spin step now does itself); then the spin-2 round trip of
+``roundtrip`` with the contracted update.  About 27 minutes, 25 of them in
+that round trip.
 
 No argument runs ``anchor`` and ``roundtrip``.
 """
@@ -113,9 +114,9 @@ def roundtrip() -> None:
 
 
 def _fma(a, b, c):
-    """a b + c of float32 tensors rounded once (the product is exact in
-    float64), as a fused multiply-add."""
-    return (a.double() * b.double() + c.double()).float()
+    """a b + c of float32 tensors rounded once, as a fused multiply-add
+    (``kernels.ref.fma_f32``)."""
+    return kref.fma_f32(a, b, c)
 
 
 def _variant_step(spin, *, inv_sqrt=None, coef_dtype=torch.float32,
@@ -126,7 +127,8 @@ def _variant_step(spin, *, inv_sqrt=None, coef_dtype=torch.float32,
     ``contract`` the update contracted into fused multiply-adds as XLA's
     CPU build contracts the reference's: fma(fma(a, x, b), pc, -(c pp))
     (spin 0: fma(beta x, pc, -(ratio pp)))."""
-    def step(lf, m_f, mp_f, x, pp, pc, sc, pmm, pms):
+    def step(lf, m_f, mp_f, x, pp, pc, sc, pmm, pms, coefs=None):
+        # the row coefficients are computed here, whatever ``coefs`` holds
         if not torch.is_tensor(lf):
             lf = torch.tensor(float(lf), dtype=torch.float32)
         if not spin:

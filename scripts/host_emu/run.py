@@ -14,7 +14,13 @@ the card's scheduling: races that a barrier hides on the host stay
 hidden).  ``--against`` builds REV's sources (``git show``) beside the
 working tree's and fails unless every output is equal bit for bit.
 Prints, for each case, the gap to ``kernels.ref.synth_ref`` as a share of
-max|plain| and whether the padding row is exactly zero.  Builds into
+max|plain| and whether the padding row is exactly zero.  The ``ONE_HOT``
+cases give each channel a single coefficient 1 (channel c of every row at
+one l of its own, spread from the row's first l to l_max): every sum is
+then one recurrence value, exact in both the kernel's ``fmaf`` sums and
+the plain version's products and adds, so kernel and plain version must
+agree bit for bit (the spin branch at l_max 258: the contracted update,
+``fmaf`` on the host as on the card, against ``kref.fma_f32``).  Builds into
 ``scripts/host_emu/_build/`` (git-ignored); about three minutes with
 ``--against``.
 """
@@ -50,6 +56,8 @@ CASES = ((40, 1, False, False, None, 0), (40, 3, True, False, None, 0),
          (300, 8, False, False, None, 1), (300, 1, True, False, None, 2),
          (258, 3, False, True, None, 3), (300, 3, False, True, None, 4),
          (40, 8, False, False, 513, 0), (40, 1, True, False, 1025, 0))
+#: the same fields, coefficients one-hot (see the module docstring)
+ONE_HOT = ((258, 12, False, True, None, 5), (258, 12, False, False, None, 6))
 
 
 def emulation_source(text: str) -> str:
@@ -86,10 +94,12 @@ def build(tag: str, rev: str | None) -> str:
     return exe
 
 
-def operands(l_max, K, fold, spin, rings, seed):
+def operands(l_max, K, fold, spin, rings, seed, one_hot=False):
     """Rows 0..l_max (spin: the 2M spin rows) with row 5 made a padding row
     (m = -1), a GL grid of ``rings`` rings (its northern half with the
-    fold), seeds, and uniform coefficients zero below max(m, |m'|)."""
+    fold), seeds, and uniform coefficients zero below max(m, |m'|); with
+    ``one_hot`` channel c of each row is 1 at one l >= max(m, |m'|) and 0
+    elsewhere."""
     g = grids.make_grid("gl", l_max=(rings or l_max + 1) - 1)
     if spin:
         m, mp = ops.spin_rows(np.arange(l_max + 1))
@@ -107,6 +117,11 @@ def operands(l_max, K, fold, spin, rings, seed):
     L = l_max + 1
     keep = (np.arange(L)[None, :] >= l0[:, None]) & (m >= 0)[:, None]
     a = np.random.default_rng(seed).uniform(-1, 1, (len(m), L, 2 * K))
+    if one_hot:
+        frac = np.arange(2 * K) / max(2 * K - 1, 1)
+        pick = np.minimum(l0, l_max)[:, None] + np.round(
+            frac[None, :] * (l_max - np.minimum(l0, l_max))[:, None])
+        a = (np.arange(L)[None, :, None] == pick[:, None, :]).astype(float)
     return ((a * keep[..., None]).astype(np.float32), m.astype(np.int32),
             None if mp is None else mp.astype(np.int32),
             np.asarray(x, np.float32), np.asarray(pmm, np.float32),
@@ -136,9 +151,11 @@ def main() -> int:
     if args.against:
         exes["rev"] = build("rev", args.against)
     ok = True
-    for l_max, K, fold, spin, rings, seed in CASES:
+    cases = [c + (False,) for c in CASES] + [c + (True,) for c in ONE_HOT]
+    for l_max, K, fold, spin, rings, seed, one_hot in cases:
         t0 = time.time()
-        a, m, mp, x, pmm, pms = operands(l_max, K, fold, spin, rings, seed)
+        a, m, mp, x, pmm, pms = operands(l_max, K, fold, spin, rings, seed,
+                                         one_hot)
         outs = {k: emulate(e, a, m, mp, x, pmm, pms, fold)
                 for k, e in exes.items()}
         got = outs["tree"]
@@ -152,6 +169,10 @@ def main() -> int:
             f", bit-equal to {args.against}: {np.array_equal(got, outs['rev'])}"
         ok &= pad and np.isfinite(got).all() and (
             "rev" not in outs or np.array_equal(got, outs["rev"]))
+        if one_hot:
+            bits = np.array_equal(got.view(np.int32), want.view(np.int32))
+            same += f", one-hot, bit-equal to the plain version: {bits}"
+            ok &= bits
         print(f"l_max {l_max} K {K} fold {fold} spin {spin} R {x.shape[0]}: "
               f"max|d|/max|plain| {gap:.3e}, padding row zero {pad}{same} "
               f"({time.time() - t0:.1f} s)", flush=True)

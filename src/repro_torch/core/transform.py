@@ -30,6 +30,17 @@ staged kernels (``kernels.legendre_cuda``) and the phase stage apart;
 ``kernels.fused_cuda``'s ``*_packed_*``) and the phase stage apart.
 Plans run on the CUDA device unless ``device="cpu"`` is passed.
 
+Dispatch (``mode``): a backend name forces it; ``None`` takes the static
+rule (``torch`` in float64, else ``2K >= 16 -> cuda_mxu``); ``"model"``
+ranks every candidate backend and layout per direction by the analytic
+cost model (``roofline.analysis``: the H100 model on a CUDA plan, the
+host model on a CPU plan); ``"auto"`` times every candidate corner once
+(a warm-up, then the median of up to 9 timed calls, kept per hardware in
+``roofline.chardb``) and takes the fastest per direction, so synthesis
+and analysis may run on different backends or layouts.  Its decision is cached (``cache=``: in
+memory, or on disk under ``cache_dir`` / ``$REPRO_TORCH_CACHE_DIR``), so a
+second build measures nothing.
+
 Grids: ``gl`` and ``ecp`` take ``l_max``; ``healpix`` (ragged rings,
 served by the ring-bucket phase stage) and ``healpix_ring`` (HEALPix
 latitudes with a uniform 4 nside samples per ring) take ``nside`` and
@@ -53,6 +64,9 @@ ROADMAP.md item it waits on; nothing is substituted silently.
 
 from __future__ import annotations
 
+import math
+import os
+import time
 from typing import Optional, Union
 
 import numpy as np
@@ -62,21 +76,24 @@ from repro_torch.core import cache as plancache
 from repro_torch.core import grids as gridlib
 from repro_torch.core import legendre
 from repro_torch.core.grids import RingGrid
-from repro_torch.core.sht import SHT, alm_mask
+from repro_torch.core.sht import SHT, alm_mask, random_alm, random_alm_spin
 
 __all__ = ["Plan", "make_plan", "available_backends", "backend_eligibility",
            "clear_plan_cache", "BACKENDS"]
 
 BACKENDS = ("torch", "cuda_vpu", "cuda_mxu")
+KERNEL_BACKENDS = ("cuda_vpu", "cuda_mxu")
 
 _DTYPES = {"float64": torch.float64, "float32": torch.float32}
 _CDTYPES = {"float64": torch.complex128, "float32": torch.complex64}
 
 #: what the reference offers and the port does not yet, with the ROADMAP.md
 #: Open items section 1 item each waits on
-_WAITING = {
-    "mode auto": 9, "mode model": 9, "mode dist": 11,
-}
+_WAITING = {"mode dist": 11}
+
+#: the seconds the timed calls of one autotune corner cover (at most 9
+#: calls; a slower corner is timed once)
+_MEASURE_S = 0.05
 
 #: make_plan memoisation: signature key -> Plan
 _PLANS: dict[str, "Plan"] = {}
@@ -88,7 +105,9 @@ def _not_ported(what: str) -> ValueError:
 
 
 def clear_plan_cache() -> None:
-    """Drop memoised plans and the in-memory precompute tier."""
+    """Drop memoised plans and the in-memory tier of the precompute cache
+    and of the autotune decisions (disk entries and the characterization
+    store stay)."""
     _PLANS.clear()
     plancache.clear_memory()
 
@@ -135,7 +154,9 @@ class Plan:
 
     def __init__(self, grid: RingGrid, l_max: int, m_max: int, K: int,
                  dtype: str, *, mode: str, fold: bool, device: torch.device,
-                 signature_key: str, seeds_key: str, spin: int = 0):
+                 signature_key: str, seeds_key: str, spin: int = 0,
+                 cache_kind: str = "memory",
+                 cache_dir: Optional[str] = None):
         self.grid = grid
         self.l_max = int(l_max)
         self.m_max = int(m_max)
@@ -147,6 +168,8 @@ class Plan:
         self.device = device
         self._signature_key = signature_key
         self._seeds_key = seeds_key
+        self._cache_kind = cache_kind
+        self._cache_dir = cache_dir
         self._sht = SHT(grid, l_max=self.l_max, m_max=self.m_max,
                         dtype=self.dtype, fold=self.fold)
         self._m_vals = np.arange(self.m_max + 1)
@@ -161,6 +184,10 @@ class Plan:
         self.candidates: list[str] = []
         self.skipped: dict = {}
         self.cache_events: dict = {}
+        #: cost-model seconds and measured seconds per candidate per
+        #: direction (``mode="model"`` / ``"auto"``; see _predict_all)
+        self.predicted_s: dict = {}
+        self.measured_s: dict = {}
 
     @property
     def phase(self):
@@ -205,7 +232,9 @@ class Plan:
                                           legendre.log_mu(self.m_max))
             return {"pmm": pmm, "pms": pms}
 
-        payload = plancache.get_or_build(self._seeds_key, build)
+        payload = plancache.get_or_build(self._seeds_key, build,
+                                         cache=self._cache_kind,
+                                         directory=self._cache_dir)
         self.cache_events.setdefault("seeds", self._seeds_key)
         dev = self.device
         self._seeds_cache = (
@@ -231,7 +260,9 @@ class Plan:
                                                g.sin_theta, m_max=self.m_max)
             return {"pmm": pmm, "pms": pms}
 
-        payload = plancache.get_or_build(self._seeds_key, build)
+        payload = plancache.get_or_build(self._seeds_key, build,
+                                         cache=self._cache_kind,
+                                         directory=self._cache_dir)
         self.cache_events.setdefault("seeds_spin", self._seeds_key)
         dev = self.device
         i32 = dict(dtype=torch.int32, device=dev)
@@ -496,6 +527,212 @@ class Plan:
 
         return fn
 
+    # -- dispatch -------------------------------------------------------------
+
+    def _kernel_layouts(self) -> tuple:
+        """Candidate Legendre layouts of the kernel backends, in the
+        reference's order (``_pallas_layouts``)."""
+        lays = ("packed", "plain")
+        if self._fusion_eligibility()[0]:
+            lays = lays + ("fused",)
+        return lays
+
+    def _predict_all(self) -> dict:
+        """Cost-model seconds per candidate per direction: ``out[b][d]``,
+        for a kernel backend the best of its layouts, named by
+        ``out[b][f"{d}_layout"]``, each layout's under ``f"{d}_{layout}"``
+        (a fused layout is modelled as the packed grid with Delta kept on
+        chip)."""
+        from repro_torch.roofline import analysis as roofline
+        g = self.grid
+        hw = roofline.hardware_for(self.device)
+        out = {}
+        for b in self.candidates:
+            out[b] = {}
+            for d in ("synth", "anal"):
+                kw = dict(l_max=self.l_max, m_max=self.m_max,
+                          n_rings=g.n_rings, n_phi=g.max_n_phi, K=self.K,
+                          direction=d, hw=hw,
+                          fft_lengths=self._sht.phase.fft_lengths,
+                          spin=self.spin)
+                if b in KERNEL_BACKENDS:
+                    per = {lay: roofline.predict_sht_time(
+                               b, layout="packed" if lay == "fused" else lay,
+                               pipeline="fused" if lay == "fused"
+                               else "staged", **kw)
+                           for lay in self._kernel_layouts()}
+                    lay = min(per, key=per.get)
+                    out[b][d] = per[lay]
+                    out[b][f"{d}_layout"] = lay
+                    out[b].update({f"{d}_{k}": v for k, v in per.items()})
+                else:
+                    out[b][d] = roofline.predict_sht_time(b, **kw)
+        return out
+
+    def _chardb(self):
+        """The characterization store of this plan's hardware (on disk iff
+        the plan's cache is)."""
+        from repro_torch.roofline import chardb
+        directory = None
+        if self._cache_kind == "disk":
+            directory = plancache.cache_dir(self._cache_dir)
+        return chardb.get_db(directory, self.device)
+
+    def _corner_fields(self, backend: str, direction: str, layout) -> dict:
+        """Workload coordinates of one autotune corner, without the dispatch
+        mode or the plan's signature key, so every plan running the same
+        workload on the same hardware reuses the timing.  ``lp_size`` stays
+        a coordinate (the panel length, one value in the port)."""
+        from repro_torch.kernels.fused import FUSED_LP_SIZE
+        return dict(
+            grid=self.grid.name, n_rings=self.grid.n_rings,
+            n_phi=self.grid.max_n_phi, l_max=self.l_max, m_max=self.m_max,
+            K=self.K, dtype=self.dtype, spin=self.spin, fold=self.fold,
+            backend=backend, direction=direction, layout=layout or "-",
+            n_devices=1, lp_size=FUSED_LP_SIZE)
+
+    def _timed_us(self, fn, arg) -> float:
+        """Microseconds of ``fn(arg)``: one warm-up call, then the median of
+        the timed calls, one for a call of at least ``_MEASURE_S`` and
+        otherwise enough to cover it, 3 to 9.  CUDA events on the card (the
+        stream's span, host gaps included), the host clock on the CPU."""
+        cuda = self.device.type == "cuda"
+
+        def once() -> float:
+            if not cuda:
+                t0 = time.perf_counter()
+                fn(arg)
+                return (time.perf_counter() - t0) * 1e6
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn(arg)
+            end.record()
+            end.synchronize()
+            return start.elapsed_time(end) * 1e3
+
+        fn(arg)
+        if cuda:
+            torch.cuda.synchronize(self.device)
+        times = [once()]
+        if times[0] < _MEASURE_S * 1e6:
+            reps = math.ceil(_MEASURE_S * 1e6 / max(times[0], 1.0))
+            times += [once() for _ in range(min(9, max(3, reps)) - 1)]
+        return float(np.median(times))
+
+    def _measure_all(self) -> dict:
+        """Measured seconds per candidate per direction, through the
+        characterization store: a stored corner is reused without running
+        anything, a missing or stale one gets a warm-up call and the median
+        of a few timed ones (:meth:`_timed_us`), and with
+        ``REPRO_TORCH_CHARDB_SMOKE=1`` it is skipped (inf).  The store is
+        written once, after the sweep.  Keys as :meth:`_predict_all`'s, plus ``f"{d}_{layout}"`` per kernel
+        layout.  A corner that raises (a build, launch or CUDA error)
+        propagates: nothing is ranked last in its place."""
+        db = self._chardb()
+        gen = torch.Generator().manual_seed(0)
+        cdt = _CDTYPES[self.dtype]
+        draw = random_alm if self.spin == 0 else random_alm_spin
+        alm = draw(gen, self.l_max, self.m_max, self.K,
+                   device=self.device).to(cdt)
+        maps = torch.zeros(self._maps_shape, dtype=_DTYPES[self.dtype],
+                           device=self.device)
+        out: dict = {}
+        with db.batch():
+            for b in self.candidates:
+                out[b] = {}
+                layouts = self._kernel_layouts() if b in KERNEL_BACKENDS \
+                    else (None,)
+                for d, arg in (("synth", alm), ("anal", maps)):
+                    best, best_lay = float("inf"), None
+                    for lay in layouts:
+                        us, status = db.get_or_measure(
+                            lambda: self._timed_us(self._fn(d, b, lay), arg),
+                            **self._corner_fields(b, d, lay))
+                        t = float("inf") if us is None else us * 1e-6
+                        if status == "skipped":
+                            out[b][f"{d}_skipped"] = True
+                        if lay is not None:
+                            out[b][f"{d}_{lay}"] = t
+                        if t < best:
+                            best, best_lay = t, lay
+                    out[b][d] = best
+                    if best_lay is not None:
+                        out[b][f"{d}_layout"] = best_lay
+        return out
+
+    def _fill_layouts(self, source: dict) -> None:
+        """``self.layouts`` per direction from a per-candidate table
+        (``{backend: {"<dir>_layout": ...}}``), the model's choice filling a
+        gap; the ``torch`` backend takes none."""
+        self.layouts = {}
+        for d in ("synth", "anal"):
+            b = self.backends.get(d)
+            if b not in KERNEL_BACKENDS:
+                self.layouts[d] = None
+                continue
+            lay = source.get(b, {}).get(f"{d}_layout") \
+                or self.predicted_s.get(b, {}).get(f"{d}_layout")
+            self.layouts[d] = lay or "packed"
+
+    def _choose_backends(self, layout: Optional[str] = None) -> None:
+        """``self.backends`` and ``self.layouts`` by ``self.mode``: a forced
+        backend with ``layout`` (the static default), the cost model's
+        minimum (``"model"``), or the measured minimum (``"auto"``), per
+        direction.  A forced plan predicts nothing here (:meth:`describe`
+        does, on demand), so it builds no phase stage before its first
+        transform."""
+        if self.mode in BACKENDS:
+            self.backends = {"synth": self.mode, "anal": self.mode}
+            self.layouts = {d: layout for d in ("synth", "anal")}
+            return
+        self.predicted_s = self._predict_all()
+        if self.mode == "model":
+            self.backends = {
+                d: min(self.candidates, key=lambda b: self.predicted_s[b][d])
+                for d in ("synth", "anal")}
+            self._fill_layouts(self.predicted_s)
+            return
+        # the decision holds for this hardware and timing method only, as
+        # the corners it was taken from do
+        from repro_torch.roofline import chardb
+        dkey = plancache.signature_key(
+            "decision", sig=self._signature_key, schema=chardb.SCHEMA,
+            hardware=chardb.hardware_fingerprint(self.device)[0])
+        cached = plancache.load_decision(dkey, cache=self._cache_kind,
+                                         directory=self._cache_dir)
+        if cached is not None and all(
+                cached.get(d) in self.candidates for d in ("synth", "anal")):
+            self.backends = {d: cached[d] for d in ("synth", "anal")}
+            self.measured_s = cached.get("measured", {})
+            self._fill_layouts(self.measured_s)
+            self.layouts.update(cached.get("layouts") or {})
+            self.cache_events["decision"] = "hit"
+            return
+        self.measured_s = self._measure_all()
+        self.backends, fell_back = {}, False
+        for d in ("synth", "anal"):
+            finite = [b for b in self.candidates
+                      if np.isfinite(self.measured_s[b][d])]
+            if finite:
+                self.backends[d] = min(
+                    finite, key=lambda b: self.measured_s[b][d])
+            else:
+                # every corner skipped (smoke mode): the cost model ranks
+                self.backends[d] = min(
+                    self.candidates, key=lambda b: self.predicted_s[b][d])
+                fell_back = True
+        self._fill_layouts(self.measured_s)
+        if fell_back:
+            # a decision not measured must not shadow a later real one
+            self.cache_events["decision"] = "model-fallback"
+            return
+        self.cache_events["decision"] = "autotuned"
+        plancache.save_decision(
+            dkey, {**self.backends, "measured": self.measured_s,
+                   "layouts": dict(self.layouts)},
+            cache=self._cache_kind, directory=self._cache_dir)
+
     # -- public API -----------------------------------------------------------
 
     def _as_input(self, v, shape, what: str) -> torch.Tensor:
@@ -577,9 +814,12 @@ class Plan:
 
     def describe(self) -> dict:
         """Structured report: signature, chosen kernels, layouts, fusion,
-        memory footprint and cache counters."""
+        predicted and measured seconds per candidate, memory footprint and
+        cache counters (the precompute cache's, the autotune ``decision``
+        event, and the characterization store's)."""
         from repro_torch.kernels import pack as kpack
         from repro_torch.kernels.fused import FUSED_LP_SIZE
+        from repro_torch.roofline import chardb
         fusion_ok, fusion_reason = self._fusion_eligibility()
         layouts = dict(self.layouts)
         fused = any(v == "fused" for v in layouts.values())
@@ -616,9 +856,12 @@ class Plan:
                              self._rows[0], self.l_max,
                              mp_vals=self._rows[1])},
             "phase": self._sht.phase.describe(),
+            "predicted_s": self.predicted_s or self._predict_all(),
+            "measured_s": self.measured_s,
             "memory": self.memory_footprint(),
             "cache": {"events": dict(self.cache_events),
-                      **plancache.stats().to_dict()},
+                      **plancache.stats().to_dict(),
+                      "chardb": chardb.stats()},
         }
 
     def report(self) -> str:
@@ -641,13 +884,21 @@ class Plan:
         for direction in ("synth", "anal"):
             chosen = d["backends"].get(direction, "?")
             lay = d["layouts"].get(direction)
-            lines.append(f"  {direction:5s} -> {chosen}"
-                         + (f"[{lay}]" if lay else ""))
+            pred = d["predicted_s"].get(chosen, {}).get(direction)
+            meas = d["measured_s"].get(chosen, {}).get(direction)
+            bits = [f"  {direction:5s} -> {chosen}"
+                    + (f"[{lay}]" if lay else "")]
+            if pred is not None:
+                bits.append(f"predicted {pred * 1e6:.1f} us")
+            if meas is not None and np.isfinite(meas):
+                bits.append(f"measured {meas * 1e6:.1f} us")
+            lines.append("  ".join(bits))
         for b, reason in d["skipped"].items():
             lines.append(f"  skipped {b}: {reason}")
         ev = d["cache"]["events"]
         lines.append(f"  cache: {ev if ev else 'cold'} "
                      f"(mem_hits={d['cache']['memory_hits']} "
+                     f"disk_hits={d['cache']['disk_hits']} "
                      f"builds={d['cache']['builds']})")
         return "\n".join(lines)
 
@@ -679,7 +930,7 @@ def _fusion_eligibility(grid: RingGrid, spin: int, m_max: int,
     return True, None
 
 
-def _resolve_grid(grid, l_max, nside):
+def _resolve_grid(grid, l_max, nside, cache_kind="memory", cache_dir=None):
     """Grid spec -> (RingGrid, signature fields); string specs go through
     the geometry cache, keyed on the fields their geometry depends on
     (``gl``/``ecp`` on l_max, the HEALPix family on nside)."""
@@ -700,7 +951,7 @@ def _resolve_grid(grid, l_max, nside):
                 "nside": np.array(-1 if g.nside is None else g.nside)}
 
     p = plancache.get_or_build(plancache.signature_key("geometry", **spec),
-                               build)
+                               build, cache=cache_kind, directory=cache_dir)
     g = RingGrid(name=kind, cos_theta=p["cos_theta"],
                  sin_theta=p["sin_theta"], weights=p["weights"],
                  n_phi=p["n_phi"], phi0=p["phi0"], uniform=bool(p["uniform"]),
@@ -713,7 +964,8 @@ def make_plan(grid: Union[str, RingGrid] = "gl", l_max: Optional[int] = None,
               K: int = 1,
               dtype: str = "float64", mode: Optional[str] = None,
               fold: bool = False, spin: int = 0,
-              layout: Optional[str] = None, device=None) -> Plan:
+              layout: Optional[str] = None, cache: str = "auto",
+              cache_dir: Optional[str] = None, device=None) -> Plan:
     """Build (or fetch) the transform plan for a problem signature.
 
     grid : ``"gl"``, ``"ecp"``, ``"healpix"``, ``"healpix_ring"`` or a
@@ -724,45 +976,66 @@ def make_plan(grid: Union[str, RingGrid] = "gl", l_max: Optional[int] = None,
     nside : HEALPix resolution (required for the HEALPix family).
     K : number of maps transformed together.
     dtype : ``"float64"`` or ``"float32"``.
-    mode : a backend name (``"torch"``, ``"cuda_vpu"``, ``"cuda_mxu"``), or
+    mode : a backend name (``"torch"``, ``"cuda_vpu"``, ``"cuda_mxu"``);
         ``None``: ``torch`` for float64, else the kernel variant of the
-        static ``2K >= 16 -> mxu`` rule.  ``"auto"``/``"model"``/``"dist"``
-        raise (not ported yet).
+        static ``2K >= 16 -> mxu`` rule (the reference's default is
+        ``"auto"``; the port keeps the static rule so that no first plan
+        times every corner); ``"model"``: the cost model's fastest backend
+        and layout per direction; ``"auto"``: the measured fastest, per
+        direction (every candidate corner timed once per hardware, the
+        decision cached).  ``"dist"`` raises (not ported yet).
     fold : the equator fold (symmetric grids only, spin 0 only).
     spin : 0 (scalar) or 2 (polarisation): a spin-2 plan transforms (E, B)
         alm ``(2, M, L, K)`` to/from (Q, U) maps ``(2, R, n_phi, K)``;
         needs ``l_max >= 2``.
-    layout : the Legendre layout of the ``cuda_*`` backends: ``None`` (the
-        default) means ``"fused"`` where the plan is eligible, else
-        ``"plain"``; ``"plain"`` and ``"packed"`` run the staged kernels
-        on the rectangular and the packed slot grid, then the phase stage.
-        The ``torch`` backend takes none.  Both spellings of the default
-        give one plan.
+    layout : the Legendre layout of a forced ``cuda_*`` backend (or of the
+        static default): ``None`` means ``"fused"`` where the plan is
+        eligible, else ``"plain"``; ``"plain"`` and ``"packed"`` run the
+        staged kernels on the rectangular and the packed slot grid, then
+        the phase stage.  The ``torch`` backend takes none, and neither do
+        ``"model"`` and ``"auto"``, which choose it.  Both spellings of the
+        default give one plan.
+    cache : ``"auto"`` (memory; disk when ``cache_dir`` or
+        ``$REPRO_TORCH_CACHE_DIR`` is set), ``"memory"``, ``"disk"`` or
+        ``"off"``: where the precompute and the autotune decision are kept.
+    cache_dir : the disk tier's directory (see ``core.cache.cache_dir``).
     device : ``None`` (the CUDA device, which must be visible), ``"cuda"``,
         ``"cuda:N"`` or ``"cpu"``.
 
-    Calling ``make_plan`` twice with one signature returns the same object.
+    Calling ``make_plan`` twice with one signature (cache kind and
+    directory included) returns the same object.
     """
     if f"mode {mode}" in _WAITING:
         raise _not_ported(f"mode {mode}")
-    if mode is not None and mode not in BACKENDS:
-        raise ValueError(f"unknown mode {mode!r}: expected None or a backend "
-                         f"name {BACKENDS}")
+    if mode is not None and mode not in ("auto", "model") + BACKENDS:
+        raise ValueError(f"unknown mode {mode!r}: expected None, 'auto', "
+                         f"'model' or a backend name {BACKENDS}")
     if layout not in (None, "plain", "packed", "fused"):
         raise ValueError(f"unknown layout {layout!r}")
+    if layout is not None and mode in ("auto", "model"):
+        raise ValueError(f"mode {mode!r} chooses the layout per direction; "
+                         f"it takes no layout= (got {layout!r})")
     if spin not in (0, 2):
         raise ValueError(f"unsupported spin {spin!r}: expected 0 or 2")
     if spin and fold:
         raise ValueError("fold is not supported for spin transforms")
     if dtype not in _DTYPES:
         raise ValueError(f"dtype must be 'float64' or 'float32', got {dtype!r}")
+    if cache == "auto":
+        cache_kind = "disk" if (cache_dir or os.environ.get(
+            "REPRO_TORCH_CACHE_DIR")) else "memory"
+    elif cache in ("off", "memory", "disk"):
+        cache_kind = cache
+    else:
+        raise ValueError(f"unknown cache {cache!r}: expected 'auto', "
+                         "'memory', 'disk' or 'off'")
     if isinstance(grid, str):
         if grid in ("gl", "ecp") and l_max is None:
             raise ValueError(f"make_plan({grid!r}, ...) requires l_max")
         if grid in ("healpix", "healpix_ring") and nside is None:
             raise ValueError(f"make_plan({grid!r}, ...) requires nside")
     dev = resolve_device(device)
-    g, grid_sig = _resolve_grid(grid, l_max, nside)
+    g, grid_sig = _resolve_grid(grid, l_max, nside, cache_kind, cache_dir)
     if l_max is None:
         # the HEALPix rule of thumb, as the reference
         l_max = 2 * g.nside if g.nside else g.n_rings - 1
@@ -782,15 +1055,18 @@ def make_plan(grid: Union[str, RingGrid] = "gl", l_max: Optional[int] = None,
         if layout is not None:
             raise ValueError(f"layout {layout!r} applies to the cuda_* "
                              "backends, not to 'torch'")
-    else:
+    elif mode in KERNEL_BACKENDS:
         fusion_ok, reason = _fusion_eligibility(g, spin, m_max, fold)
         if layout == "fused" and not fusion_ok:
             raise ValueError(f"fused layout unavailable: {reason}")
         layout = layout or ("fused" if fusion_ok else "plain")
 
+    # the cache policy is part of the key: a plan built with cache="off"
+    # must not stand in for a later request to keep its decision on disk
     sig_key = plancache.signature_key(
         "plan", l_max=l_max, m_max=m_max, K=K, dtype=dtype, mode=mode,
-        fold=fold, spin=spin, layout=layout, device=str(dev), **grid_sig)
+        fold=fold, spin=spin, layout=layout, device=str(dev),
+        cache_kind=cache_kind, cache_dir=cache_dir, **grid_sig)
     if sig_key in _PLANS:
         plancache.stats().memory_hits += 1
         return _PLANS[sig_key]
@@ -798,15 +1074,15 @@ def make_plan(grid: Union[str, RingGrid] = "gl", l_max: Optional[int] = None,
     seeds_key = plancache.signature_key("seeds", m_max=m_max, fold=fold,
                                         spin=spin, **grid_sig)
     plan = Plan(g, l_max, m_max, K, dtype, mode=mode, fold=fold, spin=spin,
-                device=dev, signature_key=sig_key, seeds_key=seeds_key)
+                device=dev, signature_key=sig_key, seeds_key=seeds_key,
+                cache_kind=cache_kind, cache_dir=cache_dir)
     elig = backend_eligibility(g, dtype)
     plan.candidates = [b for b in BACKENDS if elig[b] is None]
-    if mode not in plan.candidates:
+    if mode in BACKENDS and mode not in plan.candidates:
         # an explicit kernel request under float64 runs in float32 inside
         plan.candidates.append(mode)
         elig[mode] = None
     plan.skipped = {b: r for b, r in elig.items() if r is not None}
-    plan.backends = {"synth": mode, "anal": mode}
-    plan.layouts = {d: layout for d in ("synth", "anal")}
+    plan._choose_backends(layout)
     _PLANS[sig_key] = plan
     return plan

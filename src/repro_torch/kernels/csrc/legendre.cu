@@ -20,7 +20,8 @@
 // The recurrence amplifies a last-bit difference anywhere in it to about
 // 4e-4 of max|Delta| by l_max 256, so the kernel rounds exactly as its plain
 // PyTorch version does: every operation of the recurrence is a separately
-// rounded IEEE one (no contraction), and 1/sqrt is a correctly rounded
+// rounded IEEE one (no contraction, but for the two fused multiply-adds of
+// the spin update, recurrence.cuh), and 1/sqrt is a correctly rounded
 // square root and division rather than the approximate rsqrt.  Only the
 // accumulation (fmaf, summation order) differs from the plain version.  The
 // recurrence step lives in recurrence.cuh, shared with fused.cu.

@@ -5,17 +5,19 @@
 // renormalised by 2^+-64 with selects, and a value counts only where
 // scale == 0, as in the reference's `_f32_step`
 // (src/repro/kernels/legendre_pallas.py:76).  Every operation is a
-// separately rounded IEEE one (no contraction) and 1/sqrt is a correctly
-// rounded square root and division, as in the plain PyTorch version
-// (repro_torch/kernels/ref.py): the recurrence amplifies a last-bit
-// difference to about 4e-4 of max|Delta| by l_max 256.
+// separately rounded IEEE one (no contraction, but for the spin update
+// below) and 1/sqrt is a correctly rounded square root and division, as in
+// the plain PyTorch version (repro_torch/kernels/ref.py): the recurrence
+// amplifies a last-bit difference to about 4e-4 of max|Delta| by l_max 256.
 //
 // The spin branch (the reference's `_f32_step_spin`,
 // src/repro/kernels/legendre_pallas.py:116) runs the Wigner-d rows of the
 // spin-2 transforms, lam_l = (a_l x + b_l) lam_{l-1} - c_l lam_{l-2}, seeded
 // at l0 = max(m, |m'|).  a, b, c depend on (l, m, m') only, so a block fills
 // them per 32-l tile into shared memory (fill_spin, the counterpart of
-// fill_beta) and each ring's step is five operations and the rescale.  The
+// fill_beta) and each ring's step is two fused multiply-adds (the update
+// contracted as XLA's CPU build contracts the reference's), a multiply and
+// the rescale.  The
 // kernels select the branch with a `bool SPIN` template parameter through
 // fill_coef / rec_general (mxu_fill in the mxu templates); their SPIN =
 // false instantiations run fill_beta and rec_next.
@@ -188,12 +190,13 @@ __device__ __forceinline__ void fill_spin(int l0, int m, int mp, float* a_s,
 }
 
 // The Wigner-d step after the seed: lambda_l = (a x + b) lambda_{l-1}
-// - c lambda_{l-2} (at lz + 1, c = 0 and lambda_{l-2} = 0).
+// - c lambda_{l-2} (at lz + 1, c = 0 and lambda_{l-2} = 0), contracted
+// into two fused multiply-adds as XLA's CPU build contracts the
+// reference's update, and as `kernels/ref.py` `fma_f32` rounds it:
+// fma(fma(a, x, b), lambda_{l-1}, -(c lambda_{l-2})).
 __device__ __forceinline__ float rec_next_spin(Rec* s, float x, float a,
                                                float b, float c) {
-  return rec_finish(s, __fsub_rn(__fmul_rn(__fadd_rn(__fmul_rn(a, x), b),
-                                           s->pc),
-                                 __fmul_rn(c, s->pp)));
+  return rec_finish(s, fmaf(fmaf(a, x, b), s->pc, -__fmul_rn(c, s->pp)));
 }
 
 // The coefficient table of one 32-l tile of a row: beta and the beta ratio

@@ -62,9 +62,9 @@ __all__ = ["fused_synth", "fused_anal", "fused_synth_bucket",
 
 #: the packed layout's panel length: the reference planner's choice at both
 #: sht_cmb shapes, shared with the packed staged layout.  The CUDA kernels
-#: walk each segment in 32-l tiles, so on the GPU it only rounds the stream
-#: length S up; a second value waits for a measured choice (ROADMAP.md Open
-#: items section 1, item 9).
+#: walk each segment in 32-l tiles, so on the GPU a second value would only
+#: round the stream length S up: the reference's panel-length autotune
+#: (``_fused_lp_size``) is not ported (see ROADMAP.md).
 FUSED_LP_SIZE = kops.PACK_LP_SIZE
 
 

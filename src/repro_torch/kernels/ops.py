@@ -19,10 +19,15 @@ plain version (``kernels.ref``); a CUDA tensor launches the hand-written
 kernel (``kernels.legendre_cuda`` for plain, ``kernels.fused_cuda`` for
 packed) or raises; any other device raises.  Each direction is
 differentiable: its backward is the other direction with the same seeds,
-variant and layout (``core.autodiff.linear_pair``).  The environment
-overrides and the measured autotune of the reference's ``pick_variant`` /
-``pick_layout`` wait for ROADMAP.md Open items section 1, item 9, and the
-dist-path adapters (``delta_from_alm_spin_auto`` and its kin) for item 11.
+variant and layout (``core.autodiff.linear_pair``).  The dist-path
+adapters (``delta_from_alm_spin_auto`` and its kin) wait for ROADMAP.md
+Open items section 1, item 11.
+
+Variant choice (:func:`pick_variant`) takes the reference's override
+under the port's own name, ``$REPRO_TORCH_LEGENDRE_VARIANT`` (``vpu`` |
+``mxu``).  The reference's measured variant choice and layout override
+are not ported: ``make_plan(mode="auto")`` measures at the plan's own
+shape, and a layout is always named (see ROADMAP.md).
 
 The packing helpers (``_pack_a``, ``_pack_rows``, ``_unpack_rows``,
 ``_unpack_alm``, ``_pack_maps``) convert between the plain (row, ...)
@@ -34,6 +39,8 @@ without one they are built per call.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
@@ -51,12 +58,16 @@ PACK_LP_SIZE = 128
 
 
 def pick_variant(K2: int, variant: str | None = None) -> str:
-    """vpu-vs-mxu: the explicit argument, else the static ``K2 >= 16`` rule
+    """vpu-vs-mxu: the explicit argument, else
+    ``$REPRO_TORCH_LEGENDRE_VARIANT``, else the static ``K2 >= 16`` rule
     (broadcast FMA for few maps, panel contraction for many)."""
     if variant in ("vpu", "mxu"):
         return variant
     if variant is not None:
         raise ValueError(f"unknown Legendre variant {variant!r}")
+    env = os.environ.get("REPRO_TORCH_LEGENDRE_VARIANT")
+    if env in ("vpu", "mxu"):
+        return env
     return "mxu" if K2 >= 16 else "vpu"
 
 
@@ -66,9 +77,10 @@ def pick_layout(layout: str) -> str:
     (``make_plan(layout="fused")``), not through these staged wrappers.
 
     The reference's ``pick_layout`` returns ``"packed"`` when no layout is
-    named; the port names one everywhere instead (:func:`synth` /
-    :func:`anal` default to ``"plain"``, and a plan runs fused where
-    eligible, else plain), so there is no unnamed staged layout here.
+    named and takes a debugging override from the environment; the port
+    names one everywhere instead (:func:`synth` / :func:`anal` default to
+    ``"plain"``, and a plan runs fused where eligible, else plain), so
+    there is no unnamed staged layout here and nothing to override.
     """
     if layout in ("plain", "packed"):
         return layout

@@ -30,8 +30,9 @@ __all__ = ["PackedLayout", "build_layout", "panel_counts",
 def fused_lp_candidates(l_max: int) -> tuple:
     """Panel lengths (``lp_size``) the fused pipeline accepts: 128, and 256
     once a slot spans more than one 128-panel.  The panel length sets the
-    stream padding ``S``; the measured choice between them waits for
-    ROADMAP.md Open items section 1, item 9."""
+    stream padding ``S``; the reference measures between them, the port
+    keeps 128 (the CUDA kernels walk 32-l tiles, so 256 would only round S
+    up): not ported, see ROADMAP.md."""
     return (128, 256) if l_max + 1 > 128 else (128,)
 
 

@@ -42,12 +42,72 @@ import torch
 
 __all__ = ["prepare_seeds", "prepare_seeds_spin", "synth_ref", "anal_ref",
            "anal_reduce_ref", "synth_packed_ref", "anal_packed_ref",
-           "synth_fused_ref", "anal_fused_ref", "SCALE_BITS_F32"]
+           "synth_fused_ref", "anal_fused_ref", "fma_f32", "sqrt_f32",
+           "SCALE_BITS_F32"]
 
 SCALE_BITS_F32 = 64
 _BIG = float(2.0 ** (SCALE_BITS_F32 // 2))        # 2^32
 _INV_BIG2 = float(2.0 ** (-SCALE_BITS_F32))       # 2^-64
 _BIG2 = float(2.0 ** SCALE_BITS_F32)              # 2^64
+
+#: the 28 lowest float64 fraction bits: zero on every float32 rounding
+#: midpoint (of a normal float32, 1 then 28 zeros below its last bit; of a
+#: subnormal one, more zeros still)
+_LOW28 = (1 << 28) - 1
+
+
+def sqrt_f32(t):
+    """The correctly rounded float32 square root of a float32 tensor, as
+    CUDA's ``__fsqrt_rn``.  torch's CUDA ``sqrt`` is that already (the
+    smoke's plain versions keep their bits either way), but its CPU
+    ``sqrt`` is not on every build (the AVX-512 kernels miss the last bit
+    of ~1% of float32 and ~13% of float64 roots), so on the CPU the float64
+    root is rounded to float32 and moved one float32 ulp where the exact
+    float64 squares of the neighbouring midpoints say the root lies beyond
+    them.  Used on the plain versions' coefficient rows only."""
+    if t.is_cuda:
+        return torch.sqrt(t)
+    x = t.double()
+    r = torch.sqrt(x).float()
+    inf = torch.full_like(r, np.inf)
+    up, dn = torch.nextafter(r, inf), torch.nextafter(r, -inf)
+    mid_up = (r.double() + up.double()) * 0.5       # exact, squares exact
+    mid_dn = (r.double() + dn.double()) * 0.5
+    live = (r > 0) & torch.isfinite(r)
+    r = torch.where(live & (x > mid_up * mid_up), up, r)
+    return torch.where(live & (x < mid_dn * mid_dn), dn, r)
+
+
+def fma_f32(a, b, c):
+    """``a b + c`` of float32 tensors (broadcast), rounded once to float32:
+    CUDA's ``fmaf``, and the contraction XLA's CPU build makes of the
+    reference's spin update.  torch has no fused multiply-add.
+
+    The product is exact in float64 (24 + 24 bits).  The float64 sum s
+    rounds once, and rounding s to float32 rounds correctly unless s lies
+    on a float32 rounding midpoint: only from there can the second rounding
+    go the wrong way, as for (1 + 2^-12)^2 + 2^-70.  A midpoint is not a
+    float32 and has its 28 lowest float64 fraction bits zero, so the
+    elements that pass that test (a handful) are redone by round-to-odd:
+    TwoSum's error e of s, and where e is nonzero and s's last bit even, s
+    moved one float64 ulp toward e before the rounding to float32.
+    """
+    s = a.double() * b + c
+    r = s.float()
+    bits = s.view(torch.int64)
+    idx = (((bits & _LOW28) == 0) & (s != r)).nonzero(as_tuple=True)
+    if idx[0].numel():
+        shape = s.shape
+        p = a.expand(shape)[idx].double() * b.expand(shape)[idx]
+        cd = c.expand(shape)[idx].double()
+        sr = s[idx]
+        bb = sr - p
+        e = (p - (sr - bb)) + (cd - bb)
+        odd = (e != 0) & ((bits[idx] & 1) == 0)
+        away = torch.nextafter(sr, torch.copysign(torch.full_like(sr, np.inf),
+                                                  e))
+        r[idx] = torch.where(odd, away, sr).float()
+    return r
 
 
 def prepare_seeds(m_vals, sin_theta, log_mu_all, scale_bits: int = 64):
@@ -111,18 +171,16 @@ def _rescale(lf, l_start, p_rec, pp, pc, sc, pmm, pms):
     return new_p, new_c, new_s, value
 
 
-def _f32_step_spin(l, m_f, mp_f, x, pp, pc, sc, pmm, pms):
-    """One Wigner-d scaled-recurrence step in float32, branch-free, as the
-    reference's ``_f32_step_spin``: lam_l = (a x + b) lam_{l-1} - c lam_{l-2}
-    seeded at l0 = max(m, |m'|), the coefficients recomputed from (l, m,
-    m').  Operands as :func:`_f32_step`, ``mp_f`` (Mp, 1) f32.
-
-    Every operation is one correctly rounded float32 operation in the order
-    written (1/sqrt as a square root and a division, not rsqrt), which the
-    CUDA kernels' spin step (``csrc/recurrence.cuh``) repeats bit for bit.
-    """
-    lf = l if torch.is_tensor(l) else torch.tensor(
+def _as_lf(l, m_f):
+    """The degree as float32: a tensor as given, an int as a 0-dim one."""
+    return l if torch.is_tensor(l) else torch.tensor(
         float(l), dtype=torch.float32, device=m_f.device)
+
+
+def _spin_coefs(lf, m_f, mp_f):
+    """(l0, a, b, c): the row coefficients of the Wigner-d step at degree
+    ``lf``, elementwise over broadcast shapes (one step's rows, or every
+    step's at once: each element sees the same operations either way)."""
     l0 = torch.maximum(m_f, mp_f.abs())
     ls = torch.maximum(lf, l0 + 1.0)
     d2 = torch.clamp((ls * ls - m_f * m_f) * (ls * ls - mp_f * mp_f),
@@ -130,37 +188,78 @@ def _f32_step_spin(l, m_f, mp_f, x, pp, pc, sc, pmm, pms):
     lm1 = ls - 1.0
     d2m1 = torch.clamp((lm1 * lm1 - m_f * m_f) * (lm1 * lm1 - mp_f * mp_f),
                        min=0.0)
-    s2l = torch.sqrt(4.0 * ls * ls - 1.0)
-    inv_d = 1.0 / torch.sqrt(d2)
+    s2l = sqrt_f32(4.0 * ls * ls - 1.0)
+    inv_d = 1.0 / sqrt_f32(d2)
     inv_lm1 = 1.0 / torch.clamp(lm1, min=1.0)
     a = ls * s2l * inv_d
     b = -(m_f * mp_f) * s2l * inv_d * inv_lm1
-    c = (torch.sqrt((2.0 * ls + 1.0) / torch.clamp(2.0 * ls - 3.0, min=1.0))
-         * ls * torch.sqrt(d2m1) * inv_d * inv_lm1)
-    p_rec = (a * x + b) * pc - c * pp
+    c = (sqrt_f32((2.0 * ls + 1.0) / torch.clamp(2.0 * ls - 3.0, min=1.0))
+         * ls * sqrt_f32(d2m1) * inv_d * inv_lm1)
+    return l0, a, b, c
+
+
+def _scalar_coefs(lf, m_f):
+    """(beta_l, beta_l / beta_{l-1}, sqrt(2m + 3), l == m + 1): the row
+    coefficients of the scalar step at degree ``lf``, elementwise as
+    :func:`_spin_coefs`.
+
+    1/sqrt, not rsqrt, the root correctly rounded on every device
+    (:func:`sqrt_f32`), so the CUDA kernels reproduce these bits (rsqrt is
+    approximate on CUDA)."""
+    lb = torch.maximum(lf, m_f + 2.0)
+    bl = 1.0 / sqrt_f32((lb * lb - m_f * m_f) / (4.0 * lb * lb - 1.0))
+    lb1 = torch.maximum(lf - 1.0, m_f + 1.0)
+    bl1 = 1.0 / sqrt_f32((lb1 * lb1 - m_f * m_f) / (4.0 * lb1 * lb1 - 1.0))
+    first = sqrt_f32(torch.clamp(2.0 * m_f + 3.0, min=0.0))
+    return bl, bl / bl1, first, lf == m_f + 1.0
+
+
+def _f32_step_spin(l, m_f, mp_f, x, pp, pc, sc, pmm, pms, coefs=None):
+    """One Wigner-d scaled-recurrence step in float32, branch-free, as the
+    reference's ``_f32_step_spin``: lam_l = (a x + b) lam_{l-1} - c lam_{l-2}
+    seeded at l0 = max(m, |m'|), the coefficients recomputed from (l, m,
+    m') (:func:`_spin_coefs`; ``coefs`` passes them precomputed).  Operands
+    as :func:`_f32_step`, ``mp_f`` (Mp, 1) f32.
+
+    Every operation is one correctly rounded float32 operation in the order
+    written (1/sqrt as a square root and a division, not rsqrt), except the
+    update, contracted into two fused multiply-adds as XLA's CPU build
+    contracts the reference's: fma(fma(a, x, b), lam_{l-1}, -(c lam_{l-2}))
+    (:func:`fma_f32`).  The CUDA kernels' spin step (``csrc/recurrence.cuh``
+    ``rec_next_spin``, ``fmaf``) repeats it bit for bit.
+    """
+    lf = _as_lf(l, m_f)
+    l0, a, b, c = _spin_coefs(lf, m_f, mp_f) if coefs is None else coefs
+    p_rec = fma_f32(fma_f32(a, x, b), pc, -(c * pp))
     return _rescale(lf, l0, p_rec, pp, pc, sc, pmm, pms)
 
 
-def _f32_step(l: int, m_f, x, pp, pc, sc, pmm, pms):
+def _f32_step(l, m_f, x, pp, pc, sc, pmm, pms, coefs=None):
     """One scaled-recurrence step in float32, branch-free.
 
-    l an int, or an (Mp, 1) f32 tensor (one l per row, as on the packed
-    stream); m_f (Mp, 1) f32; x (1, R) f32; pp, pc, pmm (Mp, R) f32; sc,
-    pms i32.  Returns (pp', pc', sc', value), ``value`` the descaled P_{l,m}.
+    l an int, or an f32 tensor (one l per row, as on the packed stream);
+    m_f (Mp, 1) f32; x (1, R) f32; pp, pc, pmm (Mp, R) f32; sc, pms i32;
+    ``coefs`` the row coefficients of :func:`_scalar_coefs` precomputed.
+    Returns (pp', pc', sc', value), ``value`` the descaled P_{l,m}.
     """
-    lf = l if torch.is_tensor(l) else torch.tensor(
-        float(l), dtype=torch.float32, device=m_f.device)
-    # 1/sqrt, not rsqrt: both are correctly rounded on every device, so
-    # the CUDA kernels reproduce these bits (rsqrt is approximate on CUDA)
-    lb = torch.maximum(lf, m_f + 2.0)
-    bl = 1.0 / torch.sqrt((lb * lb - m_f * m_f) / (4.0 * lb * lb - 1.0))
-    lb1 = torch.maximum(lf - 1.0, m_f + 1.0)
-    bl1 = 1.0 / torch.sqrt((lb1 * lb1 - m_f * m_f) / (4.0 * lb1 * lb1 - 1.0))
-    ratio = bl / bl1
+    lf = _as_lf(l, m_f)
+    bl, ratio, first, is_first = _scalar_coefs(lf, m_f) if coefs is None \
+        else coefs
     p_rec = bl * x * pc - ratio * pp
-    p_first = torch.sqrt(torch.clamp(2.0 * m_f + 3.0, min=0.0)) * x * pc
-    p_new = torch.where(lf == m_f + 1.0, p_first, p_rec)
+    p_first = first * x * pc
+    p_new = torch.where(is_first, p_first, p_rec)
     return _rescale(lf, m_f, p_new, pp, pc, sc, pmm, pms)
+
+
+def _row_coefs(lf, m_f, mp_f=None):
+    """Every step's row coefficients at once, ``lf`` (n, ...) the degrees
+    of the n steps: the tables of :func:`_scalar_coefs` (``mp_f`` None) or
+    :func:`_spin_coefs`, each broadcast to the full (n, ...) shape, so
+    step i takes ``[t[i] for t in tables]`` and launches only its (row,
+    ring) work."""
+    tabs = _scalar_coefs(lf, m_f) if mp_f is None else \
+        _spin_coefs(lf, m_f, mp_f)
+    return torch.broadcast_tensors(lf, *tabs)[1:]
 
 
 def _carry(m_vals, x):
@@ -171,13 +270,20 @@ def _carry(m_vals, x):
             torch.zeros(Mp, R, dtype=torch.int32, device=x.device))
 
 
-def _stepper(m_f, mp_vals):
-    """The row step: the scalar one, or the Wigner-d one on the rows' m'
-    (``mp_vals`` (Mp,) int tensor)."""
+def _stepper(m_f, mp_vals, n_l: int):
+    """The row step of degrees 0 .. n_l - 1: the scalar one, or the
+    Wigner-d one on the rows' m' (``mp_vals`` (Mp,) int tensor), with the
+    row coefficients of every degree computed up front (:func:`_row_coefs`)."""
+    lf = torch.arange(n_l, dtype=torch.float32, device=m_f.device)
+    lf = lf[:, None, None]
     if mp_vals is None:
-        return lambda l, *c: _f32_step(l, m_f, *c)
+        tabs = _row_coefs(lf, m_f)
+        return lambda l, *c: _f32_step(lf[l], m_f, *c,
+                                       coefs=[t[l] for t in tabs])
     mp_f = mp_vals.to(torch.float32)[:, None]
-    return lambda l, *c: _f32_step_spin(l, m_f, mp_f, *c)
+    tabs = _row_coefs(lf, m_f, mp_f)
+    return lambda l, *c: _f32_step_spin(lf[l], m_f, mp_f, *c,
+                                        coefs=[t[l] for t in tabs])
 
 
 def synth_ref(a, m_vals, x, pmm, pms, *, l_max: int, fold: bool = False,
@@ -191,7 +297,7 @@ def synth_ref(a, m_vals, x, pmm, pms, *, l_max: int, fold: bool = False,
     """
     Mp, L1, K2 = a.shape
     m, m_f, xb, pp, pc, sc = _carry(m_vals, x)
-    step = _stepper(m_f, mp_vals)
+    step = _stepper(m_f, mp_vals, min(l_max + 1, L1))
     acc = torch.zeros(Mp, 2 if fold else 1, x.shape[0], K2,
                       dtype=torch.float32, device=a.device)
     for l in range(min(l_max + 1, L1)):
@@ -216,7 +322,7 @@ def anal_ref(dw, m_vals, x, pmm, pms, *, l_max: int, fold: bool = False,
     l < max(m, |m'|).
     """
     m, m_f, xb, pp, pc, sc = _carry(m_vals, x)
-    step = _stepper(m_f, mp_vals)
+    step = _stepper(m_f, mp_vals, l_max + 1)
     rows = []
     for l in range(l_max + 1):
         pp, pc, sc, val = step(l, xb, pp, pc, sc, pmm, pms)
@@ -288,21 +394,32 @@ def _stream(maps, x, pmm_pk, pms_pk, *, l_max: int, s_len: int,
     pp, pc = z, z.clone()
     sc = torch.zeros_like(z, dtype=torch.int32)
     xb = x.to(torch.float32)[None, :]
+    # every position's (slot) selects and row coefficients at once
+    g_all = torch.arange(S_live, device=x.device)[:, None, None]
+    seg1_all = g_all >= seed
+    m_all = torch.where(seg1_all, m1, m0)
+    l_all = torch.where(seg1_all, l01 + g_all - seed, l00 + g_all)
+    lf_all, mf_all = l_all.to(torch.float32), m_all.to(torch.float32)
+    mpf_all = torch.where(seg1_all, mp1, mp0).to(torch.float32) if spin \
+        else None
+    tabs = _row_coefs(lf_all, mf_all, mpf_all)
+    live_all = l_all <= l_max
+    odd_all = (l_all + m_all) % 2 == 1
+    zero = torch.zeros((), device=x.device)
     for g in range(S_live):
-        seg1 = g >= seed
-        m = torch.where(seg1, m1, m0)
-        l = torch.where(seg1, l01 + g - seed, l00 + g)
+        seg1 = seg1_all[g]
         pmm = torch.where(seg1, pmm_pk[:, 1], pmm_pk[:, 0])
         pms = torch.where(seg1, pms_pk[:, 1], pms_pk[:, 0])
-        lf, m_f = l.to(torch.float32), m.to(torch.float32)
+        coefs = [t[g] for t in tabs]
         if spin:
-            mp_f = torch.where(seg1, mp1, mp0).to(torch.float32)
-            pp, pc, sc, val = _f32_step_spin(lf, m_f, mp_f, xb, pp, pc, sc,
-                                             pmm, pms)
+            pp, pc, sc, val = _f32_step_spin(lf_all[g], mf_all[g],
+                                             mpf_all[g], xb, pp, pc, sc,
+                                             pmm, pms, coefs=coefs)
         else:
-            pp, pc, sc, val = _f32_step(lf, m_f, xb, pp, pc, sc, pmm, pms)
-        val = torch.where(l <= l_max, val, torch.zeros((), device=x.device))
-        yield g, val, seg1, ((l + m) % 2 == 1)
+            pp, pc, sc, val = _f32_step(lf_all[g], mf_all[g], xb, pp, pc,
+                                        sc, pmm, pms, coefs=coefs)
+        val = torch.where(live_all[g], val, zero)
+        yield g, val, seg1, odd_all[g]
 
 
 def _bf16(t: torch.Tensor) -> torch.Tensor:

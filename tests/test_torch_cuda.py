@@ -1335,3 +1335,54 @@ def test_synth_mxu_template_matches_plain_version(dev, spin, fold, K, rings):
     want = kref.synth_ref(a, m_t, x, pmm, pms, **kw)
     assert rel(got, want) < TOL and bool((got[m_t < 0] == 0).all())
     assert torch.equal(lc.synth_mxu(a, m_t, x, pmm, pms, **kw), got)
+
+
+@pytest.mark.parametrize("spin", [0, 2])
+def test_autotune_on_the_card(dev, spin, tmp_path):
+    """make_plan(mode="auto") at GL 256/K8 on the card: every corner
+    measured finite, the choice per direction the measured minimum
+    (backend and layout), and a second build after clear_plan_cache()
+    reads the decision back from disk and measures no corner."""
+    from repro_torch.core import transform
+    from repro_torch.roofline import chardb
+    kw = dict(K=8, dtype="float32", mode="auto", spin=spin, cache="disk",
+              cache_dir=str(tmp_path))
+    transform.clear_plan_cache()
+    chardb.clear()
+    plan = repro_torch.make_plan("gl", 256, **kw)
+    assert chardb.stats()["measured"] == 14
+    ms = plan.measured_s
+    for d in ("synth", "anal"):
+        corners = {("torch", None): ms["torch"][d]}
+        for b in transform.KERNEL_BACKENDS:
+            corners.update({(b, lay): ms[b][f"{d}_{lay}"]
+                            for lay in plan._kernel_layouts()})
+        assert all(np.isfinite(v) for v in corners.values())
+        assert (plan.backends[d], plan.layouts[d]) == min(corners,
+                                                          key=corners.get)
+    transform.clear_plan_cache()
+    again = repro_torch.make_plan("gl", 256, **kw)
+    assert again.cache_events["decision"] == "hit"
+    assert chardb.stats()["measured"] == 14
+    assert (again.backends, again.layouts) == (plan.backends, plan.layouts)
+    transform.clear_plan_cache()
+
+
+def test_autotune_propagates_a_kernel_error(dev, monkeypatch):
+    """A corner whose kernel raises is not ranked last: the error of the
+    wrapper (here a stand-in for the fused synthesis' launch) reaches the
+    caller of make_plan."""
+    from repro_torch.core import transform
+    from repro_torch.roofline import chardb
+
+    def broken(*args, **kwargs):
+        raise RuntimeError("legendre kernel launch failed")
+
+    monkeypatch.setattr(fused_cuda, "synth_fused_mxu", broken)
+    monkeypatch.setattr(fused_cuda, "synth_fused_vpu", broken)
+    transform.clear_plan_cache()
+    chardb.clear()
+    with pytest.raises(RuntimeError, match="launch failed"):
+        repro_torch.make_plan("gl", 64, K=8, dtype="float32", mode="auto",
+                              cache="off")
+    transform.clear_plan_cache()

@@ -23,7 +23,7 @@ from repro.core import phase as rphase
 
 import repro_torch
 from repro_torch import interop
-from repro_torch.core import grids, phase, sht
+from repro_torch.core import grids, phase, sht, transform
 from repro_torch.kernels import fused_cuda, ops
 from repro_torch.kernels import legendre_cuda as lc
 
@@ -397,7 +397,8 @@ class _FakeLib:
         return lambda *args: 0
 
 
-@pytest.mark.parametrize("layout", ["fused", "plain", "packed"])
+@pytest.mark.parametrize("layout", ["fused", "plain", "packed",
+                                    "fused+plain", "plain+packed"])
 @pytest.mark.parametrize("spin", [0, 2])
 @pytest.mark.parametrize("kind,kw,mode", [
     ("gl", dict(l_max=20), "cuda_vpu"), ("gl", dict(l_max=20), "cuda_mxu"),
@@ -409,9 +410,28 @@ def test_partials_bytes_equal_the_allocated_buffer(kind, kw, mode, spin,
     partials buffer the analysis of the layout allocates: the CUDA route of
     a CPU plan, rehearsed with kernel libraries that launch nothing, hands
     its buffer to ``anal_reduce``, which records it.  The reference's
-    keys keep their values."""
-    p = repro_torch.make_plan(kind, **kw, K=3, dtype="float32", mode=mode,
-                              spin=spin, layout=layout, device="cpu")
+    keys keep their values.  ``"synth+anal"`` layouts are a plan whose
+    directions differ (``mode="auto"`` with a measured table that picks
+    them): the buffer is the analysis layout's."""
+    if "+" in layout:
+        synth, anal = layout.split("+")
+
+        def measured(plan):
+            out = {b: {"synth": 1.0, "anal": 1.0} for b in plan.candidates}
+            out[mode] = {"synth": 1e-3, "synth_layout": synth,
+                         "anal": 1e-3, "anal_layout": anal}
+            return out
+
+        monkeypatch.setattr(transform.Plan, "_measure_all", measured)
+        transform.clear_plan_cache()         # no plan memoised by another
+        p = repro_torch.make_plan(kind, **kw, K=3, dtype="float32",
+                                  mode="auto", spin=spin, cache="off",
+                                  device="cpu")
+        assert p.layouts == {"synth": synth, "anal": anal}
+    else:
+        p = repro_torch.make_plan(kind, **kw, K=3, dtype="float32",
+                                  mode=mode, spin=spin, layout=layout,
+                                  device="cpu")
     seen = []
     reduce = lc.anal_reduce
 

@@ -71,14 +71,32 @@ def test_default_mode_follows_the_static_variant_rule(dtype, K, want):
     (dict(grid="healpix", spin=2), "item 8"),
     (dict(grid="healpix"), "item 8"), (dict(grid="ecp"), "item 8")])
 def test_unported_requests_name_their_roadmap_item(kwargs, item):
-    """Requests waiting on a ROADMAP item raise naming it (modes auto and
-    model: item 9, dist: item 11).  The grid requests item 8 named while
-    it was open (ECP and the HEALPix family, spin 0 and 2) are ported and
-    now build plans on every kernel layout (the cases keep their IDs)."""
+    """Requests waiting on a ROADMAP item raise naming it (dist: item 11).
+    The requests items 8 and 9 named while they were open are ported and
+    now build plans (the cases keep their IDs): ECP and the HEALPix family,
+    spin 0 and 2, on every kernel layout; modes auto and model, which
+    choose a backend per direction (float64: the torch oracle alone) and,
+    in float32, a kernel backend and layout whose transforms agree with the
+    oracle."""
     kwargs = dict(dict(grid="gl", l_max=8, device="cpu"), **kwargs)
-    if item != "item 8":
+    if item == "item 11":
         with pytest.raises(ValueError, match=item):
             repro_torch.make_plan(**kwargs)
+        return
+    if item == "item 9":
+        plan = repro_torch.make_plan(**kwargs)
+        assert plan.mode == kwargs["mode"] and plan.l_max == 8
+        assert plan.backends == {"synth": "torch", "anal": "torch"}
+        assert set(plan.predicted_s) == {"torch"}
+        alm = torch.as_tensor(alm_for(plan))
+        want = plan.alm2map(alm)
+        kern = repro_torch.make_plan(**dict(kwargs, dtype="float32"))
+        assert set(kern.backends.values()) <= set(transform.BACKENDS)
+        got = kern.alm2map(alm.to(torch.complex64))
+        assert float((got - want).abs().max()) < 1e-4 * float(
+            want.abs().max())
+        back = kern.map2alm(got)
+        assert spectra.d_err(plan.map2alm(want), back) < 1e-4
         return
     kwargs.setdefault("nside", 4)
     plan = repro_torch.make_plan(**kwargs)
