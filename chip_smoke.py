@@ -35,8 +35,16 @@ the measured autotune (``make_plan(mode="model")`` and ``mode="auto"``
 with its decision cached on disk) at GL 2048/K8, spin 0 and 2: every
 corner's prediction beside its measurement, the choice held to the
 measured minimum, a second build that measures nothing, and the chosen
-plan's round trip.  Each phase and each path logs its wall seconds and
-the seconds of its plain-version calls, gathered in a timeline at the end.
+plan's round trip.  Then the serving engine (``repro_torch.serve``) at
+GL 2048 float32, spin 0 and 2: a double-buffered engine serves 40 numpy
+requests (alm2map and map2alm, K buckets 1 to 8 over the fused kernels
+9 to 12, background warm-ups), its launches held to what its batch log
+implies, each result to a K=1 plan of its batch's backend and layout, a
+replayed batch to the engine's bits; a synchronous engine whose p99
+target the H100 cost model caps at K 4; and ``python -m
+repro_torch.launch.serve`` on the card.  Each phase and each path logs
+its wall seconds and the seconds of its plain-version calls, gathered in a
+timeline at the end.
 Prints the card's name and power limit, one JSON line of per-kernel
 numbers, and as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -1795,6 +1803,261 @@ def autotune_path(spin: int) -> None:
         torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the serving engine on the card
+# ---------------------------------------------------------------------------
+
+#: l_max of phase 7 (GL, float32): the sht_cmb synth_2k_k8 signature at
+#: spin 0 and 2; engine A's requests, in this interleaved order, as
+#: (direction, spin) blocks of 5 repeated SERVE_BLOCKS times (24 alm2map
+#: spin 0, 8 alm2map spin 2, 8 map2alm spin 0); engine B's requests; and
+#: phase 7's budget in seconds
+SERVE_L_MAX = 2048
+SERVE_BLOCK = (("alm2map", 0), ("alm2map", 0), ("alm2map", 0),
+               ("alm2map", 2), ("map2alm", 0))
+SERVE_BLOCKS = 8
+SERVE_B_REQUESTS = 16
+SERVE_BUDGET_S = 90.0
+
+
+def serve_payloads(dev) -> list:
+    """Engine A's requests in submission order, ``(direction, spin,
+    payload)``: numpy alm drawn in float32 from a fixed seed (complex64;
+    (E, B) pairs at spin 2), the map2alm maps synthesised from the first
+    spin-0 alm by a K=1 plan on the card."""
+    from repro_torch.launch.serve import random_alm
+    rng = np.random.default_rng(24)
+    reqs = [(d, s) for _ in range(SERVE_BLOCKS) for d, s in SERVE_BLOCK]
+    alms = {0: [], 2: []}
+    for d, s in reqs:
+        if d == "alm2map":
+            alms[s].append(random_alm(rng, SERVE_L_MAX, s, np.float32))
+    plan = repro_torch.make_plan("gl", SERVE_L_MAX, K=1, dtype="float32")
+    maps = [plan.alm2map(torch.as_tensor(a[..., None], device=dev))
+            .cpu().numpy()[..., 0] for a in alms[0][:SERVE_BLOCKS]]
+    it = {(d, s): iter(alms[s] if d == "alm2map" else maps)
+          for d, s in set(reqs)}
+    return [(d, s, next(it[(d, s)])) for d, s in reqs]
+
+
+def serve_kernel(direction: str, plan, spin: int) -> str:
+    """The counter name of the fused kernel a pooled plan runs for one
+    request direction."""
+    d = "synth" if direction == "alm2map" else "anal"
+    if plan.layouts[d] != "fused":
+        raise AssertionError(f"serving: {d} layout {plan.layouts[d]}, "
+                             "expected the fused default")
+    return f"{d}_fused_{plan.backends[d][5:]}{tag(spin)}"
+
+
+def serve_engine_a(dev, reqs: list) -> None:
+    """Engine A, double-buffered: one request of each group alone (so each
+    group runs a K=1 batch, the vpu kernels 9 and 11), then the others in
+    one interleaved burst (the buckets the queue forms; K 8 runs the mxu
+    kernels 10 and 12); background warm-ups of each signature's K=8 plan.
+    The launch counters are set to 0 just before and read just after, and
+    must equal what the batch log and the warm-ups imply.  Each result is
+    held against a K=1 plan of its batch's backend and layout (KERNEL_TOL),
+    and one batch replayed through its pooled plan must give the engine's
+    bits."""
+    from repro_torch.serve import PlanSig, ShtEngine
+    sigs = {s: dict(grid="gl", l_max=SERVE_L_MAX, dtype="float32", spin=s)
+            for s in (0, 2)}
+    firsts = sorted({(d, s): i for i, (d, s, _) in
+                     reversed(list(enumerate(reqs)))}.values())
+    reset_launches()
+    t0 = time.perf_counter()
+    eng = ShtEngine(max_k=8, warm_after=2, mode=None)
+    futs = {}
+    with eng:
+        for i in firsts:
+            d, s, p = reqs[i]
+            futs[i] = eng.submit(direction=d, payload=p, **sigs[s])
+        for i in firsts:
+            futs[i].result(timeout=600)
+        for i, (d, s, p) in enumerate(reqs):
+            if i not in futs:
+                futs[i] = eng.submit(direction=d, payload=p, **sigs[s])
+        for f in futs.values():
+            f.result(timeout=600)
+    wall = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    counts = read_launches()
+    # the engine's request ids, in submission order, to indices of reqs
+    index = {f.rid: i for i, f in futs.items()}
+    st = eng.stats()
+    log("  " + eng.report().replace("\n", "\n  "))
+    r = st["requests"]
+    log(f"  engine A: {r['completed']}/{len(reqs)} completed, "
+        f"{r['failed']} failed, {r['timed_out']} timed out in {wall:.2f} s "
+        f"(throughput {st['throughput_rps']:.2f} req/s); warm-ups "
+        f"{st['pool']['warmups']}, warm-up failures {st['warm_failures']}")
+    if r["completed"] != len(reqs) or r["failed"] or r["timed_out"]:
+        raise AssertionError(f"serving: engine A requests {r}")
+    warmed = [s for s in (0, 2)
+              if st["signatures"][PlanSig(**sigs[s]).label()] >= 2]
+    if st["pool"]["warmups"] != len(warmed) or st["warm_failures"]:
+        raise AssertionError(f"serving: warm-ups {st['pool']['warmups']} "
+                             f"of {len(warmed)}, failures "
+                             f"{st['warm_failures']}")
+    lat = st["latency"]
+    log("  latency ms p50 | p95 | p99: " + "; ".join(
+        f"{k} {lat[k]['p50_s'] * 1e3:.2f} | {lat[k]['p95_s'] * 1e3:.2f} | "
+        f"{lat[k]['p99_s'] * 1e3:.2f}" for k in ("queue", "compute",
+                                                 "total")))
+    co = st["coalescing"]
+    log(f"  coalescing: {co['requests_per_batch']:.3f} requests and K "
+        f"{co['k_per_batch']:.3f} a batch, occupancy {co['k_occupancy']:.3f}"
+        f", {co['batches']} batches; pool {st['pool']['hits']} hits, "
+        f"{st['pool']['misses']} misses")
+
+    # the kernels the batches and the warm-ups imply, and their counts
+    expected: dict = {}
+    plans = {}
+    for b in eng.batch_log:
+        spin = 2 if "spin2" in b["signature"] else 0
+        plan = eng.pool.get(PlanSig(**sigs[spin]), b["k_plan"])
+        plans[(spin, b["k_plan"])] = plan
+        name = serve_kernel(b["direction"], plan, spin)
+        expected[name] = expected.get(name, 0) + 1
+        if b["direction"] == "map2alm":
+            expected["anal_reduce"] = expected.get("anal_reduce", 0) + 1
+    for spin in warmed:
+        plan = eng.pool.get(PlanSig(**sigs[spin]), eng.max_k)
+        for d in ("alm2map", "map2alm"):
+            name = serve_kernel(d, plan, spin)
+            expected[name] = expected.get(name, 0) + 1
+        expected["anal_reduce"] = expected.get("anal_reduce", 0) + 1
+    launched = {k: c for k, c in counts.items() if c}
+    log(f"  launches: {launched}; implied by the batches and warm-ups: "
+        f"{expected}")
+    if launched != expected:
+        raise AssertionError(f"serving: launches {launched}, expected "
+                             f"{expected}")
+    for k in ("synth_fused_vpu", "synth_fused_mxu", "anal_fused_vpu",
+              "anal_fused_mxu"):
+        if not launched.get(k):
+            raise AssertionError(f"serving: {k} never launched")
+    buckets = sorted({(b["direction"], b["signature"], b["k_plan"])
+                      for b in eng.batch_log})
+    log("  batches (direction, signature, K bucket): "
+        + ", ".join(f"{d} {s} K {k}" for d, s, k in buckets))
+
+    # each result against a K=1 plan of its batch's backend and layout
+    held_by: dict = {}
+    for b in eng.batch_log:
+        spin = 2 if "spin2" in b["signature"] else 0
+        plan = plans[(spin, b["k_plan"])]
+        d = "synth" if b["direction"] == "alm2map" else "anal"
+        ref = repro_torch.make_plan("gl", SERVE_L_MAX, K=1, dtype="float32",
+                                    spin=spin, mode=plan.backends[d],
+                                    layout=plan.layouts[d])
+        run = ref.alm2map if d == "synth" else ref.map2alm
+        key = (b["direction"], spin, b["k_plan"], plan.backends[d])
+        n, same, gap = held_by.get(key, (0, 0, 0.0))
+        for rid in b["rids"]:
+            got = futs[index[rid]].result()
+            want = run(torch.as_tensor(reqs[index[rid]][2][..., None],
+                                       device=dev)).cpu().numpy()[..., 0]
+            n += 1
+            same += bool(np.array_equal(got, want))
+            gap = max(gap, float(np.abs(got - want).max()
+                                 / np.abs(want).max()))
+        held_by[key] = (n, same, gap)
+    for (d, spin, k, backend), (n, same, gap) in sorted(held_by.items()):
+        log(f"  {d} spin {spin} K bucket {k} ({backend} [fused]): {n} "
+            f"results against a K=1 plan, {same} bit-equal, largest gap "
+            f"{gap:.3e} of max|ref| (limit {KERNEL_TOL:g})")
+        if not gap <= KERNEL_TOL:
+            raise AssertionError(f"serving: {d} spin {spin} K {k} gap {gap}")
+
+    # one batch replayed through its pooled plan: the stacking and slicing
+    b = max((b for b in eng.batch_log if b["direction"] == "alm2map"
+             and "spin0" in b["signature"]), key=lambda b: b["k_plan"])
+    plan = plans[(0, b["k_plan"])]
+    parts = [reqs[index[rid]][2] for rid in b["rids"]]
+    parts += [np.zeros_like(parts[0])] * (b["k_plan"] - len(parts))
+    replay = plan.alm2map(torch.as_tensor(np.stack(parts, -1), device=dev)
+                          ).cpu().numpy()
+    same = [bool(np.array_equal(replay[..., i], futs[index[rid]].result()))
+            for i, rid in enumerate(b["rids"])]
+    log(f"  replay of a K {b['k_plan']} batch ({len(b['rids'])} requests) "
+        f"through its pooled plan: {sum(same)}/{len(same)} bit-equal")
+    if not all(same):
+        raise AssertionError("serving: the replayed batch differs")
+    per_batch = [futs[index[b["rids"][0]]].timing for b in eng.batch_log]
+    form = np.mean([t["form_s"] for t in per_batch])
+    comp = np.mean([t["compute_s"] for t in per_batch])
+    log(f"  mean a batch: form {form * 1e3:.2f} ms (host stacking, pinned "
+        f"copy, upload), compute {comp * 1e3:.2f} ms (transform to the "
+        "execute stream's synchronisation)")
+    del eng, futs, plans
+    torch.cuda.empty_cache()
+
+
+def serve_engine_b(dev, reqs: list) -> None:
+    """Engine B, synchronous: admission at a p99 target of 2 x the H100
+    model's K=4 time x 1.05, which must cap the GL 2048 spin-0 synthesis
+    group at K 4; every batch within the cap and the calibration ratio
+    (measured / predicted compute) finite and positive."""
+    from repro_torch.roofline import HW_H100, k_caps_for_target
+    from repro_torch.serve import ShtEngine
+    g = repro_torch.make_plan("gl", SERVE_L_MAX, K=1, dtype="float32").grid
+    by_k = k_caps_for_target(
+        l_max=SERVE_L_MAX, n_rings=g.n_rings, n_phi=g.max_n_phi, max_k=8,
+        p99_target_s=1.0, backend="cuda_mxu", hw=HW_H100)["predicted_s_by_k"]
+    target = 2.0 * by_k[4] * 1.05
+    log("  H100 model (cuda_mxu) ms by K: " + ", ".join(
+        f"{k} {t * 1e3:.4f}" for k, t in by_k.items())
+        + f"; p99 target {target * 1e3:.4f} ms")
+    eng = ShtEngine(max_k=8, p99_target_s=target)
+    eng.prewarm(grid="gl", l_max=SERVE_L_MAX, dtype="float32", k=4)
+    alms = [p for d, s, p in reqs if d == "alm2map" and s == 0]
+    futs = [eng.submit(direction="alm2map", payload=a, grid="gl",
+                       l_max=SERVE_L_MAX, dtype="float32")
+            for a in alms[:SERVE_B_REQUESTS]]
+    eng.drain()
+    st = eng.stats()
+    log("  " + eng.report().replace("\n", "\n  "))
+    (group,) = st["admission"]["groups"].values()
+    cal = st["admission"]["calibration"]
+    k_plans = [b["k_plan"] for b in eng.batch_log]
+    comp = [f.timing["compute_s"] * 1e3 for f in futs]
+    log(f"  engine B: k_cap {group['k_cap']}, batches at K {k_plans}, "
+        f"compute ms {sorted(set(round(c, 3) for c in comp))}; calibration "
+        f"measured / predicted {cal['ratio']:.3f} over {cal['count']} "
+        f"batches ({cal['measured_s'] * 1e3:.3f} / "
+        f"{cal['predicted_s'] * 1e3:.3f} ms)")
+    if st["requests"]["completed"] != len(futs) or st["requests"]["failed"]:
+        raise AssertionError(f"serving: engine B {st['requests']}")
+    if group["k_cap"] != 4 or max(k_plans) > 4:
+        raise AssertionError(f"serving: admission k_cap {group['k_cap']}, "
+                             f"batches {k_plans}")
+    if not (np.isfinite(cal["ratio"]) and cal["ratio"] > 0):
+        raise AssertionError(f"serving: calibration {cal}")
+
+
+def serve_cli() -> None:
+    """``python -m repro_torch.launch.serve`` on the card, as a user would
+    call it (no ``--device``): it must complete every request."""
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--lmax",
+           str(SERVE_L_MAX), "--max-k", "8", "--requests", "8", "--mode",
+           "cuda_mxu"]
+    src = os.path.join(os.path.dirname(os.path.abspath(__file__)), "src")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        filter(None, (src, os.environ.get("PYTHONPATH")))))
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, env=env, capture_output=True, text=True,
+                          timeout=300)
+    log(f"  {' '.join(cmd[1:])}: exit {proc.returncode} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    for line in proc.stdout.splitlines():
+        log(f"    {line}")
+    if proc.returncode != 0 or "completed 8/8 requests" not in proc.stdout:
+        raise AssertionError(f"serving CLI: exit {proc.returncode}\n"
+                             f"{proc.stderr[-4000:]}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -1898,6 +2161,21 @@ def main() -> int:
     with stamped("phase 6"):
         for spin in SPINS:
             autotune_path(spin)
+
+    log(f"{elapsed()} phase 7: the serving engine at gl l_max "
+        f"{SERVE_L_MAX} float32, spin 0 and 2 (budget {SERVE_BUDGET_S:g} s)")
+    with stamped("phase 7"):
+        with stamped("serving payloads"):
+            reqs = serve_payloads(dev)
+        with stamped("engine A, double-buffered"):
+            serve_engine_a(dev, reqs)
+        with stamped("engine B, admission"):
+            serve_engine_b(dev, reqs)
+        with stamped("serving CLI"):
+            serve_cli()
+        del reqs
+        repro_torch.clear_plan_cache()
+        torch.cuda.empty_cache()
 
     log("timeline: wall s | plain-version s")
     for label, wall, plain in TIMELINE:

@@ -66,6 +66,7 @@ from __future__ import annotations
 
 import math
 import os
+import threading
 import time
 from typing import Optional, Union
 
@@ -79,7 +80,7 @@ from repro_torch.core.grids import RingGrid
 from repro_torch.core.sht import SHT, alm_mask, random_alm, random_alm_spin
 
 __all__ = ["Plan", "make_plan", "available_backends", "backend_eligibility",
-           "clear_plan_cache", "BACKENDS"]
+           "clear_plan_cache", "drop_plan", "BACKENDS"]
 
 BACKENDS = ("torch", "cuda_vpu", "cuda_mxu")
 KERNEL_BACKENDS = ("cuda_vpu", "cuda_mxu")
@@ -110,6 +111,19 @@ def clear_plan_cache() -> None:
     store stay)."""
     _PLANS.clear()
     plancache.clear_memory()
+
+
+def drop_plan(plan: "Plan") -> bool:
+    """Remove one memoised plan so it can be garbage-collected.
+
+    ``clear_plan_cache`` is all-or-nothing; bounded plan holders (the
+    serving engine's LRU pool, ``repro_torch.serve.PlanPool``) evict a
+    single signature through this.  The shared precompute payloads
+    (geometry, seed tables) stay cached; only the live Plan object (its
+    device seeds, fused store and callables) is released.  Returns True
+    when the plan was memoised.
+    """
+    return _PLANS.pop(plan._signature_key, None) is not None
 
 
 def resolve_device(device=None) -> torch.device:
@@ -174,6 +188,9 @@ class Plan:
                         dtype=self.dtype, fold=self.fold)
         self._m_vals = np.arange(self.m_max + 1)
         self._seeds_cache: Optional[tuple] = None
+        #: guards the lazily built members (seeds, callables): a pooled
+        #: plan can be warmed on one thread while another runs it
+        self._lock = threading.RLock()
         #: what the slot kernels of the fused and packed layouts reuse
         #: across calls: the packed layout, seeds, rotation tables and the
         #: pack/unpack index tensors (``kernels.fused``, ``kernels.ops``)
@@ -219,8 +236,12 @@ class Plan:
         plan's device; fold plans seed the northern rings only.  The float64
         host build is keyed by (grid, m_max, fold), so plans differing only
         in K, mode, dtype or device share it."""
-        if self._seeds_cache is not None:
+        with self._lock:
+            if self._seeds_cache is None:
+                self._seeds_cache = self._build_seeds()
             return self._seeds_cache
+
+    def _build_seeds(self) -> tuple:
         from repro_torch.kernels import ref as kref
         g = self.grid
         nh = (g.n_rings + 1) // 2
@@ -237,20 +258,23 @@ class Plan:
                                          directory=self._cache_dir)
         self.cache_events.setdefault("seeds", self._seeds_key)
         dev = self.device
-        self._seeds_cache = (
+        return (
             torch.as_tensor(self._m_vals, dtype=torch.int32, device=dev),
             torch.as_tensor(x, dtype=torch.float32, device=dev),
             torch.as_tensor(payload["pmm"], device=dev),
             torch.as_tensor(payload["pms"], device=dev))
-        return self._seeds_cache
 
     def _seeds_spin(self):
         """(m2 i32, x f32, pmm f32, pms i32, mp2 i32) kernel operands of the
         2M spin rows on the plan's device, the seeds from
         ``ref.prepare_seeds_spin``; keyed by (grid, m_max, spin) like
         :meth:`_seeds`."""
-        if self._seeds_cache is not None:
+        with self._lock:
+            if self._seeds_cache is None:
+                self._seeds_cache = self._build_seeds_spin()
             return self._seeds_cache
+
+    def _build_seeds_spin(self) -> tuple:
         from repro_torch.kernels import ref as kref
         g = self.grid
         m2, mp2 = self._rows
@@ -266,13 +290,12 @@ class Plan:
         self.cache_events.setdefault("seeds_spin", self._seeds_key)
         dev = self.device
         i32 = dict(dtype=torch.int32, device=dev)
-        self._seeds_cache = (
+        return (
             torch.as_tensor(m2, **i32),
             torch.as_tensor(g.cos_theta, dtype=torch.float32, device=dev),
             torch.as_tensor(payload["pmm"], device=dev),
             torch.as_tensor(payload["pms"], device=dev),
             torch.as_tensor(mp2, **i32))
-        return self._seeds_cache
 
     def _row_seeds(self):
         """(m_rows, x, pmm, pms, mp_rows or None) of the plan's spin."""
@@ -285,29 +308,34 @@ class Plan:
         if layout is None:
             layout = self.layouts.get(direction)
         key = (direction, backend, layout)
-        if key not in self._fns:
-            if backend == "torch":
-                if self.spin:
-                    fn = (self._sht.alm2map_spin if direction == "synth"
-                          else self._sht.map2alm_spin)
-                else:
-                    fn = (self._sht.alm2map if direction == "synth"
-                          else self._sht.map2alm)
-            elif backend not in ("cuda_vpu", "cuda_mxu"):
-                raise ValueError(f"unknown backend {backend!r}")
-            elif layout == "fused":
-                ok, reason = self._fusion_eligibility()
-                if not ok:
-                    raise ValueError(f"fused layout unavailable: {reason}")
-                fn = (self._make_fused_synth if direction == "synth"
-                      else self._make_fused_anal)(backend[5:])
-            elif layout in ("plain", "packed"):
-                fn = (self._make_kernel_synth if direction == "synth"
-                      else self._make_kernel_anal)(backend[5:], layout)
-            else:
-                raise ValueError(f"unknown layout {layout!r}")
-            self._fns[key] = fn
-        return self._fns[key]
+        fn = self._fns.get(key)
+        if fn is None:
+            with self._lock:
+                fn = self._fns.get(key)
+                if fn is None:
+                    fn = self._fns[key] = self._build_fn(direction, backend,
+                                                         layout)
+        return fn
+
+    def _build_fn(self, direction: str, backend: str, layout: Optional[str]):
+        if backend == "torch":
+            if self.spin:
+                return (self._sht.alm2map_spin if direction == "synth"
+                        else self._sht.map2alm_spin)
+            return (self._sht.alm2map if direction == "synth"
+                    else self._sht.map2alm)
+        if backend not in ("cuda_vpu", "cuda_mxu"):
+            raise ValueError(f"unknown backend {backend!r}")
+        if layout == "fused":
+            ok, reason = self._fusion_eligibility()
+            if not ok:
+                raise ValueError(f"fused layout unavailable: {reason}")
+            return (self._make_fused_synth if direction == "synth"
+                    else self._make_fused_anal)(backend[5:])
+        if layout in ("plain", "packed"):
+            return (self._make_kernel_synth if direction == "synth"
+                    else self._make_kernel_anal)(backend[5:], layout)
+        raise ValueError(f"unknown layout {layout!r}")
 
     def _synth_fn(self, backend: str, layout: Optional[str] = None):
         """Synthesis callable alm -> maps for ``backend`` (cached);
@@ -759,6 +787,28 @@ class Plan:
         for _ in range(iters):
             alm = alm + anal(maps - self.alm2map(alm))
         return alm
+
+    def warmup(self, directions=("synth", "anal")) -> "Plan":
+        """Run each direction once on zero inputs.
+
+        The serving pool's warm-up hook: afterwards the plan's seeds, its
+        callables and fused store, the kernel libraries and the cuFFT plans
+        are built, so the first real request pays none of it.  On CUDA it
+        then synchronises the current stream.  Safe to call from a
+        background thread while another thread runs the plan.
+        """
+        for d in directions:
+            if d == "synth":
+                self._synth_fn(self.backends["synth"])(torch.zeros(
+                    self._alm_shape, dtype=_CDTYPES[self.dtype],
+                    device=self.device))
+            else:
+                self._anal_fn(self.backends["anal"])(torch.zeros(
+                    self._maps_shape, dtype=_DTYPES[self.dtype],
+                    device=self.device))
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+        return self
 
     @property
     def grad_ready(self) -> dict:

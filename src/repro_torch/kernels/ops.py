@@ -41,6 +41,7 @@ without one they are built per call.
 from __future__ import annotations
 
 import os
+import threading
 
 import numpy as np
 import torch
@@ -115,13 +116,40 @@ def _route(device: torch.device) -> str:
                      "tensor")
 
 
+#: serialises the first build of each stored entry: one plan's store can be
+#: filled from two threads at once (a warm-up beside a served batch)
+_STORE_LOCK = threading.RLock()
+_MISSING = object()
+
+
 def _stored(store, key, build):
-    """``build()``, kept in the caller's ``store`` dict when one is given."""
+    """``build()``, kept in the caller's ``store`` dict when one is given.
+
+    An entry is built once, under a lock, and published only when the
+    device work behind its CUDA tensors is done: a thread that reads it
+    may launch on another stream than the one that built it."""
     if store is None:
         return build()
-    if key not in store:
-        store[key] = build()
-    return store[key]
+    value = store.get(key, _MISSING)
+    if value is _MISSING:
+        with _STORE_LOCK:
+            value = store.get(key, _MISSING)
+            if value is _MISSING:
+                value = build()
+                _settle(value)
+                store[key] = value
+    return value
+
+
+def _settle(value) -> None:
+    """Wait for the work queued on the current stream behind the CUDA
+    tensors of ``value`` (a tensor, or tuples of them)."""
+    if isinstance(value, torch.Tensor):
+        if value.is_cuda:
+            torch.cuda.current_stream(value.device).synchronize()
+    elif isinstance(value, (tuple, list)):
+        for v in value:
+            _settle(v)
 
 
 def _host_rows(m_vals) -> np.ndarray:
@@ -325,15 +353,13 @@ def _index(name: str, device: torch.device, build, cache):
     """The (index, mask) tensors ``build()`` gives, on ``device``; kept in
     ``cache`` under (name, device type, device index) when one is given.
     The caller's cache belongs to one layout."""
-    key = ("index", name, device.type, device.index)
-    if cache is not None and key in cache:
-        return cache[key]
-    idx, mask = build()
-    out = (torch.as_tensor(idx, dtype=torch.int64, device=device),
-           torch.as_tensor(mask, dtype=torch.bool, device=device))
-    if cache is not None:
-        cache[key] = out
-    return out
+    def tensors():
+        idx, mask = build()
+        return (torch.as_tensor(idx, dtype=torch.int64, device=device),
+                torch.as_tensor(mask, dtype=torch.bool, device=device))
+
+    return _stored(cache, ("index", name, device.type, device.index),
+                   tensors)
 
 
 def _masked_take(src, idx, mask, shape):

@@ -1386,3 +1386,131 @@ def test_autotune_propagates_a_kernel_error(dev, monkeypatch):
         repro_torch.make_plan("gl", 64, K=8, dtype="float32", mode="auto",
                               cache="off")
     transform.clear_plan_cache()
+
+
+# -- the serving engine on the card -------------------------------------------
+
+
+def _serve_traffic(l_max, seed):
+    """Eight spin-0 alm2map payloads and three map2alm ones (maps from a
+    K=1 plan), float32, numpy."""
+    from repro_torch.launch.serve import random_alm
+    rng = np.random.default_rng(seed)
+    alms = [random_alm(rng, l_max, 0, np.float32) for _ in range(8)]
+    plan = repro_torch.make_plan("gl", l_max, K=1, dtype="float32")
+    maps = [plan.alm2map(a[..., None]).cpu().numpy()[..., 0]
+            for a in alms[:3]]
+    return [("alm2map", a) for a in alms] + [("map2alm", m) for m in maps]
+
+
+@pytest.mark.parametrize("background", [False, True])
+def test_engine_on_the_card(dev, background):
+    """The engine at GL l_max 64 on the card, synchronous (``drain()``) and
+    double-buffered (``with engine:``): every request served, no warm-up
+    failed, each batch's results bit-equal to its pooled plan called
+    directly on the stacked payload, and each result within TOL of a K=1
+    plan of the batch's backend and layout."""
+    from repro_torch.core import transform
+    from repro_torch.serve import PlanSig, ShtEngine
+    l_max = 64
+    transform.clear_plan_cache()
+    traffic = _serve_traffic(l_max, seed=5)
+    eng = ShtEngine(max_k=8, warm_after=2)
+    assert eng.device.type == "cuda"
+    sig = dict(grid="gl", l_max=l_max, dtype="float32")
+
+    def submit_all():
+        return [eng.submit(direction=d, payload=p, **sig)
+                for d, p in traffic]
+
+    if background:
+        with eng:
+            futs = submit_all()
+            for f in futs:
+                f.result(timeout=300)
+    else:
+        futs = submit_all()
+        eng.drain()
+    s = eng.stats()
+    assert s["requests"]["completed"] == len(traffic)
+    assert s["requests"]["failed"] == 0 and s["warm_failures"] == []
+    assert s["pool"]["warmups"] == 1
+    for b in eng.batch_log:
+        plan = eng.pool.get(PlanSig(**sig), b["k_plan"])
+        d = "synth" if b["direction"] == "alm2map" else "anal"
+        payloads = [traffic[rid][1] for rid in b["rids"]]
+        pad = [np.zeros_like(payloads[0])] * (b["k_plan"] - len(payloads))
+        stacked = np.stack(payloads + pad, -1)
+        run = plan.alm2map if d == "synth" else plan.map2alm
+        direct = run(stacked).cpu().numpy()
+        ref = repro_torch.make_plan("gl", l_max, K=1, dtype="float32",
+                                    mode=plan.backends[d],
+                                    layout=plan.layouts[d])
+        ref_run = ref.alm2map if d == "synth" else ref.map2alm
+        for i, rid in enumerate(b["rids"]):
+            got = futs[rid].result()
+            assert np.array_equal(direct[..., i], got)
+            want = ref_run(traffic[rid][1][..., None]).cpu().numpy()[..., 0]
+            assert np.abs(got - want).max() <= TOL * np.abs(want).max()
+    transform.clear_plan_cache()
+
+
+def test_engine_uploads_on_its_staging_stream(dev, monkeypatch):
+    """A batch's pinned payload is copied to the card on the engine's
+    staging stream, and its transform runs on the execute stream: two
+    streams, neither the default one."""
+    from repro_torch.serve import ShtEngine
+    eng = ShtEngine(max_k=4)
+    seen = {"upload": [], "exec": []}
+    real_to = torch.Tensor.to
+
+    def to(self, *args, **kwargs):
+        if self.device.type == "cpu" and self.is_pinned():
+            seen["upload"].append(torch.cuda.current_stream().cuda_stream)
+        return real_to(self, *args, **kwargs)
+
+    class Probe:
+        def __init__(self, plan):
+            self._plan = plan
+
+        def __getattr__(self, name):
+            return getattr(self._plan, name)
+
+        def alm2map(self, x):
+            seen["exec"].append(torch.cuda.current_stream().cuda_stream)
+            return self._plan.alm2map(x)
+
+    monkeypatch.setattr(torch.Tensor, "to", to)
+    real_get = eng.pool.get
+    eng.pool.get = lambda sig, k: Probe(real_get(sig, k))
+    traffic = _serve_traffic(32, seed=6)[:3]
+    with eng:
+        futs = [eng.submit(direction=d, payload=p, grid="gl", l_max=32,
+                           dtype="float32") for d, p in traffic]
+        for f in futs:
+            f.result(timeout=300)
+    stage, execute = eng._stage_stream.cuda_stream, \
+        eng._exec_stream.cuda_stream
+    default = torch.cuda.default_stream().cuda_stream
+    assert len({stage, execute, default}) == 3
+    assert seen["upload"] and set(seen["upload"]) == {stage}
+    assert seen["exec"] and set(seen["exec"]) == {execute}
+
+
+@pytest.mark.parametrize("spin", [0, 2])
+def test_plan_warmup_on_the_card(dev, spin):
+    """``Plan.warmup`` at GL 64/K8 launches each direction's fused mxu
+    kernel once (and the analysis' reduce) and leaves the stream idle."""
+    from repro_torch.core import transform
+    transform.clear_plan_cache()
+    plan = repro_torch.make_plan("gl", 64, K=8, dtype="float32", spin=spin)
+    lc.reset_launches()
+    fused_cuda.reset_launches()
+    assert plan.warmup() is plan
+    s = "_spin" if spin else ""
+    assert fused_cuda.launches[f"synth_fused_mxu{s}"] == 1
+    assert fused_cuda.launches[f"anal_fused_mxu{s}"] == 1
+    assert lc.launches["anal_reduce"] == 1
+    assert sum(fused_cuda.launches.values()) == 2
+    assert torch.cuda.current_stream().query()
+    transform.clear_plan_cache()

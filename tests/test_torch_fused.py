@@ -306,8 +306,8 @@ def test_fused_plan_store_keeps_indices_and_skips_identity_tables(variant):
 
 def test_port_imports_neither_jax_nor_the_reference():
     """The port package and chip_smoke.py import nothing of JAX or of
-    ``repro``: a fresh interpreter with both blocked imports every module
-    and runs a fused CPU round trip."""
+    ``repro``: a fresh interpreter with both blocked imports every module,
+    runs a fused CPU round trip and serves two requests on the CPU."""
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     code = (
         "import sys\n"
@@ -323,6 +323,15 @@ def test_port_imports_neither_jax_nor_the_reference():
         " dtype=torch.float32, device='cpu')\n"
         "assert p.layouts['synth'] == 'fused'\n"
         "assert spectra.d_err(a, p.map2alm(p.alm2map(a))) < 1e-5\n"
+        "import repro_torch.roofline.admission, repro_torch.launch.serve\n"
+        "from repro_torch.serve import ShtEngine\n"
+        "eng = ShtEngine(max_k=2, device='cpu', p99_target_s=60.0)\n"
+        "futs = [eng.submit(direction='alm2map', grid='gl', l_max=8,\n"
+        "                   dtype='float32', payload=a[..., 0].numpy())\n"
+        "        for _ in range(2)]\n"
+        "eng.drain()\n"
+        "assert [f.result().shape for f in futs] == [(9, 18)] * 2\n"
+        "assert eng.batch_log[0]['n_requests'] == 2\n"
         "sys.path.insert(0, sys.argv[1])\n"
         "import chip_smoke\n")
     env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
