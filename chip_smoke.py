@@ -17,9 +17,10 @@ step whose backward must run the other direction's kernels).  Every phase
 runs twice: for the spin-0 transform pair and for the spin-2 one
 (``make_plan(..., spin=2)``: (E, B) alm <-> (Q, U) maps), whose paths
 launch the spin branch of every kernel.  The costliest checks (the GL
-4096/K1 spin-2 paths, the vpu fold check, the bf16 spin-2 path) run their
-kernels at full depth on every ring and hold them against their plain
-versions on every 8th ring (``RING_STRIDE``), for the time limit.  The
+4096/K1 spin-2 paths, HEALPix 2048/K1, the HEALPix 1024/K8 spin-2 paths,
+the vpu fold check, the bf16 spin-2 path) run their kernels at full depth
+on every ring and hold them against their plain versions on every 8th
+ring (``RING_STRIDE``), for the time limit.  The
 ragged-grid paths follow
 the GL ones: HEALPix (nside 1024, K 8, fused and plain, spin 0 and 2;
 nside 2048, K 1, fused), ring-uniform HEALPix (nside 1024) and ECP (l_max
@@ -42,8 +43,14 @@ requests (alm2map and map2alm, K buckets 1 to 8 over the fused kernels
 implies, each result to a K=1 plan of its batch's backend and layout, a
 replayed batch to the engine's bits; a synchronous engine whose p99
 target the H100 cost model caps at K 4; and ``python -m
-repro_torch.launch.serve`` on the card.  Each phase and each path logs
-its wall seconds and the seconds of its plain-version calls, gathered in a
+repro_torch.launch.serve`` on the card.  Last, the distributed transform
+(``core.dist_sht.DistSHT``) on a NCCL group of one rank at GL 2048/K8:
+both directions, spin 0 and 2, one exchange and two chunks, against the
+serial plain plan (synthesis bit for bit), each of 4 ranks' dealt rows
+through the stage-1 adapters (plain and packed kernels), the vpu variant
+at K 1, the bfloat16 exchange and a dot identity through autograd, with
+kernels 1-8 counted on the dist path.  Each phase and each path logs its
+wall seconds and the seconds of its plain-version calls, gathered in a
 timeline at the end.
 Prints the card's name and power limit, one JSON line of per-kernel
 numbers, and as its last line
@@ -711,12 +718,15 @@ SPINS = (0, 2)
 #: cost grows with the rings, while the error growth that matters grows
 #: with l, which keeps its full depth.
 RING_STRIDE = 8
-#: (mode, l_max, layout, spin) of the MAIN_PATH entries held on a ring
-#: subset: the GL 4096/K1 spin-2 paths (the spin branch of kernels 9, 11,
-#: 1 and 3), whose plain versions contract the spin update through an
-#: emulated FMA (``kref.fma_f32``)
-RING_SUBSET_PATHS = {("cuda_vpu", 4096, "fused", 2),
-                     ("cuda_vpu", 4096, "plain", 2)}
+#: (grid, size, layout, spin) of the paths held on a ring subset: the GL
+#: 4096/K1 spin-2 paths (the spin branch of kernels 9, 11, 1 and 3), whose
+#: plain versions contract the spin update through an emulated FMA
+#: (``kref.fma_f32``), and the ragged paths whose plain versions cost the
+#: most (HEALPix 2048/K1; HEALPix 1024/K8 spin 2, fused and plain)
+RING_SUBSET_PATHS = {("gl", 4096, "fused", 2), ("gl", 4096, "plain", 2),
+                     ("healpix", 2048, "fused", 0),
+                     ("healpix", 1024, "fused", 2),
+                     ("healpix", 1024, "plain", 2)}
 #: l_max of the vpu templates' fold check (GL, K 1), the main shape; held
 #: on a ring subset
 FOLD_VPU_L_MAX = 4096
@@ -2058,6 +2068,387 @@ def serve_cli() -> None:
                              f"{proc.stderr[-4000:]}")
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the distributed transform on the card (NCCL, world size 1)
+# ---------------------------------------------------------------------------
+
+#: (grid, l_max, K) of phase 8: the sht_cmb synth_2k_k8 shape; its
+#: process-group backend and its stage 1; its budget in seconds
+DIST_SHAPE = ("gl", 2048, 8)
+DIST_BACKEND = "nccl"
+DIST_STAGE1 = "cuda"
+DIST_BUDGET_S = 45.0
+#: the dist path against the serial plain plan of its shape, relative to
+#: max|serial|: the synthesis runs the same (m, ring) arithmetic and cuFFT
+#: lengths and should be bit-equal, so a gap names the stage that moved;
+#: the analysis sums its rings pair-interleaved over R_pad, another order
+DIST_TOL = 1e-6
+#: the bfloat16 exchange against the float32 one: the reference's band
+#: (tests/helpers/dist_sht_check.py)
+DIST_BF16_BAND = 2e-2
+#: the shard count of the dealing check (b)
+DIST_DEAL_SHARDS = 4
+#: the kernels phase 8 must launch: 1-8, the spin branches of (a)'s
+#: kernels, and the analyses' reduce
+DIST_KERNELS = ("synth_vpu", "synth_mxu", "anal_vpu", "anal_mxu",
+                "synth_packed_vpu", "synth_packed_mxu", "anal_packed_vpu",
+                "anal_packed_mxu", "synth_mxu_spin", "anal_mxu_spin",
+                "anal_reduce")
+
+
+@contextlib.contextmanager
+def world_of_one(dev):
+    """A process group of one rank on the card (a HashStore, no ports),
+    destroyed on the way out.  A NCCL that cannot start raises."""
+    import torch.distributed as tdist
+    kw = {}
+    if DIST_BACKEND == "nccl":
+        kw["device_id"] = torch.device("cuda", torch.cuda.current_device())
+    tdist.init_process_group(DIST_BACKEND, store=tdist.HashStore(), rank=0,
+                             world_size=1, **kw)
+    try:
+        yield
+    finally:
+        tdist.destroy_process_group()
+
+
+#: launches phase 8 made on the dist path (its engines and stage-1
+#: adapters; not the serial plans it is held against)
+DIST_COUNTS: dict = {}
+
+
+@contextlib.contextmanager
+def on_dist_path():
+    """Add the kernel launches made inside to DIST_COUNTS."""
+    torch.cuda.synchronize()
+    before = read_launches()
+    try:
+        yield
+    finally:
+        torch.cuda.synchronize()
+        for k, c in read_launches().items():
+            DIST_COUNTS[k] = DIST_COUNTS.get(k, 0) + c - before.get(k, 0)
+
+
+def numpy_alm(rng, l_max: int, K: int, spin: int, dev) -> torch.Tensor:
+    """Random float32 alm (an (E, B) pair at spin 2) from numpy, zero where
+    l < max(m, spin), m = 0 real, on ``dev``."""
+    shape = ((2,) if spin else ()) + (l_max + 1, l_max + 1, K)
+    a = (rng.uniform(-1, 1, shape) + 1j * rng.uniform(-1, 1, shape)).astype(
+        np.complex64)
+    a *= sht.alm_mask(l_max, l_max, spin=spin)[..., None]
+    a[..., 0, :, :] = a[..., 0, :, :].real
+    return torch.as_tensor(a).to(dev)
+
+
+def dist_calls(d):
+    """(synthesis, analysis) of a DistSHT on dense alm / grid-order maps,
+    the plan's whole-array calls: pack, the engine's collective transform,
+    scatter back."""
+    sp = d.plan
+
+    def synth(alm):
+        if alm.ndim == 4:
+            qu = d.alm2map_spin(torch.stack([sp.pack_alm(alm[0]),
+                                             sp.pack_alm(alm[1])]))
+            return torch.stack([sp.scatter_map(qu[0]),
+                                sp.scatter_map(qu[1])])
+        return sp.scatter_map(d.alm2map(sp.pack_alm(alm)))
+
+    def anal(maps):
+        if maps.ndim == 4:
+            eb = d.map2alm_spin(torch.stack([sp.gather_map(maps[0]),
+                                             sp.gather_map(maps[1])]))
+            return torch.stack([sp.unpack_alm(eb[0]), sp.unpack_alm(eb[1])])
+        return sp.unpack_alm(d.map2alm(sp.gather_map(maps)))
+
+    return synth, anal
+
+
+def rel_gap(got, want) -> float:
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def held_dist(what: str, got, want, *, bits: bool = False) -> bool:
+    """Log a dist output against its serial counterpart (bit equality and
+    the gap relative to max|want|), hold it to DIST_TOL, or to the bit
+    with ``bits``; returns the bit equality."""
+    torch.cuda.synchronize()
+    equal = torch.equal(got, want)
+    gap = rel_gap(got, want)
+    log(f"  {what}: bit-equal {equal}, max|d| / max|serial| {gap:.3e} "
+        f"(limit {'the bit' if bits else f'{DIST_TOL:g}'})")
+    if (bits and not equal) or not gap <= DIST_TOL:
+        raise AssertionError(f"{what}: {gap} (bit-equal {equal})")
+    return equal
+
+
+def serial_delta(serial, alm) -> torch.Tensor:
+    """The serial plain plan's Delta (M, R, C), channels [re | im] (spin 2:
+    [Q re | U re | Q im | U im]): its staged synthesis up to the phase
+    stage."""
+    K = serial.K
+    m_t, x32, pmm, pms, mp_t = serial._row_seeds()
+    a = serial._eb_rows(alm) if serial.spin else \
+        torch.cat([alm.real, alm.imag], dim=-1).to(torch.float32)
+    out = ops.synth(a, m_t, x32, pmm, pms, l_max=serial.l_max,
+                    variant=ops.pick_variant(2 * K), layout="plain",
+                    mp_vals=mp_t)[:, 0]
+    if not serial.spin:
+        return out
+    dq_re, dq_im, du_re, du_im = legendre.spin_unpack_delta(out[..., :K],
+                                                            out[..., K:])
+    return torch.cat([dq_re, du_re, dq_im, du_im], dim=-1)
+
+
+def which_stage_moved(d, serial, alm) -> str:
+    """Stage 1's Delta of the dist engine (rows and rings put back in the
+    serial order) against the serial plan's: equal means the phase stage
+    moved."""
+    from repro_torch.core.plan import _slot_of
+    sp = d.plan
+    a_loc = torch.stack([sp.pack_alm(alm[0]), sp.pack_alm(alm[1])]) \
+        if serial.spin else sp.pack_alm(alm)
+    got = d.delta_local(a_loc)
+    dev = got.device
+    rows = torch.as_tensor(_slot_of(sp.m_flat, sp.m_max + 1), device=dev)
+    rings = torch.as_tensor(_slot_of(sp.ring_order, sp.grid.n_rings),
+                            device=dev)
+    got = got.index_select(0, rows).index_select(1, rings)
+    want = serial_delta(serial, alm)
+    if torch.equal(got, want):
+        return "stage 1 bit-equal: the phase stage moved"
+    return f"stage 1 moved ({rel_gap(got, want):.3e})"
+
+
+def dist_exchange_ms(d, C: int, dev, to_rings: bool) -> tuple:
+    """(ms, bytes, GB/s) of one exchange alone on the Delta block of one
+    chunk, C channels (to the rings: (m_local, R_pad, C); back: (Mp,
+    r_local, C)), CUDA events."""
+    sp = d.plan
+    shape = (sp.m_local, sp.r_pad, C) if to_rings else \
+        (sp.n_shards * sp.m_local, sp.r_local, C)
+    blk = torch.rand(shape, device=dev)
+
+    def once():
+        pending = []
+        raw = d._exchange(blk, to_rings=to_rings, pending=pending)
+        d._wait(pending)
+        return raw
+
+    ms = cuda_time_ms(once)
+    nb = blk.numel() * blk.element_size()
+    return ms, nb, nb / ms / 1e6
+
+
+def dist_full_width(dev, spin: int) -> dict:
+    """(a) at DIST_SHAPE: DistSHT (the kernels' stage 1, plain layout) at C
+    1 and 2 against the serial plain cuda_mxu plan on the same numpy
+    inputs; both directions held, timed (host clock, mean of 3 after a
+    warm-up, beside the serial plan's), the exchange timed alone, the
+    round trip checked.  Returns what (b), (d) and (e) reuse."""
+    from repro_torch.core.dist_sht import DistSHT
+    from repro_torch.core.plan import SHTPlan
+    grid, l_max, K = DIST_SHAPE
+    serial = repro_torch.make_plan(grid, l_max, K=K, dtype="float32",
+                                   mode="cuda_mxu", layout="plain", spin=spin)
+    sp = SHTPlan(serial.grid, l_max, l_max, 1)
+    alm = numpy_alm(np.random.default_rng(80 + spin), l_max, K, spin, dev)
+    want_s = serial.alm2map(alm)
+    want_a = serial.map2alm(want_s)
+    t_s = host_ms(lambda: serial.alm2map(alm))
+    t_a = host_ms(lambda: serial.map2alm(want_s))
+    log(f"  spin {spin} serial cuda_mxu [plain] {where(serial)} K {K}: "
+        f"alm2map {t_s:.2f} ms, map2alm {t_a:.2f} ms")
+    engines, outs = {}, {}
+    for C in (1, 2):
+        d = engines[C] = DistSHT(sp, device=dev, dtype="float32",
+                                 stage1=DIST_STAGE1, comm_chunks=C,
+                                 layout="plain")
+        synth, anal = dist_calls(d)
+        with on_dist_path():
+            got_s, got_a = synth(alm), anal(want_s)
+        axis = sp.chunk_schedule(K, 1 + (spin > 0), C)[0]
+        what = f"spin {spin} C {C} " + (
+            "(one exchange)" if axis == "none" else f"({axis} axis)")
+        if not held_dist(f"dist alm2map {what}", got_s, want_s):
+            log(f"    {which_stage_moved(d, serial, alm)}")
+        held_dist(f"dist map2alm {what}", got_a, want_a)
+        with on_dist_path():
+            err = spectra.d_err(alm, anal(got_s))
+            ms_s = host_ms(lambda: synth(alm))
+            ms_a = host_ms(lambda: anal(want_s))
+        log(f"  dist {what}: alm2map {ms_s:.2f} ms, map2alm {ms_a:.2f} ms "
+            f"(serial {t_s:.2f}, {t_a:.2f}); round trip d_err {err:.3e} "
+            f"(limit {ROUNDTRIP_TOL:g})")
+        if not err < ROUNDTRIP_TOL:
+            raise AssertionError(f"dist {what}: round trip {err}")
+        outs[C] = got_s
+    same_bits(f"dist alm2map spin {spin} C 2 = C 1", outs[2], outs[1])
+    for C in (1, 2):
+        for to_rings in (True, False):
+            ms, nb, rate = dist_exchange_ms(
+                engines[C], 2 * (1 + (spin > 0)) * K // C, dev, to_rings)
+            log(f"  exchange alone, spin {spin} C {C} "
+                f"{'to the rings' if to_rings else 'back to the m rows'}: "
+                f"{ms:.3f} ms a chunk, {nb / 1e6:.1f} MB, {rate:.1f} GB/s "
+                "(world size 1: a copy to itself)")
+    return {"serial": serial, "engines": engines, "alm": alm,
+            "maps": want_s, "synth": outs[1]}
+
+
+def dist_dealt_rows(dev, run: dict) -> None:
+    """(b) SHTPlan(n_shards=DIST_DEAL_SHARDS) at (a)'s shape: each rank's
+    dealt rows through the stage-1 adapters on the plain (kernels 2, 4)
+    and packed (6, 8) layouts; the synthesis bit for bit against the
+    matching rows of (a)'s exchanged Delta (both kernels compute each
+    (m, ring) alike), padding rows exactly zero; the analysis, on (a)'s
+    weighted Delta rows, against (a)'s analysis of them."""
+    from repro_torch.core.plan import SHTPlan, _slot_of
+    d1 = run["engines"][1]
+    sp1 = d1.plan
+    grid, l_max, K = DIST_SHAPE
+    sp = SHTPlan(sp1.grid, l_max, l_max, DIST_DEAL_SHARDS)
+    geo, log_mu = sp.ring_geometry, legendre.log_mu(l_max)
+    delta1 = d1.delta_local(sp1.pack_alm(run["alm"]))       # (M, R1, 2K)
+    dw_re, dw_im = d1._anal_fft(sp1.gather_map(run["maps"]))
+    a1 = ops.alm_from_delta_auto(dw_re, dw_im, sp1.m_flat, sp1.ring_geometry,
+                                 log_mu, l_max=l_max, variant="mxu")
+    slot = _slot_of(sp1.m_flat, l_max + 1)
+    R1, a_pk = sp1.r_pad, sp1.pack_alm(run["alm"])
+    for layout in ("plain", "packed"):
+        for r in range(DIST_DEAL_SHARDS):
+            rows = sp.m_assignment[r]
+            live = torch.as_tensor(rows >= 0, device=dev)
+            idx = torch.as_tensor(slot[np.maximum(rows, 0)], device=dev)
+            a = a_pk.index_select(0, idx) * live[:, None, None]
+            with on_dist_path():
+                d_re, d_im = ops.delta_from_alm_auto(
+                    a.real.contiguous(), a.imag.contiguous(), rows, geo,
+                    log_mu, l_max=l_max, variant="mxu", layout=layout,
+                    store={})
+            got = torch.cat([d_re, d_im], dim=-1)
+            want = delta1.index_select(0, idx)
+            pad_zero = not bool(got[~live].any())
+            what = (f"rank {r} of {DIST_DEAL_SHARDS} [{layout}] "
+                    f"({int(live.sum())} rows + {int((~live).sum())} "
+                    f"padding)")
+            held_dist(f"{what} stage-1 synthesis vs (a)'s Delta rows",
+                      got[live][:, :R1], want[live], bits=True)
+            if not pad_zero:
+                raise AssertionError(f"{what}: padding rows not zero")
+            pad = torch.zeros((len(rows), sp.r_pad - R1, K), device=dev)
+            w_re = torch.cat([dw_re.index_select(0, idx), pad], dim=1)
+            w_im = torch.cat([dw_im.index_select(0, idx), pad], dim=1)
+            with on_dist_path():
+                g_re, g_im = ops.alm_from_delta_auto(
+                    w_re * live[:, None, None], w_im * live[:, None, None],
+                    rows, geo, log_mu, l_max=l_max, variant="mxu",
+                    layout=layout, store={})
+            held_dist(f"{what} stage-1 analysis vs (a)'s rows",
+                      torch.cat([g_re, g_im], -1)[live],
+                      torch.cat(a1, -1).index_select(0, idx)[live])
+            if bool(torch.cat([g_re, g_im], -1)[~live].any()):
+                raise AssertionError(f"{what}: analysis padding rows not "
+                                     "zero")
+
+
+def dist_vpu(dev) -> None:
+    """(c) GL 2048 K 1 spin 0 C 1 (the same grid: its cuFFT plans are
+    built): the vpu variant through the dist path on the plain layout
+    (kernels 1, 3) and the packed one (5, 7) against the serial plain
+    cuda_vpu plan."""
+    from repro_torch.core.dist_sht import DistSHT
+    from repro_torch.core.plan import SHTPlan
+    grid, l_max, _ = DIST_SHAPE
+    serial = repro_torch.make_plan(grid, l_max, K=1, dtype="float32",
+                                   mode="cuda_vpu", layout="plain")
+    sp = SHTPlan(serial.grid, l_max, l_max, 1)
+    alm = numpy_alm(np.random.default_rng(82), l_max, 1, 0, dev)
+    want_s = serial.alm2map(alm)
+    want_a = serial.map2alm(want_s)
+    for layout in ("plain", "packed"):
+        d = DistSHT(sp, device=dev, dtype="float32", stage1=DIST_STAGE1,
+                    layout=layout)
+        synth, anal = dist_calls(d)
+        with on_dist_path():
+            got_s, got_a = synth(alm), anal(want_s)
+            err = spectra.d_err(alm, anal(got_s))
+        held_dist(f"dist alm2map K 1 [{layout}] (vpu)", got_s, want_s)
+        held_dist(f"dist map2alm K 1 [{layout}] (vpu)", got_a, want_a)
+        log(f"  dist K 1 [{layout}]: alm2map {host_ms(lambda: synth(alm)):.2f}"
+            f" ms, map2alm {host_ms(lambda: anal(want_s)):.2f} ms (serial "
+            f"plain {host_ms(lambda: serial.alm2map(alm)):.2f}, "
+            f"{host_ms(lambda: serial.map2alm(want_s)):.2f}); round trip "
+            f"d_err {err:.3e}")
+        if not err < ROUNDTRIP_TOL:
+            raise AssertionError(f"dist K 1 [{layout}]: round trip {err}")
+
+
+def dist_bf16(dev, run: dict) -> None:
+    """(d) the bfloat16 exchange once, spin 0 K 8: against the float32
+    exchange, inside the reference's band (and not equal: the cast ran)."""
+    from repro_torch.core.dist_sht import DistSHT
+    d = DistSHT(run["engines"][1].plan, device=dev, dtype="float32",
+                stage1=DIST_STAGE1, comm_dtype="bfloat16")
+    with on_dist_path():
+        got = dist_calls(d)[0](run["alm"])
+    gap = rel_gap(got, run["synth"])
+    log(f"  bf16 exchange, alm2map spin 0 K {DIST_SHAPE[2]}: against the "
+        f"float32 exchange {gap:.3e} (band (0, {DIST_BF16_BAND:g}))")
+    if not 0 < gap < DIST_BF16_BAND:
+        raise AssertionError(f"bf16 exchange: {gap}")
+
+
+def dist_gradient(run: dict) -> None:
+    """(e) <A x, y> against <x, A^T y> through autograd on the dist path at
+    (a)'s shape, spin 0: the backward of each direction runs the other
+    direction's kernels and the reverse exchange."""
+    import types
+    d = run["engines"][1]
+    synth, anal = dist_calls(d)
+    s = run["serial"]
+    shim = types.SimpleNamespace(
+        alm2map=synth, map2alm=anal, _maps_shape=s._maps_shape,
+        device=s.device, spin=0, l_max=s.l_max, m_max=s.m_max, K=s.K)
+    with on_dist_path():
+        err = dot_identity_err(shim, 83)
+    log(f"  dist spin 0 {where(s)} K {s.K}: <A x, y> vs <x, A^T y> through "
+        f"autograd, rel. gap {err:.3e} (limit {DOT_TOL:g})")
+    if not err < DOT_TOL:
+        raise AssertionError(f"dist dot identity {err}")
+
+
+def dist_phase(dev) -> None:
+    """Phase 8: (a)-(e) in one process group of one rank; the launch
+    counters set to 0 before, every launch on the dist path counted
+    (:func:`on_dist_path`), every kernel of DIST_KERNELS held to have
+    launched there."""
+    with world_of_one(dev):
+        reset_launches()
+        DIST_COUNTS.clear()
+        with stamped("(a) full width, spin 0"):
+            run = dist_full_width(dev, 0)
+        with stamped("(b) dealt rows"):
+            dist_dealt_rows(dev, run)
+        with stamped("(a) full width, spin 2"):
+            dist_full_width(dev, 2)
+        with stamped("(c) vpu"):
+            dist_vpu(dev)
+        with stamped("(d) bf16 exchange"):
+            dist_bf16(dev, run)
+        with stamped("(e) gradient"):
+            dist_gradient(run)
+        log("  launches on the dist path in phase 8: "
+            f"{ {k: c for k, c in DIST_COUNTS.items() if c} }")
+        missing = [k for k in DIST_KERNELS if not DIST_COUNTS.get(k)]
+        if missing:
+            raise AssertionError(f"phase 8 never launched {missing}")
+        del run
+    repro_torch.clear_plan_cache()
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -2103,7 +2494,7 @@ def main() -> int:
     with stamped("phase 3"):
         for spin in SPINS:
             for mode, l_max, K, layout in MAIN_PATH:
-                stride = RING_STRIDE if (mode, l_max, layout, spin) in \
+                stride = RING_STRIDE if ("gl", l_max, layout, spin) in \
                     RING_SUBSET_PATHS else 1
                 with stamped(f"gl {l_max} {mode} {layout} spin {spin}"):
                     kernels += main_path(dev, mode, l_max, K, layout, spin,
@@ -2120,9 +2511,11 @@ def main() -> int:
             "HEALPix, ECP")
         for grid, size, mode, K, layout, spins in RAGGED_PATHS:
             for spin in spins:
+                stride = RING_STRIDE if (grid, size, layout, spin) in \
+                    RING_SUBSET_PATHS else 1
                 with stamped(f"{grid} {size} {mode} {layout} spin {spin}"):
                     kernels += main_path(dev, mode, size, K, layout, spin,
-                                         grid)
+                                         grid, stride=stride)
         log(f"{elapsed()}   -- the bfloat16 branch of kernels 10 and 12")
         for grid, size, K, spin, stride in BF16_PATHS:
             with stamped(f"{grid} {size} bf16 spin {spin}"):
@@ -2176,6 +2569,12 @@ def main() -> int:
         del reqs
         repro_torch.clear_plan_cache()
         torch.cuda.empty_cache()
+
+    log(f"{elapsed()} phase 8: the distributed transform, {DIST_BACKEND} at "
+        f"world size 1, {DIST_SHAPE[0]} l_max {DIST_SHAPE[1]} K "
+        f"{DIST_SHAPE[2]} (budget {DIST_BUDGET_S:g} s)")
+    with stamped("phase 8"):
+        dist_phase(dev)
 
     log("timeline: wall s | plain-version s")
     for label, wall, plain in TIMELINE:

@@ -405,26 +405,41 @@ def _uniform_anal_core(maps, m, n, phi0):
     return A.real, A.imag
 
 
-def uniform_synth(delta: torch.Tensor, m_vals, n: int, phi0) -> torch.Tensor:
+def _row_scale(scale_rows, dtype, device):
+    """``scale_rows`` (R,) as an (R, 1, 1) tensor, or None."""
+    if scale_rows is None:
+        return None
+    return torch.as_tensor(np.asarray(scale_rows), dtype=dtype,
+                           device=device)[:, None, None]
+
+
+def uniform_synth(delta: torch.Tensor, m_vals, n: int, phi0,
+                  scale_rows=None) -> torch.Tensor:
     """Synthesis phase stage: delta (M, R, K) complex -> maps (R, n, K) real.
 
     Bins past n/2 wrap to the conjugate half; the Nyquist bin doubles its
     real part; rows landing on one bin are summed (``index_add_``).
+    ``scale_rows`` (R,) scales the rings on the way out (the distributed
+    transform's valid-ring mask, so its dummy rings give zeros).
     Differentiable: the backward is fac_m times the weight-free analysis
-    of the map cotangent.
+    of the (scaled) map cotangent.
     """
     m = np.asarray(m_vals)
     rdt = torch.float64 if delta.dtype == torch.complex128 else torch.float32
     fac = torch.as_tensor(_fac_rows(m, rdt), device=delta.device)
+    sr = _row_scale(scale_rows, rdt, delta.device)
 
     def fwd(_, ops):
-        return _uniform_synth_body(ops[0], ops[1], m, n, phi0)
+        s = _uniform_synth_body(ops[0], ops[1], m, n, phi0)
+        return s if sr is None else s * sr
 
     def bwd(_, t):
-        a_re, a_im = _uniform_anal_core(t, m, n, phi0)
+        a_re, a_im = _uniform_anal_core(t if sr is None else t * sr, m, n,
+                                        phi0)
         return fac * a_re, fac * a_im
 
-    return linear_pair(fwd, bwd, {"phi0": phi0}, (delta.real, delta.imag))
+    return linear_pair(fwd, bwd, {"phi0": phi0, "scale_rows": scale_rows},
+                       (delta.real, delta.imag))
 
 
 def uniform_anal(maps: torch.Tensor, m_vals, n: int, phi0,
@@ -465,23 +480,28 @@ def _bucket_anal_core(maps, bidx, phi0):
     return A.real, A.imag
 
 
-def bucket_synth(delta: torch.Tensor, bidx: BucketIndex,
-                 phi0) -> torch.Tensor:
+def bucket_synth(delta: torch.Tensor, bidx: BucketIndex, phi0,
+                 scale_rows=None) -> torch.Tensor:
     """Synthesis phase stage on a ragged grid: delta (M, R, K) complex ->
-    maps (R, width, K) real, zero past each ring's n_phi.  Differentiable:
-    the backward is fac_m times the weight-free bucket analysis of the
-    cotangent (exact under the divisor embedding)."""
+    maps (R, width, K) real, zero past each ring's n_phi; ``scale_rows``
+    as in :func:`uniform_synth`.  Differentiable: the backward is fac_m
+    times the weight-free bucket analysis of the (scaled) cotangent (exact
+    under the divisor embedding)."""
     rdt = torch.float64 if delta.dtype == torch.complex128 else torch.float32
     fac = torch.as_tensor(_fac_rows(bidx.m_vals, rdt), device=delta.device)
+    sr = _row_scale(scale_rows, rdt, delta.device)
 
     def fwd(_, ops):
-        return _bucket_synth_body(ops[0], ops[1], bidx, phi0)
+        s = _bucket_synth_body(ops[0], ops[1], bidx, phi0)
+        return s if sr is None else s * sr
 
     def bwd(_, t):
-        a_re, a_im = _bucket_anal_core(t, bidx, phi0)
+        a_re, a_im = _bucket_anal_core(t if sr is None else t * sr, bidx,
+                                       phi0)
         return fac * a_re, fac * a_im
 
-    return linear_pair(fwd, bwd, {"phi0": phi0}, (delta.real, delta.imag))
+    return linear_pair(fwd, bwd, {"phi0": phi0, "scale_rows": scale_rows},
+                       (delta.real, delta.imag))
 
 
 def bucket_anal(maps: torch.Tensor, bidx: BucketIndex, phi0,

@@ -20,6 +20,14 @@ Backends
     ``torch.fft`` for the FFTs.  ``vpu`` is one ring per thread (small K),
     ``mxu`` contracts P panels (large K).  On a CPU plan they run the
     kernels' plain versions (``kernels.ref``).
+``dist``
+    The two-stage distributed transform (``core.dist_sht.DistSHT``) over
+    the ranks of the initialised ``torch.distributed`` process group: the
+    plan's m rows and rings dealt by ``core.plan.SHTPlan``, one all-to-all
+    a direction (chunked and pipelined with ``comm_chunks``).  Its stage 1
+    runs the ``torch`` engine in float64 and the plain-layout kernels in
+    float32 (their plain versions on a CPU plan).  Every rank builds the
+    plan and calls each transform with the same arguments.
 
 Layouts of the kernel backends (``plan.layouts``): ``fused``, the default
 where the plan is eligible (``Plan._fusion_eligibility``), runs the fused
@@ -58,8 +66,7 @@ layout (``plan.grad_ready``): each layer carries an adjoint pair
 (``core.autodiff``), so a backward runs the opposite-direction transform
 of the same layer, kernels included.  First order only.
 
-What the port does not have yet raises a ``ValueError`` that names the
-ROADMAP.md item it waits on; nothing is substituted silently.
+Nothing is substituted silently: a request the plan cannot run raises.
 """
 
 from __future__ import annotations
@@ -82,15 +89,11 @@ from repro_torch.core.sht import SHT, alm_mask, random_alm, random_alm_spin
 __all__ = ["Plan", "make_plan", "available_backends", "backend_eligibility",
            "clear_plan_cache", "drop_plan", "BACKENDS"]
 
-BACKENDS = ("torch", "cuda_vpu", "cuda_mxu")
+BACKENDS = ("torch", "cuda_vpu", "cuda_mxu", "dist")
 KERNEL_BACKENDS = ("cuda_vpu", "cuda_mxu")
 
 _DTYPES = {"float64": torch.float64, "float32": torch.float32}
 _CDTYPES = {"float64": torch.complex128, "float32": torch.complex64}
-
-#: what the reference offers and the port does not yet, with the ROADMAP.md
-#: Open items section 1 item each waits on
-_WAITING = {"mode dist": 11}
 
 #: the seconds the timed calls of one autotune corner cover (at most 9
 #: calls; a slower corner is timed once)
@@ -98,11 +101,6 @@ _MEASURE_S = 0.05
 
 #: make_plan memoisation: signature key -> Plan
 _PLANS: dict[str, "Plan"] = {}
-
-
-def _not_ported(what: str) -> ValueError:
-    return ValueError(f"{what} is not ported yet: it waits for ROADMAP.md "
-                      f"Open items section 1, item {_WAITING[what]}")
 
 
 def clear_plan_cache() -> None:
@@ -138,23 +136,53 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-def backend_eligibility(grid: RingGrid, dtype: str) -> dict[str, Optional[str]]:
+def _world_size() -> int:
+    """Ranks of the initialised default process group (1 without one)."""
+    import torch.distributed as dist
+    return dist.get_world_size() if dist.is_initialized() else 1
+
+
+def _slowest_rank(values, device) -> list:
+    """Each value's maximum over the ranks of the default process group
+    (one ``all_reduce(MAX)``, on the group's device kind), as floats; the
+    values as they are without a group of >= 2 ranks."""
+    if _world_size() < 2:
+        return [float(v) for v in values]
+    import torch.distributed as dist
+    from repro_torch.core.dist_sht import _group_device
+    dev = device if _group_device(None) == "cuda" else torch.device("cpu")
+    t = torch.tensor([float(v) for v in values], dtype=torch.float64,
+                     device=dev)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    return t.tolist()
+
+
+def backend_eligibility(grid: RingGrid, dtype: str,
+                        n_devices: Optional[int] = None
+                        ) -> dict[str, Optional[str]]:
     """Why-or-why-not per backend: ``{backend: None | skip_reason}``.
 
     The kernels compute in float32, so a float64 signature restricts the
-    default choice to the ``torch`` oracle.
+    default choice to the ``torch`` oracle; ``dist`` needs >= 2 devices,
+    the ranks of an initialised process group (``n_devices``: that count;
+    None: the default group's size, 1 without one).
     """
     out: dict[str, Optional[str]] = {b: None for b in BACKENDS}
     if dtype != "float32":
         reason = (f"kernels compute in float32 (plan dtype {dtype!r}); "
                   "force mode='cuda_*' to accept the precision drop")
         out["cuda_vpu"] = out["cuda_mxu"] = reason
+    n_dev = _world_size() if n_devices is None else n_devices
+    if n_dev < 2:
+        out["dist"] = (f"needs >= 2 devices (visible: {n_dev}): the ranks of "
+                       "an initialised torch.distributed process group")
     return out
 
 
-def available_backends(grid: RingGrid, dtype: str) -> list[str]:
+def available_backends(grid: RingGrid, dtype: str,
+                       n_devices: Optional[int] = None) -> list[str]:
     """Backends eligible for this signature."""
-    elig = backend_eligibility(grid, dtype)
+    elig = backend_eligibility(grid, dtype, n_devices)
     return [b for b in BACKENDS if elig[b] is None]
 
 
@@ -170,7 +198,9 @@ class Plan:
                  dtype: str, *, mode: str, fold: bool, device: torch.device,
                  signature_key: str, seeds_key: str, spin: int = 0,
                  cache_kind: str = "memory",
-                 cache_dir: Optional[str] = None):
+                 cache_dir: Optional[str] = None,
+                 n_shards: Optional[int] = None,
+                 comm_chunks: Union[int, str] = "auto"):
         self.grid = grid
         self.l_max = int(l_max)
         self.m_max = int(m_max)
@@ -205,6 +235,14 @@ class Plan:
         #: direction (``mode="model"`` / ``"auto"``; see _predict_all)
         self.predicted_s: dict = {}
         self.measured_s: dict = {}
+        self._n_shards = n_shards
+        #: "auto" or a forced exchange chunk count (the dist backend)
+        self._comm_spec = comm_chunks
+        #: exchange chunk count per direction of the dist backend (None
+        #: elsewhere), and its engines per chunk count
+        self.comm_chunks: dict = {}
+        self._dists: dict = {}
+        self._dist_splan = None
 
     @property
     def phase(self):
@@ -304,9 +342,12 @@ class Plan:
 
     # -- per-backend execution ------------------------------------------------
 
-    def _fn(self, direction: str, backend: str, layout: Optional[str]):
+    def _fn(self, direction: str, backend: str, layout):
+        """The callable of one direction, backend and layout (for ``dist``
+        the exchange chunk count C), built once."""
         if layout is None:
-            layout = self.layouts.get(direction)
+            layout = (self.comm_chunks.get(direction) or 1
+                      if backend == "dist" else self.layouts.get(direction))
         key = (direction, backend, layout)
         fn = self._fns.get(key)
         if fn is None:
@@ -324,6 +365,8 @@ class Plan:
                         else self._sht.map2alm_spin)
             return (self._sht.alm2map if direction == "synth"
                     else self._sht.map2alm)
+        if backend == "dist":
+            return self._make_dist(direction, int(layout))
         if backend not in ("cuda_vpu", "cuda_mxu"):
             raise ValueError(f"unknown backend {backend!r}")
         if layout == "fused":
@@ -337,13 +380,13 @@ class Plan:
                     else self._make_kernel_anal)(backend[5:], layout)
         raise ValueError(f"unknown layout {layout!r}")
 
-    def _synth_fn(self, backend: str, layout: Optional[str] = None):
+    def _synth_fn(self, backend: str, layout=None):
         """Synthesis callable alm -> maps for ``backend`` (cached);
         ``layout`` overrides the plan's (``"plain"`` | ``"packed"`` |
-        ``"fused"``)."""
+        ``"fused"``; for ``dist`` the exchange chunk count C)."""
         return self._fn("synth", backend, layout)
 
-    def _anal_fn(self, backend: str, layout: Optional[str] = None):
+    def _anal_fn(self, backend: str, layout=None):
         """Analysis callable maps -> alm for ``backend`` (cached);
         ``layout`` as in :meth:`_synth_fn`."""
         return self._fn("anal", backend, layout)
@@ -475,6 +518,66 @@ class Plan:
 
         return fn
 
+    # -- the distributed transform (backend "dist") ---------------------------
+
+    def _n_devices(self) -> int:
+        """The dist backend's device count: ``n_shards``, else the default
+        process group's size."""
+        return self._n_shards or _world_size()
+
+    def _dealing(self):
+        """The dist backend's ``SHTPlan`` (built once)."""
+        with self._lock:
+            if self._dist_splan is None:
+                from repro_torch.core.plan import SHTPlan
+                self._dist_splan = SHTPlan(self.grid, self.l_max, self.m_max,
+                                           self._n_devices())
+            return self._dist_splan
+
+    def _dist_engine(self, comm_chunks: int = 1):
+        """The distributed engine of one exchange chunk count (cached per C;
+        the dealing plan is shared).  Stage 1 runs the kernels in float32
+        (their plain versions on a CPU plan) and the ``torch`` engine in
+        float64."""
+        C = max(1, int(comm_chunks))
+        with self._lock:
+            if C not in self._dists:
+                from repro_torch.core.dist_sht import DistSHT
+                stage1 = "torch" if self.dtype == "float64" else (
+                    "cuda" if self.device.type == "cuda" else "plain")
+                self._dists[C] = DistSHT(
+                    self._dealing(), device=self.device, dtype=self.dtype,
+                    stage1=stage1, comm_chunks=C, layout="plain")
+            return self._dists[C]
+
+    def _make_dist(self, direction: str, comm_chunks: int):
+        """One direction of the dist backend on whole arrays: the plan's
+        dense alm / grid maps packed into the dealing plan's order, the
+        engine's collective transform, and back."""
+        d = self._dist_engine(comm_chunks)
+        sp = d.plan
+        if direction == "synth":
+            if self.spin:
+                def fn(alm_eb):
+                    qu = d.alm2map_spin(torch.stack(
+                        [sp.pack_alm(alm_eb[0]), sp.pack_alm(alm_eb[1])]))
+                    return torch.stack([sp.scatter_map(qu[0]),
+                                        sp.scatter_map(qu[1])])
+            else:
+                def fn(alm):
+                    return sp.scatter_map(d.alm2map(sp.pack_alm(alm)))
+            return fn
+        if self.spin:
+            def fn(maps_qu):
+                eb = d.map2alm_spin(torch.stack(
+                    [sp.gather_map(maps_qu[0]), sp.gather_map(maps_qu[1])]))
+                return torch.stack([sp.unpack_alm(eb[0]),
+                                    sp.unpack_alm(eb[1])])
+        else:
+            def fn(maps):
+                return sp.unpack_alm(d.map2alm(sp.gather_map(maps)))
+        return fn
+
     # -- fused pipeline (layout "fused") --------------------------------------
 
     def _fusion_eligibility(self) -> tuple:
@@ -581,9 +684,18 @@ class Plan:
                 kw = dict(l_max=self.l_max, m_max=self.m_max,
                           n_rings=g.n_rings, n_phi=g.max_n_phi, K=self.K,
                           direction=d, hw=hw,
+                          n_devices=self._n_devices() if b == "dist" else 1,
                           fft_lengths=self._sht.phase.fft_lengths,
                           spin=self.spin)
-                if b in KERNEL_BACKENDS:
+                if b == "dist":
+                    # the overlapped pipeline model: the chunk count C with
+                    # the least modelled time
+                    per = self._dist_times(d)
+                    c_best = min(per, key=per.get)
+                    out[b][d] = per[c_best]
+                    out[b][f"{d}_chunks"] = c_best
+                    out[b].update({f"{d}_{c}": v for c, v in per.items()})
+                elif b in KERNEL_BACKENDS:
                     per = {lay: roofline.predict_sht_time(
                                b, layout="packed" if lay == "fused" else lay,
                                pipeline="fused" if lay == "fused"
@@ -596,6 +708,46 @@ class Plan:
                 else:
                     out[b][d] = roofline.predict_sht_time(b, **kw)
         return out
+
+    def _dist_model_kw(self, direction: str) -> dict:
+        """The cost model's arguments for the dist backend (the FFT lengths
+        from the grid's buckets, which are the phase stage's, so that no
+        phase stage is built for them)."""
+        from repro_torch.roofline import analysis as roofline
+        g = self.grid
+        return dict(l_max=self.l_max, m_max=self.m_max, n_rings=g.n_rings,
+                    n_phi=g.max_n_phi, K=self.K, direction=direction,
+                    hw=roofline.hardware_for(self.device),
+                    n_devices=self._n_devices(),
+                    fft_lengths=g.bucket_lengths(), spin=self.spin)
+
+    def _dist_chunk_variants(self, direction: str) -> tuple:
+        """Candidate exchange chunk counts of the dist backend: C = 1 and
+        the overlap model's pick (``roofline.predict_comm_chunks``), or the
+        forced count alone."""
+        if isinstance(self._comm_spec, (int, np.integer)):
+            return (max(1, int(self._comm_spec)),)
+        from repro_torch.roofline import analysis as roofline
+        c = roofline.predict_comm_chunks(**self._dist_model_kw(direction))
+        return tuple(sorted({1, int(c)}))
+
+    def _dist_times(self, direction: str) -> dict:
+        """The dist backend's modelled seconds per candidate chunk count
+        (the overlapped pipeline)."""
+        from repro_torch.roofline import analysis as roofline
+        kw = self._dist_model_kw(direction)
+        return {c: roofline.predict_sht_time("dist", overlap=True,
+                                             comm_chunks=c, **kw)
+                for c in self._dist_chunk_variants(direction)}
+
+    def _corner_layouts(self, backend: str, direction: str) -> tuple:
+        """What one backend's autotune corners vary: the kernel layouts, the
+        dist chunk counts, or nothing (``(None,)``)."""
+        if backend in KERNEL_BACKENDS:
+            return self._kernel_layouts()
+        if backend == "dist":
+            return self._dist_chunk_variants(direction)
+        return (None,)
 
     def _chardb(self):
         """The characterization store of this plan's hardware (on disk iff
@@ -612,18 +764,26 @@ class Plan:
         workload on the same hardware reuses the timing.  ``lp_size`` stays
         a coordinate (the panel length, one value in the port)."""
         from repro_torch.kernels.fused import FUSED_LP_SIZE
-        return dict(
+        fields = dict(
             grid=self.grid.name, n_rings=self.grid.n_rings,
             n_phi=self.grid.max_n_phi, l_max=self.l_max, m_max=self.m_max,
             K=self.K, dtype=self.dtype, spin=self.spin, fold=self.fold,
             backend=backend, direction=direction, layout=layout or "-",
-            n_devices=1, lp_size=FUSED_LP_SIZE)
+            n_devices=self._n_devices() if backend == "dist" else 1,
+            lp_size=FUSED_LP_SIZE)
+        if backend == "dist":
+            # the layout slot carries the exchange chunk count
+            fields["layout"] = "-"
+            fields["comm_chunks"] = max(1, int(layout or 1))
+        return fields
 
-    def _timed_us(self, fn, arg) -> float:
+    def _timed_us(self, fn, arg, collective: bool = False) -> float:
         """Microseconds of ``fn(arg)``: one warm-up call, then the median of
         the timed calls, one for a call of at least ``_MEASURE_S`` and
         otherwise enough to cover it, 3 to 9.  CUDA events on the card (the
-        stream's span, host gaps included), the host clock on the CPU."""
+        stream's span, host gaps included), the host clock on the CPU.  A
+        ``collective`` corner (dist) counts its calls from the slowest
+        rank's first time, so every rank makes as many calls."""
         cuda = self.device.type == "cuda"
 
         def once() -> float:
@@ -643,10 +803,23 @@ class Plan:
         if cuda:
             torch.cuda.synchronize(self.device)
         times = [once()]
-        if times[0] < _MEASURE_S * 1e6:
-            reps = math.ceil(_MEASURE_S * 1e6 / max(times[0], 1.0))
+        first = _slowest_rank([times[0]], self.device)[0] if collective \
+            else times[0]
+        if first < _MEASURE_S * 1e6:
+            reps = math.ceil(_MEASURE_S * 1e6 / max(first, 1.0))
             times += [once() for _ in range(min(9, max(3, reps)) - 1)]
         return float(np.median(times))
+
+    def _dist_corner(self, db, measure, fields) -> tuple:
+        """``(us, status)`` of a collective corner: reused only when every
+        rank holds a fresh record of it (else every rank measures it, so
+        each runs the same collectives)."""
+        from repro_torch.roofline import chardb
+        if chardb.smoke_mode():
+            return db.get_or_measure(measure, **fields)
+        fresh = 1.0 if db.lookup(**fields) is not None else 0.0
+        everyone = -_slowest_rank([-fresh], self.device)[0]
+        return db.get_or_measure(measure, reuse=everyone > 0, **fields)
 
     def _measure_all(self) -> dict:
         """Measured seconds per candidate per direction, through the
@@ -654,9 +827,11 @@ class Plan:
         anything, a missing or stale one gets a warm-up call and the median
         of a few timed ones (:meth:`_timed_us`), and with
         ``REPRO_TORCH_CHARDB_SMOKE=1`` it is skipped (inf).  The store is
-        written once, after the sweep.  Keys as :meth:`_predict_all`'s, plus ``f"{d}_{layout}"`` per kernel
-        layout.  A corner that raises (a build, launch or CUDA error)
-        propagates: nothing is ranked last in its place."""
+        written once, after the sweep.  With the dist backend among the
+        candidates the table then takes every corner's time on the slowest
+        rank (one ``all_reduce(MAX)``), so every rank decides alike.  Keys
+        as :meth:`_predict_all`'s.  A corner that raises (a build, launch
+        or CUDA error) propagates: nothing is ranked last in its place."""
         db = self._chardb()
         gen = torch.Generator().manual_seed(0)
         cdt = _CDTYPES[self.dtype]
@@ -665,28 +840,50 @@ class Plan:
                    device=self.device).to(cdt)
         maps = torch.zeros(self._maps_shape, dtype=_DTYPES[self.dtype],
                            device=self.device)
-        out: dict = {}
+        times: dict = {}
+        skipped: set = set()
         with db.batch():
             for b in self.candidates:
-                out[b] = {}
-                layouts = self._kernel_layouts() if b in KERNEL_BACKENDS \
-                    else (None,)
                 for d, arg in (("synth", alm), ("anal", maps)):
-                    best, best_lay = float("inf"), None
-                    for lay in layouts:
-                        us, status = db.get_or_measure(
-                            lambda: self._timed_us(self._fn(d, b, lay), arg),
-                            **self._corner_fields(b, d, lay))
-                        t = float("inf") if us is None else us * 1e-6
+                    for lay in self._corner_layouts(b, d):
+                        fields = self._corner_fields(b, d, lay)
+
+                        def measure(b=b, d=d, lay=lay, arg=arg):
+                            fn = self._fn(d, b, lay)
+                            if b == "dist":
+                                return self._timed_us(fn, arg,
+                                                      collective=True)
+                            return self._timed_us(fn, arg)
+
+                        us, status = (self._dist_corner(db, measure, fields)
+                                      if b == "dist" else
+                                      db.get_or_measure(measure, **fields))
+                        times[(b, d, lay)] = float("inf") if us is None \
+                            else us * 1e-6
                         if status == "skipped":
-                            out[b][f"{d}_skipped"] = True
-                        if lay is not None:
-                            out[b][f"{d}_{lay}"] = t
-                        if t < best:
-                            best, best_lay = t, lay
-                    out[b][d] = best
-                    if best_lay is not None:
-                        out[b][f"{d}_layout"] = best_lay
+                            skipped.add((b, d))
+        if "dist" in self.candidates:
+            keys = list(times)
+            times = dict(zip(keys, _slowest_rank([times[k] for k in keys],
+                                                 self.device)))
+        out: dict = {}
+        for b in self.candidates:
+            out[b] = {}
+            slot = "chunks" if b == "dist" else "layout"
+            for d in ("synth", "anal"):
+                lays = self._corner_layouts(b, d)
+                best, best_lay = float("inf"), None
+                for lay in lays:
+                    t = times[(b, d, lay)]
+                    if lay is not None:
+                        out[b][f"{d}_{lay}"] = t
+                    if t < best:
+                        best, best_lay = t, lay
+                out[b][d] = best
+                if (b, d) in skipped:
+                    out[b][f"{d}_skipped"] = True
+                if best_lay is not None:
+                    out[b][f"{d}_{slot}"] = best_lay
         return out
 
     def _fill_layouts(self, source: dict) -> None:
@@ -703,6 +900,24 @@ class Plan:
                 or self.predicted_s.get(b, {}).get(f"{d}_layout")
             self.layouts[d] = lay or "packed"
 
+    def _fill_comm_chunks(self, source: dict) -> None:
+        """``self.comm_chunks`` per direction of the dist backend: the
+        forced count, else the winner in ``source`` (``{"dist":
+        {"<dir>_chunks": C}}``), the overlap model's pick filling a gap;
+        None on the other backends."""
+        self.comm_chunks = {}
+        for d in ("synth", "anal"):
+            if self.backends.get(d) != "dist":
+                self.comm_chunks[d] = None
+            elif isinstance(self._comm_spec, (int, np.integer)):
+                self.comm_chunks[d] = max(1, int(self._comm_spec))
+            else:
+                c = source.get("dist", {}).get(f"{d}_chunks")
+                if c is None:
+                    per = self._dist_times(d)
+                    c = min(per, key=per.get)
+                self.comm_chunks[d] = max(1, int(c))
+
     def _choose_backends(self, layout: Optional[str] = None) -> None:
         """``self.backends`` and ``self.layouts`` by ``self.mode``: a forced
         backend with ``layout`` (the static default), the cost model's
@@ -713,6 +928,7 @@ class Plan:
         if self.mode in BACKENDS:
             self.backends = {"synth": self.mode, "anal": self.mode}
             self.layouts = {d: layout for d in ("synth", "anal")}
+            self._fill_comm_chunks({})
             return
         self.predicted_s = self._predict_all()
         if self.mode == "model":
@@ -720,6 +936,7 @@ class Plan:
                 d: min(self.candidates, key=lambda b: self.predicted_s[b][d])
                 for d in ("synth", "anal")}
             self._fill_layouts(self.predicted_s)
+            self._fill_comm_chunks(self.predicted_s)
             return
         # the decision holds for this hardware and timing method only, as
         # the corners it was taken from do
@@ -729,12 +946,19 @@ class Plan:
             hardware=chardb.hardware_fingerprint(self.device)[0])
         cached = plancache.load_decision(dkey, cache=self._cache_kind,
                                          directory=self._cache_dir)
-        if cached is not None and all(
-                cached.get(d) in self.candidates for d in ("synth", "anal")):
+        hit = cached is not None and all(
+            cached.get(d) in self.candidates for d in ("synth", "anal"))
+        if "dist" in self.candidates:
+            # the sweep runs collectives: every rank reads its decision,
+            # or every rank measures
+            hit = -_slowest_rank([-float(hit)], self.device)[0] > 0
+        if hit:
             self.backends = {d: cached[d] for d in ("synth", "anal")}
             self.measured_s = cached.get("measured", {})
             self._fill_layouts(self.measured_s)
             self.layouts.update(cached.get("layouts") or {})
+            self._fill_comm_chunks(self.measured_s)
+            self.comm_chunks.update(cached.get("comm_chunks") or {})
             self.cache_events["decision"] = "hit"
             return
         self.measured_s = self._measure_all()
@@ -751,6 +975,7 @@ class Plan:
                     self.candidates, key=lambda b: self.predicted_s[b][d])
                 fell_back = True
         self._fill_layouts(self.measured_s)
+        self._fill_comm_chunks(self.measured_s)
         if fell_back:
             # a decision not measured must not shadow a later real one
             self.cache_events["decision"] = "model-fallback"
@@ -758,7 +983,8 @@ class Plan:
         self.cache_events["decision"] = "autotuned"
         plancache.save_decision(
             dkey, {**self.backends, "measured": self.measured_s,
-                   "layouts": dict(self.layouts)},
+                   "layouts": dict(self.layouts),
+                   "comm_chunks": dict(self.comm_chunks)},
             cache=self._cache_kind, directory=self._cache_dir)
 
     # -- public API -----------------------------------------------------------
@@ -845,10 +1071,21 @@ class Plan:
         """Bytes of the analysis partials buffer of the plan's analysis
         backend and layout: (rows, n_chunks, l_max + 1, 2K) on the plain
         layout, (n_slots, n_chunks, S, 2K) on the slot layouts, float32;
-        0 on the ``torch`` backend."""
+        0 on the ``torch`` backend.  On the dist backend in float32: the
+        plain layout's buffer of one rank's rows over every plan ring
+        slot."""
         backend = self.backends.get("anal", "torch")
-        if backend == "torch":
+        if backend == "torch" or (backend == "dist"
+                                  and self.dtype == "float64"):
             return 0
+        if backend == "dist":
+            from repro_torch.kernels import legendre_cuda
+            from repro_torch.kernels.ops import pick_variant
+            sp = self._dealing()
+            shape = legendre_cuda.partials_shape(
+                pick_variant(2 * self.K), (1 + (self.spin != 0)) * sp.m_local,
+                sp.r_pad, self.l_max, 2 * self.K)
+            return 4 * int(np.prod(shape))
         variant = backend[5:]
         n_k = (self.grid.n_rings + 1) // 2 if self.fold else self.grid.n_rings
         if self.layouts.get("anal") == "plain":
@@ -898,6 +1135,12 @@ class Plan:
                                   else "staged")
                               for d in ("synth", "anal")},
             },
+            "comm": {
+                "spec": self._comm_spec,
+                "chunks": dict(self.comm_chunks),
+                "pipelined": {d: (self.comm_chunks.get(d) or 1) > 1
+                              for d in ("synth", "anal")},
+            },
             "candidates": list(self.candidates),
             "skipped": dict(self.skipped),
             # the packed-vs-plain grid accounting of the Legendre stage
@@ -936,8 +1179,10 @@ class Plan:
             lay = d["layouts"].get(direction)
             pred = d["predicted_s"].get(chosen, {}).get(direction)
             meas = d["measured_s"].get(chosen, {}).get(direction)
+            cc = d["comm"]["chunks"].get(direction)
             bits = [f"  {direction:5s} -> {chosen}"
-                    + (f"[{lay}]" if lay else "")]
+                    + (f"[{lay}]" if lay else "")
+                    + (f"[C={cc}]" if chosen == "dist" and cc else "")]
             if pred is not None:
                 bits.append(f"predicted {pred * 1e6:.1f} us")
             if meas is not None and np.isfinite(meas):
@@ -1015,7 +1260,9 @@ def make_plan(grid: Union[str, RingGrid] = "gl", l_max: Optional[int] = None,
               dtype: str = "float64", mode: Optional[str] = None,
               fold: bool = False, spin: int = 0,
               layout: Optional[str] = None, cache: str = "auto",
-              cache_dir: Optional[str] = None, device=None) -> Plan:
+              cache_dir: Optional[str] = None, device=None,
+              n_shards: Optional[int] = None,
+              comm_chunks: Union[int, str] = "auto") -> Plan:
     """Build (or fetch) the transform plan for a problem signature.
 
     grid : ``"gl"``, ``"ecp"``, ``"healpix"``, ``"healpix_ring"`` or a
@@ -1026,14 +1273,21 @@ def make_plan(grid: Union[str, RingGrid] = "gl", l_max: Optional[int] = None,
     nside : HEALPix resolution (required for the HEALPix family).
     K : number of maps transformed together.
     dtype : ``"float64"`` or ``"float32"``.
-    mode : a backend name (``"torch"``, ``"cuda_vpu"``, ``"cuda_mxu"``);
+    mode : a backend name (``"torch"``, ``"cuda_vpu"``, ``"cuda_mxu"``,
+        ``"dist"``);
         ``None``: ``torch`` for float64, else the kernel variant of the
         static ``2K >= 16 -> mxu`` rule (the reference's default is
         ``"auto"``; the port keeps the static rule so that no first plan
         times every corner); ``"model"``: the cost model's fastest backend
         and layout per direction; ``"auto"``: the measured fastest, per
         direction (every candidate corner timed once per hardware, the
-        decision cached).  ``"dist"`` raises (not ported yet).
+        decision cached), among them ``"dist"`` where it is eligible; every
+        rank then decides alike (the cost model is pure arithmetic; the
+        measured corners take the slowest rank's time).  ``"dist"`` runs
+        the distributed transform over the default process group's ranks:
+        every rank calls ``make_plan`` and each transform alike; it raises
+        without a group of >= 2 ranks, as the reference does with fewer
+        than 2 devices.
     fold : the equator fold (symmetric grids only, spin 0 only).
     spin : 0 (scalar) or 2 (polarisation): a spin-2 plan transforms (E, B)
         alm ``(2, M, L, K)`` to/from (Q, U) maps ``(2, R, n_phi, K)``;
@@ -1050,13 +1304,17 @@ def make_plan(grid: Union[str, RingGrid] = "gl", l_max: Optional[int] = None,
         ``"off"``: where the precompute and the autotune decision are kept.
     cache_dir : the disk tier's directory (see ``core.cache.cache_dir``).
     device : ``None`` (the CUDA device, which must be visible), ``"cuda"``,
-        ``"cuda:N"`` or ``"cpu"``.
+        ``"cuda:N"`` or ``"cpu"``.  A dist plan's device is its rank's: the
+        CPU for a gloo group, the rank's card for a NCCL one.
+    n_shards : the dist backend's shard count (default: the process
+        group's size, which it must equal to run).
+    comm_chunks : the dist backend's exchange chunk count: ``"auto"`` (the
+        overlap model's pick, measured against C = 1 under
+        ``mode="auto"``) or an int >= 1, forced.
 
     Calling ``make_plan`` twice with one signature (cache kind and
     directory included) returns the same object.
     """
-    if f"mode {mode}" in _WAITING:
-        raise _not_ported(f"mode {mode}")
     if mode is not None and mode not in ("auto", "model") + BACKENDS:
         raise ValueError(f"unknown mode {mode!r}: expected None, 'auto', "
                          f"'model' or a backend name {BACKENDS}")
@@ -1069,6 +1327,12 @@ def make_plan(grid: Union[str, RingGrid] = "gl", l_max: Optional[int] = None,
         raise ValueError(f"unsupported spin {spin!r}: expected 0 or 2")
     if spin and fold:
         raise ValueError("fold is not supported for spin transforms")
+    if comm_chunks != "auto":
+        if isinstance(comm_chunks, bool) or not isinstance(
+                comm_chunks, (int, np.integer)) or comm_chunks < 1:
+            raise ValueError(f"comm_chunks must be 'auto' or an int >= 1, "
+                             f"got {comm_chunks!r}")
+        comm_chunks = int(comm_chunks)
     if dtype not in _DTYPES:
         raise ValueError(f"dtype must be 'float64' or 'float32', got {dtype!r}")
     if cache == "auto":
@@ -1116,6 +1380,7 @@ def make_plan(grid: Union[str, RingGrid] = "gl", l_max: Optional[int] = None,
     sig_key = plancache.signature_key(
         "plan", l_max=l_max, m_max=m_max, K=K, dtype=dtype, mode=mode,
         fold=fold, spin=spin, layout=layout, device=str(dev),
+        n_shards=n_shards, comm_chunks=comm_chunks,
         cache_kind=cache_kind, cache_dir=cache_dir, **grid_sig)
     if sig_key in _PLANS:
         plancache.stats().memory_hits += 1
@@ -1125,9 +1390,13 @@ def make_plan(grid: Union[str, RingGrid] = "gl", l_max: Optional[int] = None,
                                         spin=spin, **grid_sig)
     plan = Plan(g, l_max, m_max, K, dtype, mode=mode, fold=fold, spin=spin,
                 device=dev, signature_key=sig_key, seeds_key=seeds_key,
-                cache_kind=cache_kind, cache_dir=cache_dir)
-    elig = backend_eligibility(g, dtype)
+                cache_kind=cache_kind, cache_dir=cache_dir,
+                n_shards=n_shards, comm_chunks=comm_chunks)
+    elig = backend_eligibility(g, dtype, n_shards)
     plan.candidates = [b for b in BACKENDS if elig[b] is None]
+    if mode == "dist" and elig["dist"] is not None:
+        raise ValueError(f"backend 'dist' unavailable for this signature: "
+                         f"{elig['dist']} (candidates: {plan.candidates})")
     if mode in BACKENDS and mode not in plan.candidates:
         # an explicit kernel request under float64 runs in float32 inside
         plan.candidates.append(mode)

@@ -19,9 +19,11 @@ plain version (``kernels.ref``); a CUDA tensor launches the hand-written
 kernel (``kernels.legendre_cuda`` for plain, ``kernels.fused_cuda`` for
 packed) or raises; any other device raises.  Each direction is
 differentiable: its backward is the other direction with the same seeds,
-variant and layout (``core.autodiff.linear_pair``).  The dist-path
-adapters (``delta_from_alm_spin_auto`` and its kin) wait for ROADMAP.md
-Open items section 1, item 11.
+variant and layout (``core.autodiff.linear_pair``).  The stage-1
+adapters of the distributed transform (:func:`delta_from_alm_auto`,
+:func:`alm_from_delta_auto` and their spin twins) run a rank's dealt m rows
+over every plan ring slot through :func:`synth` / :func:`anal`, on the
+layout and variant their caller names.
 
 Variant choice (:func:`pick_variant`) takes the reference's override
 under the port's own name, ``$REPRO_TORCH_LEGENDRE_VARIANT`` (``vpu`` |
@@ -51,7 +53,9 @@ from repro_torch.core.autodiff import linear_pair
 from repro_torch.kernels import pack as kpack
 from repro_torch.kernels import ref as kref
 
-__all__ = ["synth", "anal", "pick_variant", "pick_layout", "spin_rows"]
+__all__ = ["synth", "anal", "pick_variant", "pick_layout", "spin_rows",
+           "delta_from_alm_auto", "alm_from_delta_auto",
+           "delta_from_alm_spin_auto", "alm_from_delta_spin_auto"]
 
 #: the panel length of the packed and fused layouts (the reference's
 #: default, ``kernels.fused.FUSED_LP_SIZE``)
@@ -338,6 +342,135 @@ def anal(dw, m_vals, x, pmm, pms, *, l_max: int, fold: bool = False,
     return _pair("anal", dw, m_vals, x, pmm, pms, l_max=l_max, fold=fold,
                  variant=variant, layout=layout, store=store,
                  mp_vals=mp_vals)
+
+
+# ---------------------------------------------------------------------------
+# stage-1 adapters of the distributed transform (core.dist_sht)
+# ---------------------------------------------------------------------------
+
+
+def _adapter_seeds(m_vals, geom, *, fold, device, store, log_mu_all=None,
+                   m_max=None):
+    """(rows, x, pmm, pms, m' rows or None) of a rank's m rows over the plan
+    ring slots ``geom`` (``SHTPlan.ring_geometry``), on ``device``: the
+    scalar seeds with ``log_mu_all``, else the spin-2 rows (``spin_rows``)
+    and their seeds; fold seeds the northern slot of each ring pair.  Kept
+    in ``store`` under ``"adapter_seeds"``."""
+    def build():
+        sel = slice(None, None, 2) if fold else slice(None)
+        x = np.asarray(geom["cos_theta"])[sel]
+        sin = np.asarray(geom["sin_theta"])[sel]
+        if log_mu_all is not None:
+            rows, mp = _host_rows(m_vals), None
+            pmm, pms = kref.prepare_seeds(rows, sin, log_mu_all)
+        else:
+            rows, mp = spin_rows(_host_rows(m_vals))
+            pmm, pms = kref.prepare_seeds_spin(rows, mp, x, sin, m_max=m_max)
+        return _operands(rows, x, pmm, pms, device, mp)
+
+    return _stored(store, "adapter_seeds", build)
+
+
+def delta_from_alm_auto(a_re, a_im, m_vals, geom, log_mu_all, *, l_max: int,
+                        fold: bool = False, dtype=torch.float32,
+                        variant: str | None = None, layout: str = "plain",
+                        store: dict | None = None):
+    """Stage-1 synthesis of a rank's m rows through the kernels.
+
+    a_re / a_im (M, l_max+1, K) on one device; m_vals (M,) the rank's
+    global m per row (-1: padding, zeros out); geom the plan's
+    ``ring_geometry`` (numpy).  Returns (d_re, d_im), each (M, R_pad, K)
+    in plan slot order and ``dtype``.  The kernels compute in float32;
+    ``fold`` runs them on each ring pair's northern slot and recombines
+    the even and odd parts into the pair's two slots.  ``variant`` and
+    ``layout`` (``"plain"``, the default, or ``"packed"``) are the
+    caller's: the variant is not picked here from this call's K.
+    ``store``: a dict the caller keeps for this row set and device (seeds,
+    packed layout, gather indices).  Differentiable (:func:`synth`).
+    """
+    M, _, K = a_re.shape
+    m_t, x_t, pmm, pms, _ = _adapter_seeds(
+        m_vals, geom, fold=fold, device=a_re.device, store=store,
+        log_mu_all=log_mu_all)
+    a = torch.cat([a_re, a_im], dim=-1).to(torch.float32)
+    out = synth(a, m_t, x_t, pmm, pms, l_max=l_max, fold=fold,
+                variant=variant, layout=layout, store=store)  # (M, P, R', 2K)
+    if fold:
+        e, o = out[:, 0], out[:, 1]
+        out2 = torch.stack([e + o, e - o], dim=2).reshape(
+            M, 2 * e.shape[1], 2 * K)
+    else:
+        out2 = out[:, 0]
+    return out2[..., :K].to(dtype), out2[..., K:].to(dtype)
+
+
+def alm_from_delta_auto(dw_re, dw_im, m_vals, geom, log_mu_all, *,
+                        l_max: int, fold: bool = False, dtype=torch.float32,
+                        variant: str | None = None, layout: str = "plain",
+                        store: dict | None = None):
+    """Stage-1 analysis of a rank's m rows through the kernels: weighted
+    dw_re / dw_im (M, R_pad, K) in plan slot order -> (a_re, a_im), each
+    (M, l_max+1, K) in ``dtype``; with ``fold`` each ring pair is summed
+    into its (north + south, north - south) planes.  The rest as
+    :func:`delta_from_alm_auto`.  Differentiable (:func:`anal`)."""
+    K = dw_re.shape[-1]
+    m_t, x_t, pmm, pms, _ = _adapter_seeds(
+        m_vals, geom, fold=fold, device=dw_re.device, store=store,
+        log_mu_all=log_mu_all)
+    dw = torch.cat([dw_re, dw_im], dim=-1).to(torch.float32)
+    if fold:
+        n, s = dw[:, 0::2], dw[:, 1::2]
+        dwk = torch.stack([n + s, n - s], dim=1)          # (M, 2, Rn, 2K)
+    else:
+        dwk = dw[:, None]
+    out = anal(dwk.contiguous(), m_t, x_t, pmm, pms, l_max=l_max, fold=fold,
+               variant=variant, layout=layout, store=store)
+    return out[..., :K].to(dtype), out[..., K:].to(dtype)
+
+
+def delta_from_alm_spin_auto(e_re, e_im, b_re, b_im, m_vals, geom, *,
+                             l_max: int, m_max: int, dtype=torch.float32,
+                             variant: str | None = None,
+                             layout: str = "plain",
+                             store: dict | None = None):
+    """Spin-2 stage-1 synthesis of a rank's m rows through the kernels'
+    spin branch: (E, B) parts, each (M, l_max+1, K) -> (dq_re, dq_im,
+    du_re, du_im), each (M, R_pad, K) in ``dtype``.  The 2M rows
+    [m' = -2 | +2] (:func:`spin_rows`); fold off.  The rest as
+    :func:`delta_from_alm_auto` (``store``: one per row set, apart from
+    the scalar rows')."""
+    K = e_re.shape[-1]
+    m2, x_t, pmm, pms, mp2 = _adapter_seeds(
+        m_vals, geom, fold=False, device=e_re.device, store=store,
+        m_max=m_max)
+    a2_re, a2_im = legendre.spin_pack_alm(e_re, e_im, b_re, b_im)
+    a = torch.cat([a2_re, a2_im], dim=-1).to(torch.float32)
+    out = synth(a, m2, x_t, pmm, pms, l_max=l_max, variant=variant,
+                layout=layout, store=store, mp_vals=mp2)  # (2M, 1, R, 2K)
+    flat = out[:, 0]
+    return legendre.spin_unpack_delta(flat[..., :K].to(dtype),
+                                      flat[..., K:].to(dtype))
+
+
+def alm_from_delta_spin_auto(dq_re, dq_im, du_re, du_im, m_vals, geom, *,
+                             l_max: int, m_max: int, dtype=torch.float32,
+                             variant: str | None = None,
+                             layout: str = "plain",
+                             store: dict | None = None):
+    """Spin-2 stage-1 analysis of a rank's m rows: weighted (Delta_Q,
+    Delta_U) parts, each (M, R_pad, K) -> (e_re, e_im, b_re, b_im), each
+    (M, l_max+1, K) in ``dtype``.  The rest as
+    :func:`delta_from_alm_spin_auto`."""
+    K = dq_re.shape[-1]
+    m2, x_t, pmm, pms, mp2 = _adapter_seeds(
+        m_vals, geom, fold=False, device=dq_re.device, store=store,
+        m_max=m_max)
+    d2_re, d2_im = legendre.spin_pack_delta(dq_re, dq_im, du_re, du_im)
+    dw = torch.cat([d2_re, d2_im], dim=-1).to(torch.float32)
+    out = anal(dw[:, None].contiguous(), m2, x_t, pmm, pms, l_max=l_max,
+               variant=variant, layout=layout, store=store, mp_vals=mp2)
+    return legendre.spin_unpack_alm(out[..., :K].to(dtype),
+                                    out[..., K:].to(dtype))
 
 
 def _pad_to(n: int, mult: int) -> int:

@@ -17,10 +17,12 @@ H100 SXM at 700 W, and its backend efficiencies are fitted to the port's
 own times on that card (``scripts/fit_h100_model.py`` prints the fit and
 names the PERF.md row of each input).
 
-Not ported: the ``dist`` backend's model (``predict_comm_chunks``, the
-overlapped exchange) waits for the distributed transform (ROADMAP.md Open
-items section 1, item 11); ``analyze_compiled``, ``parse_hlo_collectives``
-and ``collective_bytes`` read XLA's compiled HLO, which PyTorch does not
+The ``dist`` backend (``core.dist_sht``) is modelled as the reference
+does: the best local kernel's time over the device count plus one
+all-to-all of the Delta block on the wire, or, with a chunked exchange,
+the overlapped pipeline; :func:`predict_comm_chunks` picks its chunk
+count.  Not ported: ``analyze_compiled``, ``parse_hlo_collectives`` and
+``collective_bytes`` read XLA's compiled HLO, which PyTorch does not
 produce.
 """
 
@@ -32,7 +34,7 @@ import numpy as np
 
 __all__ = ["Hardware", "HW_HOST", "HW_H100", "BackendModel",
            "BACKEND_MODELS", "sht_work", "legendre_panel_counts",
-           "predict_sht_time", "hardware_for"]
+           "predict_sht_time", "predict_comm_chunks", "hardware_for"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -80,7 +82,10 @@ class BackendModel:
 #: 2048/K8 spin-0 pair (the same table: 12.32, 14.54 ms) with the vpu
 #: recurrence rate (both run ``csrc/recurrence.cuh``'s step), ``torch`` to
 #: its GL 2048/K8 spin-0 float32 pair timed by ``chip_smoke.py`` phase 6
-#: (3280.4 | 2468.7 ms; PERF.md §6, the phase 6 result).
+#: (3280.4 | 2468.7 ms; PERF.md §6, the phase 6 result).  ``dist``: on
+#: ``host-cpu`` the reference's figures; on ``h100-sxm`` the ``cuda_mxu``
+#: efficiencies as they are (its ranks run the staged mxu kernels), not a
+#: fit: no multi-card time of the port exists to fit them to.
 BACKEND_MODELS = {
     "host-cpu": {
         "torch": BackendModel("torch", vector_eff=0.01, anal_penalty=1.0),
@@ -88,6 +93,8 @@ BACKEND_MODELS = {
                                  anal_penalty=1.3),
         "cuda_mxu": BackendModel("cuda_mxu", vector_eff=0.06,
                                  matrix_eff=0.4, anal_penalty=1.2),
+        "dist": BackendModel("dist", vector_eff=0.06, matrix_eff=0.4,
+                             anal_penalty=1.2),
     },
     "h100-sxm": {
         "torch": BackendModel("torch", vector_eff=0.0008408,
@@ -96,6 +103,8 @@ BACKEND_MODELS = {
                                  anal_penalty=1.109),
         "cuda_mxu": BackendModel("cuda_mxu", vector_eff=0.2391,
                                  matrix_eff=0.2454, anal_penalty=1.180),
+        "dist": BackendModel("dist", vector_eff=0.2391, matrix_eff=0.2454,
+                             anal_penalty=1.180),
     },
 }
 
@@ -158,8 +167,10 @@ def legendre_panel_counts(l_max: int, m_max: int, *, lp_size: int = 128,
 
 def predict_sht_time(backend: str, *, l_max: int, m_max: int, n_rings: int,
                      n_phi: int, K: int, direction: str = "synth",
-                     hw: Hardware = HW_H100, fft_lengths=None, spin: int = 0,
-                     layout: str = None, pipeline: str = "staged") -> float:
+                     hw: Hardware = HW_H100, n_devices: int = 1,
+                     fft_lengths=None, spin: int = 0, layout: str = None,
+                     pipeline: str = "staged", overlap: bool = False,
+                     comm_chunks: int = 1) -> float:
     """Predicted seconds of one transform direction on ``backend``.
 
     compute = recurrence / vector rate + accumulation / (matrix or vector
@@ -168,8 +179,19 @@ def predict_sht_time(backend: str, *, l_max: int, m_max: int, n_rings: int,
     ``direction="anal"``.  On the kernel backends ``layout`` (``"plain"`` |
     ``"packed"``) scales the Legendre terms by that grid's executed steps
     over the triangular ideal, and ``pipeline="fused"`` drops Delta's bytes
-    (it never reaches device memory).  The reference's formula, less its
-    ``dist`` branch.
+    (it never reaches device memory).
+
+    ``dist`` on ``n_devices > 1``: the local time over ``n_devices`` plus
+    one all-to-all of the (M, R, ncomp 2K) Delta block, its wire bytes over
+    ``hw.link_bw``; with ``overlap=True`` and ``comm_chunks=C > 1`` the
+    chunked pipeline instead,
+
+        comp/C + comm_chunk + (C-1) * max(comp/C, comm_chunk),
+
+    where ``comm_chunk = comm/C + hw.coll_latency`` (each chunk's exchange
+    hides behind the adjacent chunk's compute, at one more collective
+    latency a chunk).  ``C=1`` gives the serial sum.  The reference's
+    formula.
     """
     models = BACKEND_MODELS[hw.name]
     if backend not in models:
@@ -180,9 +202,9 @@ def predict_sht_time(backend: str, *, l_max: int, m_max: int, n_rings: int,
     w = sht_work(l_max, m_max, n_rings, n_phi, K, fft_lengths=fft_lengths,
                  spin=spin)
     kernel = backend.startswith("cuda")
+    ncomp = 1 if spin == 0 else 2
     byts = w["bytes"]
     if pipeline == "fused" and kernel:
-        ncomp = 1 if spin == 0 else 2
         byts -= 16.0 * (m_max + 1) * n_rings * K * ncomp   # Delta stays on-chip
     leg_scale = 1.0
     if layout in ("plain", "packed") and kernel:
@@ -199,6 +221,43 @@ def predict_sht_time(backend: str, *, l_max: int, m_max: int, n_rings: int,
     else:
         t += w["accum_flops"] * leg_scale / vec_rate
     t += byts / hw.hbm_bw
+    if backend == "dist" and n_devices > 1:
+        t /= n_devices
+        # one all-to-all of the (M, R, ncomp 2K) Delta block
+        wire = 16.0 * (m_max + 1) * n_rings * K * ncomp / n_devices \
+            * (n_devices - 1) / n_devices
+        comm = wire / hw.link_bw
+        C = max(1, int(comm_chunks))
+        if overlap and C > 1 and comm > 0.0:
+            comp_c = t / C
+            comm_c = comm / C + hw.coll_latency
+            t = comp_c + comm_c + (C - 1) * max(comp_c, comm_c)
+        else:
+            t += comm
     if direction == "anal":
         t *= m.anal_penalty
     return float(t)
+
+
+def predict_comm_chunks(*, l_max: int, m_max: int, n_rings: int, n_phi: int,
+                        K: int, direction: str = "synth",
+                        hw: Hardware = HW_H100, n_devices: int = 1,
+                        fft_lengths=None, spin: int = 0,
+                        max_chunks: int = 64) -> int:
+    """The model's ``comm_chunks`` for the dist backend's chunked exchange:
+    the argmin over powers of two of the overlapped
+    :func:`predict_sht_time`, capped by what the plan can split (the K map
+    axis, else the local m rows, as ``SHTPlan.chunk_schedule``)."""
+    if n_devices <= 1:
+        return 1
+    m_local = max(1, -(-(m_max + 2) // (2 * max(1, n_devices))) * 2)
+    cap = min(max_chunks, max(int(K), m_local))
+    cands = [1]
+    while cands[-1] * 2 <= cap:
+        cands.append(cands[-1] * 2)
+    t_of = {c: predict_sht_time(
+        "dist", l_max=l_max, m_max=m_max, n_rings=n_rings, n_phi=n_phi,
+        K=K, direction=direction, hw=hw, n_devices=n_devices,
+        fft_lengths=fft_lengths, spin=spin, overlap=True, comm_chunks=c)
+        for c in cands}
+    return int(min(t_of, key=t_of.get))

@@ -143,16 +143,18 @@ class CharDB:
             return None
         return rec
 
-    def get_or_measure(self, measure_fn: Callable[[], float], **fields):
+    def get_or_measure(self, measure_fn: Callable[[], float], *,
+                       reuse: bool = True, **fields):
         """``(us, status)`` of a corner: ``"reused"`` (a fresh record),
-        ``"measured"`` (``measure_fn()`` ran and was stored; a stale record
-        is measured again), or ``"skipped"`` (smoke mode and no fresh
-        record: ``us`` is None and the caller ranks by the cost model).
-        An exception of ``measure_fn`` propagates and stores nothing."""
+        ``"measured"`` (``measure_fn()`` ran and was stored; a stale record,
+        or any record with ``reuse=False``, is measured again), or
+        ``"skipped"`` (smoke mode and no fresh record: ``us`` is None and
+        the caller ranks by the cost model).  An exception of
+        ``measure_fn`` propagates and stores nothing."""
         key = self.corner_key(**fields)
         with _lock:
             rec = self._store.get(key)
-            if rec is not None and rec.get("schema") == SCHEMA:
+            if reuse and rec is not None and rec.get("schema") == SCHEMA:
                 self.counters["reused"] += 1
                 return rec.get("us"), "reused"
             if rec is not None:

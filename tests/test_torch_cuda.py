@@ -1514,3 +1514,167 @@ def test_plan_warmup_on_the_card(dev, spin):
     assert sum(fused_cuda.launches.values()) == 2
     assert torch.cuda.current_stream().query()
     transform.clear_plan_cache()
+
+
+# ---------------------------------------------------------------------------
+# the distributed transform on the card: NCCL at world size 1, GL 64 K 2
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def nccl_one():
+    """A NCCL process group of one rank over a HashStore (no ports), kept for
+    the module's dist tests and destroyed after them."""
+    import torch.distributed as tdist
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    if not tdist.is_initialized():
+        tdist.init_process_group(
+            "nccl", store=tdist.HashStore(), rank=0, world_size=1,
+            device_id=torch.device("cuda", torch.cuda.current_device()))
+    yield torch.device("cuda", torch.cuda.current_device())
+    tdist.destroy_process_group()
+
+
+def dist_alm(l_max, K, spin, dev, seed):
+    rng = np.random.default_rng(seed)
+    shape = ((2,) if spin else ()) + (l_max + 1, l_max + 1, K)
+    a = (rng.uniform(-1, 1, shape) + 1j * rng.uniform(-1, 1, shape)).astype(
+        np.complex64)
+    from repro_torch.core import sht
+    a *= sht.alm_mask(l_max, l_max, spin=spin)[..., None]
+    a[..., 0, :, :] = a[..., 0, :, :].real
+    return torch.as_tensor(a).to(dev)
+
+
+def dist_synth(d, alm):
+    """A DistSHT's synthesis of dense alm, in grid ring order."""
+    sp = d.plan
+    if alm.ndim == 4:
+        qu = d.alm2map_spin(torch.stack([sp.pack_alm(alm[0]),
+                                         sp.pack_alm(alm[1])]))
+        return torch.stack([sp.scatter_map(qu[0]), sp.scatter_map(qu[1])])
+    return sp.scatter_map(d.alm2map(sp.pack_alm(alm)))
+
+
+def dist_anal(d, maps):
+    sp = d.plan
+    if maps.ndim == 4:
+        eb = d.map2alm_spin(torch.stack([sp.gather_map(maps[0]),
+                                         sp.gather_map(maps[1])]))
+        return torch.stack([sp.unpack_alm(eb[0]), sp.unpack_alm(eb[1])])
+    return sp.unpack_alm(d.map2alm(sp.gather_map(maps)))
+
+
+@pytest.mark.parametrize("spin", [0, 2])
+@pytest.mark.parametrize("variant", ["vpu", "mxu"])
+def test_dist_path_matches_the_serial_kernel_plan(nccl_one, variant, spin):
+    """DistSHT(stage1="cuda") at world size 1 against the serial plain plan
+    of the same kernels: synthesis bit for bit (the same (m, ring)
+    arithmetic, cuFFT at the same lengths), C 2 bit for bit against C 1,
+    analysis within 1e-6 of max (its rings summed pair-interleaved)."""
+    from repro_torch.core.dist_sht import DistSHT
+    from repro_torch.core.plan import SHTPlan
+    dev, l_max, K = nccl_one, 64, 2
+    serial = repro_torch.make_plan("gl", l_max, K=K, dtype="float32",
+                                   mode=f"cuda_{variant}", layout="plain",
+                                   spin=spin, device=dev)
+    sp = SHTPlan(serial.grid, l_max, l_max, 1)
+    alm = dist_alm(l_max, K, spin, dev, 64 + spin)
+    want_s = serial.alm2map(alm)
+    want_a = serial.map2alm(want_s)
+    outs = {}
+    for C in (1, 2):
+        d = DistSHT(sp, device=dev, dtype="float32", stage1="cuda",
+                    comm_chunks=C, variant=variant)
+        lc.reset_launches()
+        outs[C] = dist_synth(d, alm)
+        torch.cuda.synchronize()
+        assert lc.launches[f"synth_{variant}" + ("_spin" if spin else "")] \
+            >= 1
+        assert torch.equal(outs[C], want_s)
+        assert rel(dist_anal(d, want_s), want_a) < 1e-6
+    assert torch.equal(outs[2], outs[1])
+
+
+@pytest.mark.parametrize("layout", ["plain", "packed"])
+def test_dist_dealt_rows_match_the_full_run(nccl_one, layout):
+    """SHTPlan(n_shards=4): each rank's dealt rows through the stage-1
+    adapters (mxu: kernels 2 and 4 plain, 6 and 8 packed) against the
+    matching rows of the one-rank run; padding rows exactly zero."""
+    from repro_torch.core.plan import SHTPlan, _slot_of
+    dev, l_max, K = nccl_one, 64, 2
+    g = grids.make_grid("gl", l_max=l_max)
+    sp1, sp4 = (SHTPlan(g, l_max, l_max, n) for n in (1, 4))
+    log_mu = legendre.log_mu(l_max)
+    alm = sp1.pack_alm(dist_alm(l_max, K, 0, dev, 65))
+    full = ops.delta_from_alm_auto(alm.real, alm.imag, sp1.m_flat,
+                                   sp1.ring_geometry, log_mu, l_max=l_max,
+                                   variant="mxu")
+    gen = torch.Generator().manual_seed(66)
+    dw = [(torch.rand((alm.shape[0], sp1.r_pad, K), generator=gen) * 2 - 1)
+          .to(dev) for _ in range(2)]
+    full_a = ops.alm_from_delta_auto(*dw, sp1.m_flat, sp1.ring_geometry,
+                                     log_mu, l_max=l_max, variant="mxu")
+    slot = _slot_of(sp1.m_flat, l_max + 1)
+    R1 = sp1.r_pad
+    base = "" if layout == "plain" else "packed_"
+    fused_cuda.reset_launches()
+    lc.reset_launches()
+    for r in range(4):
+        rows = sp4.m_assignment[r]
+        live = torch.as_tensor(rows >= 0, device=dev)
+        idx = torch.as_tensor(slot[np.maximum(rows, 0)], device=dev)
+        a = alm.index_select(0, idx) * live[:, None, None]
+        got = ops.delta_from_alm_auto(
+            a.real.contiguous(), a.imag.contiguous(), rows,
+            sp4.ring_geometry, log_mu, l_max=l_max, variant="mxu",
+            layout=layout)
+        for g_, f_ in zip(got, full):
+            want = f_.index_select(0, idx)
+            if layout == "plain":
+                assert torch.equal(g_[live][:, :R1], want[live])
+            else:
+                assert rel(g_[live][:, :R1], want[live]) < 1e-6
+            assert not bool(g_[~live].any())
+        pad = torch.zeros((len(rows), sp4.r_pad - R1, K), device=dev)
+        w = [torch.cat([t.index_select(0, idx) * live[:, None, None], pad],
+                       dim=1) for t in dw]
+        got_a = ops.alm_from_delta_auto(*w, rows, sp4.ring_geometry, log_mu,
+                                        l_max=l_max, variant="mxu",
+                                        layout=layout)
+        for g_, f_ in zip(got_a, full_a):
+            assert rel(g_[live], f_.index_select(0, idx)[live]) < 1e-6
+            assert not bool(g_[~live].any())
+    counts = {**lc.launches, **fused_cuda.launches}
+    assert counts[f"synth_{base}mxu"] == 4 and counts[f"anal_{base}mxu"] == 4
+
+
+def test_dist_gradients_on_the_card(nccl_one):
+    """<A x, y> against <x, A^T y> through autograd on the dist path; the
+    backward of the synthesis launches the analysis kernel."""
+    from repro_torch.core.dist_sht import DistSHT
+    from repro_torch.core.plan import SHTPlan
+    dev, l_max, K = nccl_one, 64, 8
+    g = grids.make_grid("gl", l_max=l_max)
+    d = DistSHT(SHTPlan(g, l_max, l_max, 1), device=dev, dtype="float32",
+                stage1="cuda", comm_chunks=2)
+    gen = torch.Generator().manual_seed(67)
+    a = dist_alm(l_max, K, 0, dev, 67).requires_grad_(True)
+    t = torch.randn((g.n_rings, g.max_n_phi, K), generator=gen).to(dev)
+    lhs = (dist_synth(d, a) * t).sum()
+    lc.reset_launches()
+    (grad,) = torch.autograd.grad(lhs, a)
+    torch.cuda.synchronize()
+    assert lc.launches["anal_mxu"] == 2      # one a chunk of the k axis
+    a = a.detach()
+    rhs = float((a.real * grad.real + a.imag * grad.imag).sum())
+    assert abs(lhs.item() - rhs) <= 2e-3 * abs(rhs)
+    maps = torch.randn((g.n_rings, g.max_n_phi, K), generator=gen).to(dev)
+    maps.requires_grad_(True)
+    b = dist_alm(l_max, K, 0, dev, 68)
+    out = dist_anal(d, maps)
+    lhs = (out.real * b.real + out.imag * b.imag).sum()
+    (grad,) = torch.autograd.grad(lhs, maps)
+    rhs = float((maps.detach() * grad).sum())
+    assert abs(lhs.item() - rhs) <= 2e-3 * abs(rhs)

@@ -307,7 +307,8 @@ def test_fused_plan_store_keeps_indices_and_skips_identity_tables(variant):
 def test_port_imports_neither_jax_nor_the_reference():
     """The port package and chip_smoke.py import nothing of JAX or of
     ``repro``: a fresh interpreter with both blocked imports every module,
-    runs a fused CPU round trip and serves two requests on the CPU."""
+    runs a fused CPU round trip, serves two requests on the CPU, and runs
+    a distributed round trip on a gloo group of one rank."""
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     code = (
         "import sys\n"
@@ -332,6 +333,16 @@ def test_port_imports_neither_jax_nor_the_reference():
         "eng.drain()\n"
         "assert [f.result().shape for f in futs] == [(9, 18)] * 2\n"
         "assert eng.batch_log[0]['n_requests'] == 2\n"
+        "import torch.distributed as dist\n"
+        "from repro_torch.core import comm_model, dist_sht, plan\n"
+        "dist.init_process_group('gloo', store=dist.HashStore(), rank=0,"
+        " world_size=1)\n"
+        "sp = plan.SHTPlan(p.grid, 8, 8, 1)\n"
+        "d = dist_sht.DistSHT(sp, device='cpu', dtype='float32',"
+        " stage1='plain', comm_chunks=2)\n"
+        "back = sp.unpack_alm(d.map2alm(d.alm2map(sp.pack_alm(a))))\n"
+        "assert spectra.d_err(a, back) < 1e-5\n"
+        "dist.destroy_process_group()\n"
         "sys.path.insert(0, sys.argv[1])\n"
         "import chip_smoke\n")
     env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))

@@ -71,16 +71,18 @@ def test_default_mode_follows_the_static_variant_rule(dtype, K, want):
     (dict(grid="healpix", spin=2), "item 8"),
     (dict(grid="healpix"), "item 8"), (dict(grid="ecp"), "item 8")])
 def test_unported_requests_name_their_roadmap_item(kwargs, item):
-    """Requests waiting on a ROADMAP item raise naming it (dist: item 11).
-    The requests items 8 and 9 named while they were open are ported and
-    now build plans (the cases keep their IDs): ECP and the HEALPix family,
-    spin 0 and 2, on every kernel layout; modes auto and model, which
-    choose a backend per direction (float64: the torch oracle alone) and,
-    in float32, a kernel backend and layout whose transforms agree with the
-    oracle."""
+    """The requests ROADMAP items 8, 9 and 11 named while they were open
+    are ported (the cases keep their IDs).  Item 11, mode "dist", runs over
+    an initialised process group of >= 2 ranks (tests/test_torch_dist.py);
+    this process has none, so it raises with the reference's reason.
+    Items 8 and 9 build plans: ECP and the HEALPix family, spin 0 and 2,
+    on every kernel layout; modes auto and model, which choose a backend
+    per direction (float64: the torch oracle alone) and, in float32, a
+    kernel backend and layout whose transforms agree with the oracle."""
     kwargs = dict(dict(grid="gl", l_max=8, device="cpu"), **kwargs)
     if item == "item 11":
-        with pytest.raises(ValueError, match=item):
+        with pytest.raises(ValueError, match=r"needs >= 2 devices "
+                                             r"\(visible: 1\)"):
             repro_torch.make_plan(**kwargs)
         return
     if item == "item 9":
@@ -246,7 +248,12 @@ def test_describe_and_report_well_formed():
     assert "seeds" in d["cache"]["events"]
     text = plan.report()
     assert "synth -> cuda_mxu[fused]" in text and "device=cpu" in text
-    assert "skipped" not in text
+    # only dist is skipped: this process has no group of >= 2 ranks
+    assert [line for line in text.splitlines() if "skipped" in line] == [
+        f"  skipped dist: {plan.skipped['dist']}"]
+    assert d["comm"] == {"spec": "auto",
+                         "chunks": {"synth": None, "anal": None},
+                         "pipelined": {"synth": False, "anal": False}}
 
 
 def test_lazy_top_level_api():
