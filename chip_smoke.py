@@ -49,9 +49,17 @@ both directions, spin 0 and 2, one exchange and two chunks, against the
 serial plain plan (synthesis bit for bit), each of 4 ranks' dealt rows
 through the stage-1 adapters (plain and packed kernels), the vpu variant
 at K 1, the bfloat16 exchange and a dot identity through autograd, with
-kernels 1-8 counted on the dist path.  Each phase and each path logs its
-wall seconds and the seconds of its plain-version calls, gathered in a
-timeline at the end.
+kernels 1-8 counted on the dist path.  Last, the dense decoders' serving
+path (``repro_torch.models``, no hand-written kernel on it): qwen3-8b at
+its published widths and full depth in bfloat16, weights drawn on the
+card from a seed, prefills B 4 x 512 tokens and decodes 32 steps through
+``make_bundle(...).prefill_fn`` / ``decode_fn`` (times, tokens/s, peak
+memory), holds its prefill to token-by-token decode and runs one loss
+forward; then the same widths in float32 at two layers, card against
+the CPU on the same weights.  The SHT shapes come from
+``repro_torch.configs.sht_cmb.SHT_SHAPES``.  Each phase and each path
+logs its wall seconds and the seconds of its plain-version calls,
+gathered in a timeline at the end.
 Prints the card's name and power limit, one JSON line of per-kernel
 numbers, and as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -62,6 +70,7 @@ rest of the repository.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import hashlib
 import json
 import os
@@ -83,6 +92,9 @@ from repro_torch.kernels import build, fused, fused_cuda, ops, pack  # noqa: E40
 from repro_torch.kernels import legendre_cuda as lc  # noqa: E402
 from repro_torch.kernels import ref as kref  # noqa: E402
 from repro_torch.core import grids, legendre  # noqa: E402
+from repro_torch.configs import registry as model_registry  # noqa: E402
+from repro_torch.configs.sht_cmb import SHT_SHAPES  # noqa: E402
+from repro_torch.models.model import make_bundle  # noqa: E402
 
 #: H100 SXM datasheet peaks (dense, 700 W): float32 on the CUDA cores, bf16
 #: on the tensor cores, and HBM3
@@ -119,12 +131,16 @@ BF16_KERNEL_TOL = 1e-5
 #: the reference's band for bf16 against float32 (tests/test_fused.py):
 #: 0 < err < 1e-2; err > 0 catches a path that stays in float32
 BF16_GATE = 1e-2
+#: the sht_cmb shapes (``repro_torch.configs.sht_cmb.SHT_SHAPES``) the
+#: main paths, the gradient step and phases 6-8 run at
+SYNTH_2K = SHT_SHAPES["synth_2k_k8"]
+SYNTH_4K = SHT_SHAPES["synth_4k_k1"]
 #: l_max of the kernel checks (phase 2) and the dot identities (phase 5),
 #: of the float64 anchor (phase 4), and (l_max, K) of the full-width
 #: gradient step (phase 5): the sht_cmb main shape of the mxu variant
 CHECK_L_MAX = 256
 ANCHOR_L_MAX = 512
-GRAD_SHAPE = (2048, 8)
+GRAD_SHAPE = (SYNTH_2K.l_max, SYNTH_2K.K)
 #: the plan-level dot identity <A x, y> = <x, A^T y> through autograd in
 #: float32: the reference's band (tests/test_adjoint.py)
 DOT_TOL = 2e-3
@@ -707,9 +723,12 @@ def check_bucket_chains(dev, spin: int = 0) -> None:
 #: packed layout at l_max 1024 (cut from the sht_cmb depth to keep the
 #: script's time in bounds once the ragged paths joined); each runs as the
 #: spin-0 pair and as the spin-2 (E, B) <-> (Q, U) pair
-MAIN_PATH = (("cuda_mxu", 2048, 8, "fused"), ("cuda_vpu", 4096, 1, "fused"),
-             ("cuda_mxu", 2048, 8, "plain"), ("cuda_vpu", 4096, 1, "plain"),
-             ("cuda_mxu", 1024, 8, "packed"), ("cuda_vpu", 1024, 1, "packed"))
+MAIN_PATH = (("cuda_mxu", SYNTH_2K.l_max, SYNTH_2K.K, "fused"),
+             ("cuda_vpu", SYNTH_4K.l_max, SYNTH_4K.K, "fused"),
+             ("cuda_mxu", SYNTH_2K.l_max, SYNTH_2K.K, "plain"),
+             ("cuda_vpu", SYNTH_4K.l_max, SYNTH_4K.K, "plain"),
+             ("cuda_mxu", 1024, SYNTH_2K.K, "packed"),
+             ("cuda_vpu", 1024, SYNTH_4K.K, "packed"))
 SPINS = (0, 2)
 #: the ring stride of the plain versions on the costliest checks: there the
 #: kernels run on every ring of the full-depth shape (the analyses on their
@@ -723,13 +742,14 @@ RING_STRIDE = 8
 #: plain versions contract the spin update through an emulated FMA
 #: (``kref.fma_f32``), and the ragged paths whose plain versions cost the
 #: most (HEALPix 2048/K1; HEALPix 1024/K8 spin 2, fused and plain)
-RING_SUBSET_PATHS = {("gl", 4096, "fused", 2), ("gl", 4096, "plain", 2),
+RING_SUBSET_PATHS = {("gl", SYNTH_4K.l_max, "fused", 2),
+                     ("gl", SYNTH_4K.l_max, "plain", 2),
                      ("healpix", 2048, "fused", 0),
                      ("healpix", 1024, "fused", 2),
                      ("healpix", 1024, "plain", 2)}
 #: l_max of the vpu templates' fold check (GL, K 1), the main shape; held
 #: on a ring subset
-FOLD_VPU_L_MAX = 4096
+FOLD_VPU_L_MAX = SYNTH_4K.l_max
 #: (grid, size, mode, K, layout, spins): the ragged-grid paths at full width
 #: (size: nside of the HEALPix family, l_max of ECP; l_max = 2 nside)
 RAGGED_PATHS = (
@@ -1730,7 +1750,7 @@ RAGGED_ANCHORS = (("healpix", 256, (0, 2), ("fused", "plain", "packed")),
 DOT_NSIDE = 128
 #: (grid, l_max, K) of phase 6, the cost model and the measured autotune:
 #: the sht_cmb synth_2k_k8 shape, and phase 6's budget in seconds
-AUTOTUNE_SHAPE = ("gl", 2048, 8)
+AUTOTUNE_SHAPE = (SYNTH_2K.grid, SYNTH_2K.l_max, SYNTH_2K.K)
 AUTOTUNE_BUDGET_S = 90.0
 
 
@@ -1822,7 +1842,7 @@ def autotune_path(spin: int) -> None:
 #: (direction, spin) blocks of 5 repeated SERVE_BLOCKS times (24 alm2map
 #: spin 0, 8 alm2map spin 2, 8 map2alm spin 0); engine B's requests; and
 #: phase 7's budget in seconds
-SERVE_L_MAX = 2048
+SERVE_L_MAX = SYNTH_2K.l_max
 SERVE_BLOCK = (("alm2map", 0), ("alm2map", 0), ("alm2map", 0),
                ("alm2map", 2), ("map2alm", 0))
 SERVE_BLOCKS = 8
@@ -2074,7 +2094,7 @@ def serve_cli() -> None:
 
 #: (grid, l_max, K) of phase 8: the sht_cmb synth_2k_k8 shape; its
 #: process-group backend and its stage 1; its budget in seconds
-DIST_SHAPE = ("gl", 2048, 8)
+DIST_SHAPE = (SYNTH_2K.grid, SYNTH_2K.l_max, SYNTH_2K.K)
 DIST_BACKEND = "nccl"
 DIST_STAGE1 = "cuda"
 DIST_BUDGET_S = 45.0
@@ -2449,6 +2469,223 @@ def dist_phase(dev) -> None:
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the dense decoders' serving path (repro_torch.models)
+# ---------------------------------------------------------------------------
+
+#: the architecture of phase 9, at its published widths and depth
+MODEL_ARCH = "qwen3-8b"
+MODEL_SEED = 9
+#: (a): prefill (B, S), then MODEL_DECODE_STEPS decode steps; the
+#: stepwise check (B, S); the loss forward (B, S)
+MODEL_PREFILL = (4, 512)
+MODEL_DECODE_STEPS = 32
+MODEL_STEPWISE = (1, 16)
+MODEL_LOSS = (2, 512)
+#: (a): bfloat16 prefill against token-by-token decode, relative to
+#: max|prefill logits|.  Both round every product and elementwise result
+#: to bfloat16, at other GEMM shapes (M = S against M = 1), so the
+#: hidden states drift by bfloat16 ulps (2^-8 relative) layer by layer.
+#: On the CPU the port's bf16 logits sit 1.25e-2 from the reference's at
+#: depth 2 and its prefill 1.85e-2 from its stepwise decode at depth 36
+#: (reduced widths, tests/test_torch_models.py and PERF.md); the limit is
+#: 5e-2, while a wrong cache slot, position or mask moves the logits O(1).
+MODEL_STEPWISE_TOL = 5e-2
+#: (b): float32 at the same widths, depth cut to MODEL_F32_LAYERS: the
+#: card against the port's CPU run on the same weights (TF32 off), relative
+#: to max|CPU|; (B, prompt, decode steps) of its run, kept short: the CPU
+#: half reads the 2.5 GB float32 embedding for every logit row batch (12.4
+#: s of (b) at (2, 32, 4) on the card's host, PR 26)
+MODEL_F32_LAYERS = 2
+MODEL_F32_RUN = (2, 16, 2)
+MODEL_F32_TOL = 1e-4
+#: phase 9's budget in seconds
+MODEL_BUDGET_S = 20.0
+
+
+def model_tokens(gen, B: int, S: int, vocab: int, dev) -> torch.Tensor:
+    return torch.randint(0, vocab, (B, S), generator=gen, device=dev,
+                         dtype=torch.int32)
+
+
+def event_ms(fn) -> tuple:
+    """(result, device ms) of one call of ``fn`` between CUDA events."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def model_bounds(cfg, B: int, S: int, weight_bytes: int) -> tuple:
+    """Least times (ms) of a prefill of (B, S) and of one decode step at
+    batch B after S tokens: bf16 products at the bf16 peak (attention's
+    float32 scores and values at the float32 peak) against the weights
+    read once (and, for decode, the cache read once)."""
+    hd, H, KvH = cfg.hd, cfg.n_heads, cfg.n_kv_heads
+    d, F, L, V = cfg.d_model, cfg.d_ff, cfg.n_layers, cfg.vocab
+    per_tok = 2 * (d * (H + 2 * KvH) * hd + H * hd * d + 3 * d * F)
+    # QK^T and PV over the causal triangle: S(S+1)/2 key positions a query
+    attn = 2 * 2 * B * H * (S * (S + 1) // 2) * hd
+    pre_flops = L * (B * S * per_tok) + 2 * B * d * V
+    pre_ms = max(pre_flops / PEAK_BF16_FLOPS * 1e3
+                 + L * attn / PEAK_F32_FLOPS * 1e3,
+                 weight_bytes / PEAK_BYTES_S * 1e3)
+    cache = L * 2 * B * S * KvH * hd * 2
+    dec_ms = max((L * B * per_tok + 2 * B * d * V) / PEAK_BF16_FLOPS * 1e3,
+                 (weight_bytes + cache) / PEAK_BYTES_S * 1e3)
+    return pre_ms, dec_ms
+
+
+def model_full_width(dev) -> dict:
+    """(a) MODEL_ARCH at full width and depth in its bfloat16: prefill and
+    decode timed, finite logits, prefill against stepwise decode, one loss
+    forward."""
+    cfg = model_registry.get(MODEL_ARCH)
+    bundle = make_bundle(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    model, init_ms = event_ms(lambda: bundle.init(MODEL_SEED))
+    n = sum(p.numel() for p in model.parameters())
+    wbytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    log(f"  {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.hd}, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab}, {cfg.param_dtype}: {n} parameters "
+        f"(config count {cfg.n_params()}), {wbytes / 1e9:.2f} GB, drawn on "
+        f"the card in {init_ms:.0f} ms")
+    norms = cfg.n_layers * (2 * cfg.d_model
+                            + (2 * cfg.hd if cfg.qk_norm else 0)) + cfg.d_model
+    if cfg.qkv_bias or n != cfg.n_params() + norms:
+        raise AssertionError(f"{n} parameters: not the config's count plus "
+                             f"its {norms} norm scales")
+    gen = torch.Generator(device=dev).manual_seed(MODEL_SEED)
+    B, S = MODEL_PREFILL
+    steps = MODEL_DECODE_STEPS
+    toks = model_tokens(gen, B, S + steps, cfg.vocab, dev)
+    # a warm-up prefill (cuBLAS handles and workspaces), then the timed one
+    bundle.prefill_fn(model, {"tokens": toks[:, :S]},
+                      bundle.init_caches(B, S + steps))
+    caches = bundle.init_caches(B, S + steps)
+    (logits, caches), pre_ms = event_ms(lambda: bundle.prefill_fn(
+        model, {"tokens": toks[:, :S]}, caches))
+    finite = [bool(torch.isfinite(logits).all())]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in range(S, S + steps):
+        logits, caches = bundle.decode_fn(model, toks[:, t:t + 1], t, caches)
+        finite.append(bool(torch.isfinite(logits).all()))
+    torch.cuda.synchronize()
+    dec_ms = (time.perf_counter() - t0) * 1e3 / steps
+    pre_bound, dec_bound = model_bounds(cfg, B, S, wbytes)
+    run = {"prefill_ms": pre_ms, "decode_ms": dec_ms,
+           "prefill_tok_s": B * S / pre_ms * 1e3,
+           "decode_tok_s": B / dec_ms * 1e3,
+           "prefill_bound_ms": pre_bound, "decode_bound_ms": dec_bound}
+    log(f"  prefill B {B} x {S}: {pre_ms:.1f} ms (CUDA events), "
+        f"{run['prefill_tok_s']:.0f} tokens/s, bound {pre_bound:.1f} ms")
+    log(f"  decode {steps} steps at B {B}: {dec_ms:.2f} ms a step "
+        f"(host clock, synchronised), {run['decode_tok_s']:.0f} tokens/s, "
+        f"bound {dec_bound:.2f} ms a step (weights + cache read once)")
+    if not all(finite):
+        raise AssertionError(f"{cfg.name}: non-finite logits at steps "
+                             f"{[i for i, f in enumerate(finite) if not f]}")
+    del caches, logits
+    B1, S1 = MODEL_STEPWISE
+    toks1 = model_tokens(gen, B1, S1, cfg.vocab, dev)
+    lp, _ = bundle.prefill_fn(model, {"tokens": toks1},
+                              bundle.init_caches(B1, S1))
+    c = bundle.init_caches(B1, S1)
+    for t in range(S1):
+        ld, c = bundle.decode_fn(model, toks1[:, t:t + 1], t, c)
+    gap = float((lp - ld).abs().max() / lp.abs().max())
+    log(f"  prefill vs token-by-token decode (B {B1}, {S1} tokens): rel. "
+        f"gap {gap:.3e} (limit {MODEL_STEPWISE_TOL:g}), max|logit| "
+        f"{float(lp.abs().max()):.3f}")
+    if not gap < MODEL_STEPWISE_TOL:
+        raise AssertionError(f"{cfg.name}: prefill vs stepwise decode {gap}")
+    B2, S2 = MODEL_LOSS
+    with torch.no_grad():
+        loss, loss_ms = event_ms(lambda: bundle.loss_fn(
+            model, {"tokens": model_tokens(gen, B2, S2, cfg.vocab, dev)}))
+    log(f"  loss forward B {B2} x {S2}: {float(loss):.4f} in "
+        f"{loss_ms:.1f} ms (ln vocab {np.log(cfg.vocab):.4f})")
+    if not np.isfinite(float(loss)):
+        raise AssertionError(f"{cfg.name}: loss {float(loss)}")
+    run.update(stepwise_gap=gap, loss=float(loss),
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    log(f"  peak memory {run['peak_gb']:.2f} GB "
+        "(torch.cuda.max_memory_allocated)")
+    del model
+    torch.cuda.empty_cache()
+    return run
+
+
+def model_card_vs_cpu(dev) -> None:
+    """(b) the same widths in float32, MODEL_F32_LAYERS layers: weights
+    drawn on the card, copied to the host; prefill logits, each decode
+    step's logits and the loss held to the port's CPU run on them."""
+    cfg = dataclasses.replace(model_registry.get(MODEL_ARCH),
+                              n_layers=MODEL_F32_LAYERS,
+                              param_dtype="float32", compute_dtype="float32")
+    gpu, cpu = make_bundle(cfg), make_bundle(cfg, device="cpu")
+    t0 = time.perf_counter()
+    model = gpu.init(MODEL_SEED + 1)
+    host = cpu.from_state(model.state_dict())
+    secs = [time.perf_counter() - t0]
+    B, S, steps = MODEL_F32_RUN
+    toks = model_tokens(torch.Generator().manual_seed(MODEL_SEED), B,
+                        S + steps, cfg.vocab, "cpu")
+    gaps = []
+
+    def hold(what, got, want):
+        gap = float((got.cpu() - want).abs().max() / want.abs().max())
+        gaps.append(gap)
+        if not gap < MODEL_F32_TOL:
+            raise AssertionError(f"float32 {what}: card vs CPU {gap}")
+
+    runs = []
+    for b, m in ((gpu, model), (cpu, host)):
+        t0 = time.perf_counter()
+        t = toks.to(b.device)
+        logits, c = b.prefill_fn(m, {"tokens": t[:, :S]},
+                                 b.init_caches(B, S + steps))
+        outs = [logits]
+        for i in range(S, S + steps):
+            logits, c = b.decode_fn(m, t[:, i:i + 1], i, c)
+            outs.append(logits)
+        with torch.no_grad():
+            outs.append(b.loss_fn(m, {"tokens": t}).reshape(1))
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        runs.append(outs)
+    for i, (got, want) in enumerate(zip(*runs)):
+        hold("prefill" if i == 0 else "loss" if i == len(runs[0]) - 1
+             else f"decode step {i}", got, want)
+    log(f"  float32, {MODEL_F32_LAYERS} layers, B {B}, prompt {S}, {steps} "
+        f"decode steps, loss: card vs CPU rel. gaps "
+        f"{', '.join(f'{g:.2e}' for g in gaps)} (limit {MODEL_F32_TOL:g}; "
+        f"TF32 off); s: draw + copy to the host {secs[0]:.1f}, card "
+        f"{secs[1]:.1f}, CPU {secs[2]:.1f}")
+    del model, host
+    torch.cuda.empty_cache()
+
+
+def model_phase(dev, card: str) -> dict:
+    """Phase 9: (a) then (b); fails past MODEL_BUDGET_S."""
+    log(f"  card: {card}")
+    t0 = time.perf_counter()
+    with stamped("(a) qwen3-8b full width bf16"):
+        run = model_full_width(dev)
+    with stamped("(b) float32 card vs CPU"):
+        model_card_vs_cpu(dev)
+    wall = time.perf_counter() - t0
+    if wall > MODEL_BUDGET_S:
+        raise AssertionError(f"phase 9 took {wall:.1f} s, budget "
+                             f"{MODEL_BUDGET_S:g} s")
+    return run
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -2575,6 +2812,13 @@ def main() -> int:
         f"{DIST_SHAPE[2]} (budget {DIST_BUDGET_S:g} s)")
     with stamped("phase 8"):
         dist_phase(dev)
+
+    torch.cuda.empty_cache()
+    log(f"{elapsed()} phase 9: the dense decoders' serving path, "
+        f"{MODEL_ARCH} at full width (budget {MODEL_BUDGET_S:g} s; TF32 "
+        "off for every float32 product)")
+    with stamped("phase 9"):
+        model_phase(dev, card)
 
     log("timeline: wall s | plain-version s")
     for label, wall, plain in TIMELINE:

@@ -15,6 +15,11 @@ spin rows.
 reference ``RingGrid`` and ``BucketLayout`` (host numpy geometry) across
 as the port's own, for plans and bucket indices built on the reference's
 exact geometry.
+
+:func:`lm_state_from_reference` carries a language model's weights: the
+reference's parameter tree as numpy arrays becomes the ``state_dict`` of
+the port's ``models.transformer.LM``, so one set of weights runs through
+both packages.
 """
 
 from __future__ import annotations
@@ -27,7 +32,8 @@ import torch
 from repro_torch.core.grids import BucketLayout, RingGrid
 from repro_torch.core.transform import resolve_device
 
-__all__ = ["from_reference", "grid_from_reference", "layout_from_reference"]
+__all__ = ["from_reference", "grid_from_reference", "layout_from_reference",
+           "lm_state_from_reference"]
 
 #: field -> (dtype, ndim) in the port; ``None`` keeps the array's own
 #: (float or complex) precision; ``alm`` and ``maps`` also take the spin-2
@@ -122,3 +128,55 @@ def layout_from_reference(layout) -> BucketLayout:
     return BucketLayout(tuple(int(b) for b in layout.lengths),
                         tuple(np.array(s, dtype=np.int64)
                               for s in layout.slots))
+
+
+def _tensor(a: np.ndarray) -> torch.Tensor:
+    """A numpy array as a tensor, bfloat16 (``ml_dtypes``, which numpy
+    knows only by name) included; values copied."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(np.array(a, copy=True).view(np.int16)
+                                ).view(torch.bfloat16)
+    return torch.from_numpy(np.array(a, copy=True))
+
+
+def lm_state_from_reference(cfg, params: Mapping, device=None
+                            ) -> dict[str, torch.Tensor]:
+    """The reference's LM parameter tree (``make_bundle(cfg).init(key)``,
+    leaves as numpy arrays) -> the port ``LM``'s ``state_dict`` on
+    ``device`` (``None``: the CUDA device, which must be visible).
+
+    Keys follow the reference's paths (``embed.table``,
+    ``final_norm.scale``, ``lm_head.w``, and per layer ``ln1``/``ln2``
+    ``.scale``, ``attn.wq``/``wk``/``wv``/``wo`` ``.w`` and ``.b``,
+    ``attn.q_norm``/``k_norm`` ``.scale``, ``mlp.gate``/``up``/``down``
+    ``.w``); each group's leading stacked-layer axis is unstacked into
+    ``layers.<i>`` in the port's layer order (each repeat's pattern in
+    turn).  Dtypes are kept.
+    """
+    from repro_torch.models.transformer import build_groups
+    device = resolve_device(device)
+    out: dict[str, torch.Tensor] = {}
+
+    def walk(prefix: str, tree, take=None):
+        if isinstance(tree, Mapping):
+            for k, v in tree.items():
+                walk(f"{prefix}{k}.", v, take)
+            return
+        a = np.asarray(tree)
+        out[prefix[:-1]] = _tensor(a if take is None else a[take]).to(device)
+
+    for k in params:
+        if k != "groups":
+            walk(f"{k}.", params[k])
+    groups = build_groups(cfg)
+    if len(params["groups"]) != len(groups):
+        raise ValueError(f"{len(params['groups'])} parameter groups, the "
+                         f"config has {len(groups)}")
+    layer = 0
+    for (pat, n_rep), stacked in zip(groups, params["groups"]):
+        for r in range(n_rep):
+            for j in range(len(pat)):
+                walk(f"layers.{layer}.", stacked[j], take=r)
+                layer += 1
+    return out

@@ -1678,3 +1678,49 @@ def test_dist_gradients_on_the_card(nccl_one):
     (grad,) = torch.autograd.grad(lhs, maps)
     rhs = float((maps.detach() * grad).sum())
     assert abs(lhs.item() - rhs) <= 2e-3 * abs(rhs)
+
+
+# -- the dense decoders (repro_torch.models) --------------------------------------
+
+MODEL_ARCHS = ["qwen2-0.5b", "qwen3-8b", "qwen1.5-32b", "h2o-danube-3-4b",
+               "internvl2-1b"]
+
+
+@pytest.mark.parametrize("name", MODEL_ARCHS)
+def test_model_on_the_card_matches_the_cpu(dev, name):
+    """A reduced float32 model, weights drawn on the card and copied to
+    the host: the loss, the prefill logits (96 tokens on the
+    sliding-window model, past its window of 64) and 4 decode steps' logits
+    on the card against the CPU within 1e-4 x max|CPU|, TF32 off."""
+    from repro_torch.configs import base, registry
+    from repro_torch.models.model import make_bundle
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = base.reduced(registry.ARCHS[name])
+    gpu, cpu = make_bundle(cfg), make_bundle(cfg, device="cpu")
+    assert gpu.device.type == "cuda"
+    model = gpu.init(3)
+    host = cpu.from_state(model.state_dict())
+    prompt = 96 if cfg.sliding_window else 16
+    gen = torch.Generator().manual_seed(4)
+    toks = torch.randint(0, cfg.vocab, (2, prompt + 4), generator=gen,
+                         dtype=torch.int32)
+    batch = {"tokens": toks}
+    if cfg.frontend == "vision_stub":
+        batch["patch_embeds"] = torch.randn((2, 8, cfg.d_model),
+                                            generator=gen)
+    runs = []
+    for b, m in ((gpu, model), (cpu, host)):
+        on = {k: v.to(b.device) for k, v in batch.items()}
+        with torch.no_grad():
+            outs = [b.loss_fn(m, on).reshape(1)]
+        t = on["tokens"]
+        logits, c = b.prefill_fn(m, {"tokens": t[:, :prompt]},
+                                 b.init_caches(2, 128))
+        outs.append(logits)
+        for i in range(prompt, prompt + 4):
+            logits, c = b.decode_fn(m, t[:, i:i + 1], i, c)
+            outs.append(logits)
+        runs.append(outs)
+    for got, want in zip(*runs):
+        assert got.device.type == "cuda" and bool(torch.isfinite(got).all())
+        assert rel(got.cpu(), want) < 1e-4
